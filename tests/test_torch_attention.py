@@ -7,7 +7,7 @@ inputs made from a seeded numpy generator. f32 throughout: o to 2e-5
 and lse to 1e-5 (summation order differs between the dense and the
 blockwise online softmax). The CUDA kernel itself is held to its plain
 version on the card (``cuda`` marker; chip_smoke.py runs the same check
-at the serving shapes).
+at the serving shapes). Gradients: tests/test_torch_attention_grad.py.
 """
 
 import jax.numpy as jnp
@@ -90,11 +90,15 @@ def test_cpu_call_takes_the_plain_version_and_launches_nothing():
 
 
 def test_requires_grad_raises():
+    """Once forward-only (it raised); now a tensor that requires grad gets
+    its gradient through the plain backward, and no_grad still infers."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 16, 2, 2, 32))
-    with pytest.raises(NotImplementedError):
-        A.flash_attention(q.requires_grad_(), k, v)
+    o = A.flash_attention(q.requires_grad_(), k, v)
+    (dq,) = torch.autograd.grad(o.sum(), q)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
+    assert float(dq.abs().max()) > 0
     with torch.no_grad():                    # no gradient asked for: fine
-        A.flash_attention(q, k, v)
+        assert not A.flash_attention(q, k, v).requires_grad
 
 
 def test_window_validation_matches_jax():
@@ -128,6 +132,8 @@ def test_cuda_kernel_matches_plain_version(dtype, d):
     torch.backends.cuda.matmul.allow_tf32 = False
     for (b, s, h, kv, causal, window) in [(2, 17, 4, 4, True, None),
                                           (2, 130, 8, 2, True, 64),
+                                          (2, 200, 8, 2, True, 24),
+                                          (1, 330, 4, 4, True, 100),
                                           (1, 96, 4, 2, False, None)]:
         q, k, v = (torch.from_numpy(x).cuda().to(dtype)
                    for x in _inputs(b, s, h, kv, d, seed=4))

@@ -40,8 +40,10 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
     assert out.returncode == 0, out.stderr
     import json
     rep = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "tony_tpu_torch.models.serve" in rep["modules"]
-    assert "tony_tpu_torch.ops.attention" in rep["modules"]
+    for mod in ("models.serve", "ops.attention", "ops.optim",
+                "models.train", "models.loop", "models.checkpoint",
+                "io.prefetch", "train_lm"):
+        assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
            or m == "tony_tpu" or m.startswith("tony_tpu.")]

@@ -256,17 +256,20 @@ extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
       B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale,
-                                  causal, window, s);
-  if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale,
-                                   causal, window, s);
-  if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV,
-                                          scale, causal, window, s);
-  if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV,
-                                           scale, causal, window, s);
+#define TONY_FWD(T, DD)                                                     \
+  if (D == DD)                                                              \
+    return (int)launch<T, DD>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale,     \
+                              causal, window, s);
+  if (dtype == 0) {
+    TONY_FWD(float, 32)
+    TONY_FWD(float, 64)
+    TONY_FWD(float, 128)
+  }
+  if (dtype == 1) {
+    TONY_FWD(__nv_bfloat16, 32)
+    TONY_FWD(__nv_bfloat16, 64)
+    TONY_FWD(__nv_bfloat16, 128)
+  }
+#undef TONY_FWD
   return (int)cudaErrorInvalidValue;
 }

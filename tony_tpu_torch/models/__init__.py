@@ -1,2 +1,3 @@
-"""The flagship decoder LM's serving path in PyTorch: transformer,
-KV-cache decoding, continuous batching, and weight conversion."""
+"""The flagship decoder LM in PyTorch: transformer, KV-cache decoding,
+continuous batching, weight conversion, and single-device training (train
+step, loop, checkpoints)."""

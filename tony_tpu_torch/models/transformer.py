@@ -1,4 +1,4 @@
-"""Flagship decoder-only transformer LM in PyTorch (inference forward).
+"""Flagship decoder-only transformer LM in PyTorch: forward and loss.
 
 Port of ``tony_tpu/models/transformer.py``: the same config, presets and
 parameter tree — plain dicts with the same keys, the same stacked
@@ -6,14 +6,20 @@ parameter tree — plain dicts with the same keys, the same stacked
 ``init_params`` — so weights move between the packages by
 :mod:`tony_tpu_torch.models.weights` and keep their digest.
 
-Attention runs the CUDA flash kernel on the card and the plain dense
-version on the CPU (:func:`_attention`). RMSNorm, RoPE and the SwiGLU
-MLP are plain torch with the JAX package's f32 points: RoPE and norms in
+Attention runs the CUDA flash kernels on the card (K1 forward; K2, or
+K3a + K3b, backward) and their plain versions on the CPU, through the
+differentiable :func:`~tony_tpu_torch.ops.attention.flash_attention`.
+With ``cfg.remat`` (policy ``"full"``) each block runs under
+``torch.utils.checkpoint``: only its input is kept, and the backward
+recomputes the block (K1 included) before differentiating it. RMSNorm,
+RoPE and the SwiGLU MLP are plain torch with the JAX package's f32
+points: RoPE and norms in
 f32 math, the lm_head accumulated in f32 and stored in
 ``cfg.logits_storage_dtype``.
 
 Not ported yet (they raise ``NotImplementedError``): MoE layers,
-pipeline (pp) and context (cp) parallelism, and training (remat, loss).
+pipeline (pp) and context (cp) parallelism, and the remat policies
+``"dots"`` and ``"attn"``.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tony_tpu_torch import resolve_device
-from tony_tpu_torch.ops.attention import flash_attention, reference_attention
+from tony_tpu_torch.models.train import masked_cross_entropy
+from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.norms import rms_norm_reference
 
 
@@ -207,16 +215,14 @@ def expand_kv(q, k, v):
 
 def _attention(q, k, v, mesh=None, cp_strategy: str = "ring",
                window: int | None = None):
-    """Causal GQA attention: the CUDA flash kernel for CUDA tensors, the
-    plain dense version for CPU tensors."""
+    """Causal GQA attention, differentiable: the CUDA flash kernels for
+    CUDA tensors, their plain versions for CPU tensors."""
     if cp_strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown cp_strategy {cp_strategy!r}; "
                          f"expected 'ring' or 'ulysses'")
     if mesh is not None:
         raise NotImplementedError("context parallelism is not ported yet")
-    if q.is_cuda:
-        return flash_attention(q, k, v, causal=True, window=window)
-    return reference_attention(q, k, v, causal=True, window=window)
+    return flash_attention(q, k, v, causal=True, window=window)
 
 
 def _mlp(h, p):
@@ -271,12 +277,14 @@ def _lm_head(params: dict, x, cfg: TransformerConfig):
     return lm_head_logits(x, params["lm_head"], cfg)
 
 
-@torch.no_grad()
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None) -> tuple:
     """tokens ``[B, S]`` int → (logits ``[B, S, V]`` in
     ``cfg.logits_storage_dtype``, aux_loss scalar — 0 for dense
-    models). Inference only: no gradient is recorded."""
+    models). Differentiable in the params; callers that only infer wrap it
+    in ``torch.no_grad()``. With ``cfg.remat``, when a gradient of the
+    block params is recorded, each block is checkpointed (recomputed in
+    the backward)."""
     if mesh is not None:
         raise NotImplementedError("pipeline / context parallelism is not "
                                   "ported yet")
@@ -284,8 +292,58 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     x = params["embed"][tokens].to(cfg.dtype)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    rope = rope_tables(positions, cfg.head_dim)
-    for li in range(cfg.n_layers):
-        x = _block(x, layer_params(params, li), cfg, rope=rope)
+    rope = rope_tables(positions, cfg.head_dim)   # hoisted out of the loop
+    names = list(params["blocks"])
+    # one unbind per stacked leaf: its backward stacks the layers' grads
+    # once, where indexing each layer would scatter into a zeroed [L, ...]
+    layers = zip(*(params["blocks"][n].unbind(0) for n in names))
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        a.requires_grad for a in params["blocks"].values())
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not "
+                                  f"ported yet (only 'full')")
+    for vals in layers:
+        p = dict(zip(names, vals))
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, x, p, cfg, rope, use_reentrant=False)
+        else:
+            x = _block(x, p, cfg, rope=rope)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return _lm_head(params, x, cfg), aux
+
+
+def train_flops_per_token(cfg: TransformerConfig, seq: int) -> float:
+    """Model FLOPs per trained token: forward matmul FLOPs × 3 (backward
+    ≈ 2× forward). Remat recompute is excluded, so this yields MFU (not
+    HFU). Attention counts the causal half of the S² products; windowed
+    configs count the mean attended length. The JAX package's formula
+    (``tony_tpu/models/transformer.py:566-592``), copied."""
+    d, f, L, v = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    kv_width = cfg.kv_heads * cfg.head_dim     # == d for MHA
+    proj = 4 * d * d + 4 * d * kv_width   # wq + wo, + wk + wv (GQA-aware)
+    if cfg.attn_window and cfg.attn_window < seq:
+        w = cfg.attn_window
+        # positions 0..w-1 attend position+1 keys; the rest attend w
+        mean_attended = (w * (w + 1) / 2 + (seq - w) * w) / seq
+        attn = 4 * mean_attended * d      # QK^T + AV over attended keys
+    else:
+        attn = 2 * seq * d                # QK^T + AV, causal half of 4·S·d
+    if cfg.num_experts:
+        mlp = 2 * d * cfg.num_experts + cfg.moe_top_k * 4 * d * f
+    else:
+        mlp = 6 * d * f                   # gate + up + down
+    fwd = L * (proj + attn + mlp) + 2 * d * v   # + lm_head
+    return 3.0 * fwd
+
+
+def lm_loss(params: dict, batch: dict, cfg: TransformerConfig,
+            mesh=None) -> torch.Tensor:
+    """Next-token cross-entropy. batch: ``{"tokens": [B, S]}`` (shifted
+    inside) or ``{"inputs", "targets"}``; targets == -1 are ignored."""
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+    else:
+        inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    logits, aux = forward(params, inputs, cfg, mesh)
+    return masked_cross_entropy(logits, targets) + cfg.moe_aux_weight * aux

@@ -1,5 +1,5 @@
-"""Ops of the port: flash attention (a CUDA kernel and its plain version)
-and RMSNorm."""
+"""Ops of the port: flash attention forward and backward and fused AdamW
+(CUDA kernels with their plain versions), and RMSNorm."""
 
 from tony_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_with_lse,

@@ -1,6 +1,7 @@
-"""Flash attention forward: a hand-written CUDA kernel plus its plain version.
+"""Flash attention, forward and backward: hand-written CUDA kernels plus
+their plain versions.
 
-Port of ``tony_tpu/ops/attention.py`` (forward only). The public
+Port of ``tony_tpu/ops/attention.py``. The public
 functions keep the JAX package's contract: layout ``[batch, seq, heads,
 head_dim]``, K/V may carry fewer heads than Q (query head ``i`` reads kv
 head ``i // (H/KV)``, never expanded in the kernel), a causal mask
@@ -8,28 +9,44 @@ head ``i // (H/KV)``, never expanded in the kernel), a causal mask
 window``, default scale ``head_dim ** -0.5``, o in the input dtype and a
 natural-log lse ``[batch, heads, seq]`` in f32.
 
-Dispatch is by the tensors' device: a CUDA tensor launches the kernel
-(``csrc/flash_fwd.cu``, through :func:`flash_forward`) or raises; a CPU
-tensor takes the plain version :func:`_dense_with_lse`. The TPU
+Dispatch is by the tensors' device: a CUDA tensor launches the kernels
+or raises; a CPU tensor takes the plain versions. Forward: K1
+(``csrc/flash_fwd.cu``, :func:`flash_forward`), plain
+:func:`_dense_with_lse`. Backward (``csrc/flash_bwd.cu``): K2, the fused
+kv-major pass (:func:`flash_backward_fused`), or, when its f32 dQ
+buffer passes ``TONY_FLASH_FUSED_PARTIALS_MB``, the two-pass route K3a
+(:func:`flash_backward_dq`) then K3b (:func:`flash_backward_dkv`) —
+:func:`backward_route` decides, as ``_flash_backward`` does from its dQ
+partials; plain :func:`_dense_backward`. The TPU
 kernel's tiling choices — the base-2 fold outside the kernel, 8-row head
 padding, 128-lane lse, head groups, block-size clamps and the dense
 fallback for sub-tile shapes — were made for VMEM and are not carried
 over: the CUDA kernel masks ragged edges itself, so any sequence length
 works.
 
-Forward only: tensors that require a gradient raise
-``NotImplementedError`` (the backward kernels come with training).
+Gradients: :func:`flash_attention_with_lse` (and :func:`flash_attention`,
+which drops lse) is a ``torch.autograd.Function`` saving ``(q, k, v, o,
+lse)`` that differentiates lse too, folding its cotangent into delta as
+``delta - dlse`` (``tony_tpu/ops/attention.py:372-376, 655-658``).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from tony_tpu_torch.ops import _kernels
 
 _NEG_INF = -1.0e30
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: budget for the dQ buffer that picks the fused backward over the
+#: two-pass one, read from the same variable as the JAX package
+#: (``TONY_FLASH_FUSED_PARTIALS_MB``, default 1024; 0 forces two-pass)
+_FUSED_PARTIALS_BYTES = int(os.environ.get(
+    "TONY_FLASH_FUSED_PARTIALS_MB", "1024")) * 1024 * 1024
 
 
 def _resolve_window(window, causal: bool, sq: int) -> int | None:
@@ -46,13 +63,6 @@ def _resolve_window(window, causal: bool, sq: int) -> int | None:
     return None if window >= sq else int(window)
 
 
-def _check_forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "flash attention is forward-only in this package so far; "
-            "the backward kernels come with the training port")
-
-
 def _check_kv_heads(h: int, hk: int) -> None:
     if hk <= 0 or h % hk:
         raise ValueError(f"kv heads ({hk}) must divide query heads ({h})")
@@ -65,25 +75,8 @@ def flash_forward(q, k, v, *, causal: bool, scale: float,
     the kernel takes, allocates the outputs and launches on the current
     stream without synchronising. ``flash_forward.launches`` counts the
     launches made."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_forward takes CUDA tensors")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_forward takes float32 or bfloat16 q/k/v of "
-                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q [B,S,H,D] and k = v [B,Sk,KV,D], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    b, sq, h, d = q.shape
+    b, sq, h, d = _check_cuda_qkv("flash_forward", q, k, v)
     sk, hk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d:
-        raise ValueError("q and k/v disagree on batch or head_dim")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported by the CUDA kernel "
-                         f"(supported: {_HEAD_DIMS})")
-    _check_kv_heads(h, hk)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -101,22 +94,205 @@ def flash_forward(q, k, v, *, causal: bool, scale: float,
 flash_forward.launches = 0
 
 
+def _check_cuda_qkv(what: str, q, k, v, *more):
+    """Check what the CUDA kernels take: CUDA tensors on one device, f32
+    or bf16 of one dtype, q [B,S,H,D] and k = v [B,Sk,KV,D] with KV
+    dividing H and D in (32, 64, 128); ``more`` are tensors shaped like q.
+    Returns q's shape."""
+    ts = (q, k, v) + more
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{what} takes CUDA tensors")
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{what}: all tensors must be on one device")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{what} takes float32 or bfloat16 tensors of one "
+                        f"dtype, got {[t.dtype for t in ts]}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q [B,S,H,D] and k = v [B,Sk,KV,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if any(t.shape != q.shape for t in more):
+        raise ValueError(f"{what}: o and do must be shaped like q")
+    b, sq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError("q and k/v disagree on batch or head_dim")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the CUDA kernels "
+                         f"(supported: {_HEAD_DIMS})")
+    _check_kv_heads(h, k.shape[2])
+    return b, sq, h, d
+
+
+def _bwd_inputs(q, k, v, o, lse, do, dlse):
+    """Contiguous q, k, v, do, the lse [B,H,S] f32 and delta = rowsum(do
+    * o) - dlse [B,H,S] f32 that every backward kernel reads. delta is
+    one plain pass outside the kernels, as the JAX package computes it
+    outside its Pallas calls; dlse folds in here so the kernels never see
+    it."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return (q.contiguous(), k.contiguous(), v.contiguous(),
+            do.contiguous(), lse.float().contiguous(), delta.contiguous())
+
+
+def _launch_bwd(fn_name, q, k, v, ptrs, *, causal, scale, window):
+    b, sq, h, d = q.shape
+    fn = getattr(_kernels.load(), fn_name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*ptrs, _DTYPE_CODES[q.dtype], b, sq, k.shape[1], h,
+                k.shape[2], d, float(scale), int(causal), int(window or 0),
+                stream)
+    _kernels.check(rc, fn_name)
+
+
+def flash_backward_fused(q, k, v, o, lse, do, dlse=None, *, causal: bool,
+                         scale: float, window: int | None):
+    """K2: the fused kv-major backward on CUDA tensors → ``(dq, dk, dv)``
+    in the input dtype. dQ accumulates across kv tiles with f32 atomics
+    into a zeroed f32 buffer, cast once at the end. The kernel's wrapper:
+    checks, allocates, launches on the current stream without
+    synchronising; ``flash_backward_fused.launches`` counts launches."""
+    _check_cuda_qkv("flash_backward_fused", q, k, v, o, do)
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, o, lse, do, dlse)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("tony_flash_bwd_fused", q, k, v,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr()),
+                causal=causal, scale=scale, window=window)
+    flash_backward_fused.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+flash_backward_fused.launches = 0
+
+
+def flash_backward_dq(q, k, v, o, lse, do, dlse=None, *, causal: bool,
+                      scale: float, window: int | None):
+    """K3a: the q-major dQ pass of the two-pass backward on CUDA tensors
+    → dq in the input dtype (f32 accumulation, deterministic).
+    ``flash_backward_dq.launches`` counts launches."""
+    _check_cuda_qkv("flash_backward_dq", q, k, v, o, do)
+    return _launch_dq(_bwd_inputs(q, k, v, o, lse, do, dlse), causal=causal,
+                      scale=scale, window=window)
+
+
+def _launch_dq(inputs, *, causal, scale, window):
+    q, k, v, do, lse, delta = inputs
+    dq = torch.empty_like(q)
+    _launch_bwd("tony_flash_bwd_dq", q, k, v,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+                causal=causal, scale=scale, window=window)
+    flash_backward_dq.launches += 1
+    return dq
+
+
+flash_backward_dq.launches = 0
+
+
+def flash_backward_dkv(q, k, v, o, lse, do, dlse=None, *, causal: bool,
+                       scale: float, window: int | None):
+    """K3b: the kv-major dK/dV pass of the two-pass backward on CUDA
+    tensors → ``(dk, dv)`` in the input dtype, summed over each kv head's
+    query group. ``flash_backward_dkv.launches`` counts launches."""
+    _check_cuda_qkv("flash_backward_dkv", q, k, v, o, do)
+    return _launch_dkv(_bwd_inputs(q, k, v, o, lse, do, dlse), causal=causal,
+                       scale=scale, window=window)
+
+
+def _launch_dkv(inputs, *, causal, scale, window):
+    q, k, v, do, lse, delta = inputs
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("tony_flash_bwd_dkv", q, k, v,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr()),
+                causal=causal, scale=scale, window=window)
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_backward_dkv.launches = 0
+
+
+def fused_dq_bytes(q_shape) -> int:
+    """Bytes of the f32 ``[B, S, H, D]`` dQ buffer K2 adds into: the
+    memory the fused route costs beyond the two-pass one. It takes the
+    place of the JAX package's count of its per-kv-tile dQ partials
+    (``nk · B·H · S · D · itemsize``, ``:634``), which K2 never stores."""
+    b, sq, h, d = q_shape
+    return b * sq * h * d * 4
+
+
+def backward_route(q_shape, budget: int | None = None) -> str:
+    """``"fused"`` (K2) when its dQ buffer fits the budget
+    (``TONY_FLASH_FUSED_PARTIALS_MB``; 0 forces two-pass), else
+    ``"two_pass"`` (K3a + K3b) — the choice ``_flash_backward`` makes
+    (``:634-638``)."""
+    budget = _FUSED_PARTIALS_BYTES if budget is None else budget
+    return "fused" if fused_dq_bytes(q_shape) <= budget else "two_pass"
+
+
+def _forward(q, k, v, causal, scale, window):
+    if q.device.type == "cpu":
+        return _dense_with_lse(q, k, v, causal=causal, scale=scale,
+                               window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return flash_forward(q, k, v, causal=causal, scale=scale, window=window)
+
+
+def _backward(q, k, v, o, lse, do, dlse, causal, scale, window):
+    if q.device.type == "cpu":
+        return _dense_backward(q, k, v, o, lse, do, dlse, causal=causal,
+                               scale=scale, window=window)
+    kw = dict(causal=causal, scale=scale, window=window)
+    if backward_route(q.shape) == "fused":
+        return flash_backward_fused(q, k, v, o, lse, do, dlse, **kw)
+    # K3a and K3b read the same prepared inputs: delta is computed once
+    _check_cuda_qkv("flash_backward two-pass", q, k, v, o, do)
+    inputs = _bwd_inputs(q, k, v, o, lse, do, dlse)
+    return (_launch_dq(inputs, **kw),) + _launch_dkv(inputs, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(o, lse), both differentiated; lse's cotangent folds into delta
+    (what cross-chunk softmax merging needs). An unused lse gets no
+    cotangent (None), so plain attention pays nothing for it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        o, lse = _forward(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, window)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = _backward(q, k, v, o, lse, do, dlse, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              scale: float | None = None,
                              window: int | None = None):
     """Fused attention over ``[B, S, H, D]`` inputs, returning
     ``(o, lse)`` with lse ``[B, H, S]`` f32 natural log. GQA K/V (fewer
     heads than Q) and sliding windows as in the module docstring. A CUDA
-    tensor runs the kernel, a CPU tensor the plain version."""
-    _check_forward_only(q, k, v)
+    tensor runs the kernels, a CPU tensor the plain versions.
+    Differentiable in q, k, v through o and lse."""
     window = _resolve_window(window, causal, q.shape[1])
-    if q.device.type == "cpu":
-        return _dense_with_lse(q, k, v, causal=causal, scale=scale,
-                               window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    _check_kv_heads(q.shape[2], k.shape[2])
     scale = (q.shape[-1] ** -0.5) if scale is None else scale
-    return flash_forward(q, k, v, causal=causal, scale=scale, window=window)
+    return _FlashAttention.apply(q, k, v, causal, scale, window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -155,6 +331,45 @@ def _dense_with_lse(q, k, v, *, causal: bool, scale: float | None,
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype), lse
+
+
+def _dense_backward(q, k, v, o, lse, do, dlse=None, *, causal: bool,
+                    scale: float | None, window: int | None = None):
+    """Dense gradients ``(dq, dk, dv)`` in plain torch — the plain version
+    of K2 and K3a/K3b, taken for CPU tensors and used by the tests and
+    the chip smoke to hold the kernels to. In f32 whatever the input
+    dtype: ``p = exp(s - lse)`` (0 where masked), ``delta = rowsum(do·o)
+    - dlse``, ``ds = p·(dp - delta)``; dK/dV of a kv head sum over its
+    query group. Outputs in the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    _check_kv_heads(h, hk)
+    rep = h // hk
+    window = _resolve_window(window, causal, sq)
+    scale = (d ** -0.5) if scale is None else scale
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = qpos >= kpos
+        if window is not None:
+            mask = mask & (qpos - kpos < window)
+        p = p.masked_fill(~mask, 0.0)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)           # [B,H,S]
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, hk, rep, d).sum(3)
+    dv = dv.reshape(b, sk, hk, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def reference_attention(q, k, v, *, causal: bool = True,

@@ -1,4 +1,4 @@
-"""In-process metrics registry for the port's serving engine.
+"""In-process metrics registry for the port's serving engine and train loop.
 
 A copy of the registry half of ``tony_tpu/runtime/metrics.py`` —
 :class:`MetricsRegistry` with its counters, gauges and fixed-bucket
