@@ -8,7 +8,7 @@ result:
 
 1. the card (name and power limit as nvidia-smi reports them), torch and
    CUDA versions — no card means exit 1;
-2. build the five kernels from ``tony_tpu_torch/csrc`` (one nvcc per
+2. build the seven kernels from ``tony_tpu_torch/csrc`` (one nvcc per
    source, in parallel);
 3. hold the flash-attention forward kernel (K1) against its plain torch
    version on the card: f32 and bf16, MHA and GQA, causal / windows 24,
@@ -32,6 +32,15 @@ result:
    parameter tree in bf16 and f32, 3 steps with a clip on one; then time
    it over the bf16 tree beside its byte bound, the plain version and
    ``torch.optim.AdamW(fused=True)`` (yardstick);
+10. hold RMSNorm (K5) and LayerNorm (K6) against their plain versions: f32
+   (max abs <= 1e-5) and bf16 (within one ulp + 1e-5), d in {64, 128,
+   512, 768, 770, 4096}, rows in {1, 17, 8192, 16384}, and an x off
+   16-byte alignment; f32 gradients through the autograd Function against
+   autograd of the plain version (1e-4 of the largest entry); then time
+   K6 at [8192, 768] and K5 at [16384, 512] bf16 (device time per call,
+   from torch.profiler) beside the byte bound,
+   the plain version and ``torch.nn.functional.layer_norm`` /
+   ``rms_norm`` (yardsticks);
 4. slice parity in f32: the ``small`` preset with one set of seeded
    weights on the card and on the CPU — bucketed prefill logits of 4
    prompts (max abs <= 1e-3) and the token agreement of 8 greedy
@@ -40,21 +49,31 @@ result:
 8. training parity in f32: 3 train steps of ``tiny`` on the card and on
    the CPU from one set of params, losses within 1e-4 relative, for the
    unfused and the fused optimizer;
+11. BERT parity in f32: ``BERT_TINY`` on the card and on the CPU from one
+   set of weights, MLM logits (max abs <= 1e-3), then 3 train steps with
+   losses within 1e-4 relative;
 5. the serving slice at full width in bf16: ``small`` through
    ``tony_tpu_torch.serve_lm``'s code path, 24 mixed requests through 8
    slots, pipelined; every request gets its budget, every token is in the
-   vocabulary, and K1 ran n_layers times per admit_rows call; then a
-   short serve under torch.profiler gives the device busy share and the
-   device launches per decode step;
+   vocabulary, K1 ran n_layers times per admit_rows call and K5
+   2 x n_layers + 1 times per model forward; then a short serve under
+   torch.profiler gives the device busy share and the device launches
+   per decode step;
 9. the training slice at full width: ``small`` bf16 through
    ``tony_tpu_torch.train_lm``'s code path, batch 16 x seq 1024, remat
    "full", DevicePrefetcher depth 2, 20 steps: every loss finite, K1
    launched 2 x n_layers per step (forward and remat recompute), K2
-   n_layers per step, K3 never; step time, tokens/s, MFU, peak memory and
-   data wait; a profiled window of 3 steps (device busy share); 3 steps
+   n_layers per step, K3 never, K5 4 x n_layers + 1 per step; step time,
+   tokens/s, MFU, peak memory and data wait; a profiled window of 3
+   steps (device busy share); 3 steps
    with the fused optimizer (K4 once per leaf per step), 3 with the budget at 0
    (K3a and K3b n_layers per step each, K2 never), and a checkpoint at
    step 2 whose resume reaches the uninterrupted step-3 loss;
+12. the BERT slice at full width and depth: BERT-base bf16 through
+   ``tony_tpu_torch.pretrain_bert``'s code path, batch 16 x seq 512,
+   DevicePrefetcher depth 2, 20 steps: every loss finite, per step K1
+   and K2 n_layers times, K6 2 x n_layers + 2, K3 and K5 never; step
+   time, tokens/s, MFU, peak memory, data wait; 3 profiled steps;
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -98,6 +117,23 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 30) -> float:
+    """Mean device milliseconds per call: the time torch.profiler records
+    on the card for every launch of ``iters`` calls (after a warm-up),
+    over ``iters``. Unlike a CUDA-event window it leaves out the gaps
+    where the card waits for the host to launch the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev, _ = _device_times(prof)
+    return sum(dev.values()) / 1e3 / iters
 
 
 def phase_card():
@@ -324,6 +360,7 @@ def phase_serve(report, card):
     from tony_tpu_torch import serve_lm
     from tony_tpu_torch.models import serve as S
     from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
     cfg, params = serve_lm.build("small", "cuda")
     prompts, budgets = serve_lm.make_workload(
         0, 24, 480, 64, cfg.vocab_size, min_prompt_len=64)
@@ -332,11 +369,17 @@ def phase_serve(report, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.flash_forward.launches = 0
+    N.rms_norm_forward.launches = 0
     S.CALL_COUNTS.clear()
     res = serve_lm.serve(batcher, prompts, budgets)
     launches = A.flash_forward.launches
+    k5 = N.rms_norm_forward.launches
     admits = sum(c for (name, _), c in S.CALL_COUNTS.items()
                  if name == "admit_rows")
+    # model forwards: one per admission call, one per decode step
+    forwards = sum(c * (shape[1] if name == "step_rows" else 1)
+                   for (name, shape), c in S.CALL_COUNTS.items()
+                   if name in ("admit_rows", "admit_row", "step_rows"))
     peak = torch.cuda.max_memory_allocated()
     outs = res["outputs"]
     tok_s = res["tokens"] / res["wall_s"]
@@ -344,14 +387,15 @@ def phase_serve(report, card):
           f"{res['tokens']} tokens in {res['wall_s']:.3f}s "
           f"({tok_s:.1f} tokens/s), slot-step utilization "
           f"{res['utilization']:.3f}, peak memory {peak / 2**20:.1f} MiB, "
-          f"K1 launches {launches} over {admits} admit_rows calls",
-          flush=True)
+          f"K1 launches {launches} over {admits} admit_rows calls, K5 "
+          f"launches {k5} over {forwards} model forwards", flush=True)
     report["serve"] = dict(wall_s=res["wall_s"], tokens=res["tokens"],
                            tokens_per_s=tok_s,
                            utilization=res["utilization"],
                            steps=batcher.steps_executed,
                            peak_bytes=peak, k1_launches=launches,
-                           admit_rows_calls=admits,
+                           admit_rows_calls=admits, k5_launches=k5,
+                           forwards=forwards,
                            phases=batcher.phase_times.summary())
     if [len(o) for o in outs] != budgets:
         fail("a request did not get exactly its budget")
@@ -360,8 +404,25 @@ def phase_serve(report, card):
     if admits == 0 or launches != cfg.n_layers * admits:
         fail(f"K1 launches {launches} != {cfg.n_layers} x {admits} "
              f"admit_rows calls")
+    if k5 != (2 * cfg.n_layers + 1) * forwards:
+        fail(f"K5 launches {k5} != (2 x {cfg.n_layers} + 1) x {forwards} "
+             f"model forwards")
     phase_profile(report, batcher, prompts[:8], budgets[:8])
-    return launches
+    return launches, k5
+
+
+def _device_times(prof):
+    """({op name: self device microseconds}, device launches) of a
+    torch.profiler run."""
+    dev, launches = {}, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            dev[e.key] = us
+            launches += e.count
+    return dev, launches
 
 
 def phase_profile(report, batcher, prompts, budgets):
@@ -375,14 +436,7 @@ def phase_profile(report, batcher, prompts, budgets):
         batcher.serve(prompts, budgets)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev, launches = {}, 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            dev[e.key] = us
-            launches += e.count
+    dev, launches = _device_times(prof)
     per_step = launches / max(1, batcher.steps_executed)
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
@@ -583,14 +637,14 @@ def phase_backward(report):
     return entries
 
 
-def _ulps(got, want, mant_bits):
-    """|got - want| in units of the last place of ``want`` in a type with
-    ``mant_bits`` explicit mantissa bits."""
+def _ulps(got, want, mant_bits, atol=0.0):
+    """|got - want| in units of (the last place of ``want`` in a type with
+    ``mant_bits`` explicit mantissa bits, plus ``atol``)."""
     import torch
     w = want.double()
     _, e = torch.frexp(w.abs().clamp(min=2.0 ** -120))
     ulp = torch.ldexp(torch.ones_like(w), e - 1 - mant_bits)
-    return ((got.double() - w).abs() / ulp).max().item()
+    return ((got.double() - w).abs() / (ulp + atol)).max().item()
 
 
 def phase_adamw(report):
@@ -807,6 +861,7 @@ def phase_train(report, card):
     from tony_tpu_torch.models import transformer as T
     from tony_tpu_torch.models.checkpoint import CheckpointManager
     from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
     from tony_tpu_torch.ops import optim as O
     steps, batch, seq = 20, 16, 1024
     cfg, params = train_lm.build("small", "cuda")
@@ -818,7 +873,7 @@ def phase_train(report, card):
     def zero_counts():
         for fn in (A.flash_forward, A.flash_backward_fused,
                    A.flash_backward_dq, A.flash_backward_dkv,
-                   O.adamw_update):
+                   O.adamw_update, N.rms_norm_forward):
             fn.launches = 0
 
     def counts():
@@ -826,7 +881,8 @@ def phase_train(report, card):
                     k2=A.flash_backward_fused.launches,
                     k3a=A.flash_backward_dq.launches,
                     k3b=A.flash_backward_dkv.launches,
-                    k4=O.adamw_update.launches)
+                    k4=O.adamw_update.launches,
+                    k5=N.rms_norm_forward.launches)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -854,9 +910,10 @@ def phase_train(report, card):
     if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
         fail("a training loss is not finite")
     if c["k1"] != 2 * L * steps or c["k2"] != L * steps or \
-            c["k3a"] or c["k3b"]:
+            c["k3a"] or c["k3b"] or c["k5"] != (4 * L + 1) * steps:
         fail(f"launch counts {c} != K1 {2 * L * steps} (forward + remat), "
-             f"K2 {L * steps}, K3 0")
+             f"K2 {L * steps}, K3 0, K5 {(4 * L + 1) * steps} (2 per block "
+             f"forward and remat recompute, and the final norm)")
     train_counts = c
     phase_train_profile(report, cfg, state)
 
@@ -922,13 +979,7 @@ def phase_train_profile(report, cfg, state):
         _train_run(cfg, params, 3, seed=1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            dev[e.key] = us
+    dev, _ = _device_times(prof)
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     if total == 0:
@@ -941,6 +992,349 @@ def phase_train_profile(report, cfg, state):
               + "; ".join(f"{n[:48]} {us / 1e3:.1f} ms" for n, us in top),
               flush=True)
     report["train_profile"] = dict(wall_us=wall_us, device_us=total, top=top)
+
+
+# norm kind -> (name, the TPU kernel it replaces, f32 operations per
+# element: RMSNorm squares and sums, then scales twice; LayerNorm sums,
+# centres, squares and sums, then scales twice and shifts)
+_NORMS = {"rms": ("rms_norm", "tony_tpu/ops/norms.py:27", 4),
+          "ln": ("layer_norm", "tony_tpu/ops/norms.py:33", 7)}
+
+# f32 operations outside the tensor cores (H100 SXM data sheet)
+F32_FLOPS = 67e12
+
+
+def _norm_fns(kind):
+    """(kernel through the autograd Function, the kernel's wrapper, the
+    plain version) of one norm."""
+    from tony_tpu_torch.ops import norms as N
+    if kind == "rms":
+        return N.rms_norm, N.rms_norm_forward, N.rms_norm_reference
+    return N.layer_norm, N.layer_norm_forward, N.layer_norm_reference
+
+
+def _norm_inputs(kind, rows, d, dtype, seed, offset=0):
+    """x [rows, d] at unit scale (LayerNorm's with a mean of 1, which the
+    two-pass variance must remove), w near 1 and b near 0, in ``dtype``;
+    ``offset`` elements into its storage (an offset of 1 leaves x off
+    16-byte alignment)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows * d + offset, device="cuda", generator=g)
+    x = x[offset:].view(rows, d) + (1.0 if kind == "ln" else 0.0)
+    w = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
+    b = 0.1 * torch.randn(d, device="cuda", generator=g)
+    params = (w,) if kind == "rms" else (w, b)
+    return x.to(dtype), tuple(p.to(dtype) for p in params)
+
+
+def _rotating(fn, sets):
+    """A call of ``fn`` on the next of ``sets`` (argument tuples whose
+    total size exceeds the 50 MB L2 cache), so each timed launch reads
+    its input from device memory."""
+    import itertools
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def phase_norms(report):
+    """[10] K5 and K6 against their plain versions on the card — f32 and
+    bf16, d in {64, 128, 512, 768, 770, 4096} (770 is a multiple of
+    neither 4 nor 8, and 4096 is wider than the rows the kernel keeps in
+    registers: both take the scalar path), rows in {1, 17, 8192, 16384},
+    and one x off 16-byte alignment; gradients in f32 through the
+    autograd Function against autograd of the plain version; then each
+    kernel timed at its path's shape.
+
+    Limits: f32 max abs 1e-5 (the row sums run in another order than the
+    plain version's); bf16 one unit in the last place of the plain output
+    beyond that 1e-5 — each side rounds its f32 value once, and where a
+    LayerNorm output is near 0 (x near the mean, or the bias cancelling)
+    the f32 difference exceeds a bf16 ulp of the tiny result."""
+    import torch
+    import torch.nn.functional as F
+    limits = {torch.float32: 1e-5, torch.bfloat16: 1.0}
+    worst, n = {}, 0
+    for kind in _NORMS:
+        _, kernel, plain = _norm_fns(kind)
+        for dtype in limits:
+            cases = [(rows, d, 0) for d in (64, 128, 512, 768, 770, 4096)
+                     for rows in (1, 17, 8192, 16384)] + [(17, 768, 1)]
+            for rows, d, offset in cases:
+                x, params = _norm_inputs(kind, rows, d, dtype, n, offset)
+                got, want = kernel(x, *params), plain(x, *params)
+                torch.cuda.synchronize()
+                # f32: max abs; bf16: units of (an ulp of the plain output
+                # + 1e-5)
+                err = ((got - want).abs().max().item()
+                       if dtype == torch.float32
+                       else _ulps(got, want, 7, atol=1e-5))
+                w = worst.setdefault((kind, dtype), [0.0, ""])
+                if err >= w[0]:
+                    w[:] = [err, f"rows={rows} d={d} offset={offset}"]
+                if not err <= limits[dtype]:
+                    fail(f"{kernel.__name__} disagrees with its plain "
+                         f"version: err {err:.3e} > {limits[dtype]:g} "
+                         f"({dtype}, rows={rows}, d={d}, offset={offset})")
+                n += 1
+    for (kind, dtype), (err, where) in worst.items():
+        unit = "max abs" if dtype == torch.float32 else "ulp + 1e-5"
+        print(f"[10] {_NORMS[kind][0]} kernel vs plain, {dtype}: worst "
+              f"{unit} {err:.3e} (limit {limits[dtype]:g}) at {where}",
+              flush=True)
+
+    # gradients, f32: the Function (kernel forward, plain backward)
+    # against autograd of the plain version, relative to the largest entry
+    gworst = {}
+    for kind in _NORMS:
+        fn, _, plain = _norm_fns(kind)
+        for d in (64, 128, 512, 768, 770):
+            for rows in (17, 8192):
+                x, params = _norm_inputs(kind, rows, d, torch.float32,
+                                         500 + n)
+                ct = torch.randn_like(x)
+                grads = []
+                for f in (fn, plain):
+                    ins = [t.clone().requires_grad_() for t in (x, *params)]
+                    grads.append(torch.autograd.grad((f(*ins) * ct).sum(),
+                                                     ins))
+                for name, got, want in zip(("dx", "dw", "db"), *grads):
+                    rel = ((got - want).abs().max()
+                           / want.abs().max().clamp(min=1e-30)).item()
+                    if rel > gworst.get(kind, (0.0, ""))[0]:
+                        gworst[kind] = (rel, f"{name} rows={rows} d={d}")
+                    if not rel <= 1e-4:
+                        fail(f"{_NORMS[kind][0]} gradient {name} disagrees "
+                             f"with autograd of the plain version: "
+                             f"{rel:.3e} of the largest entry > 1e-4 "
+                             f"(rows={rows}, d={d})")
+                n += 1
+    for kind, (rel, where) in sorted(gworst.items()):
+        print(f"[10] {_NORMS[kind][0]} f32 gradients vs autograd of the "
+              f"plain version: worst {rel:.3e} of the largest entry (limit "
+              f"1e-4) at {where}", flush=True)
+    report["norm_cases"] = n
+    report["norm_worst"] = {f"{k} {dt}": v for (k, dt), v in worst.items()}
+    report["norm_grad_worst"] = gworst
+
+    # timed at the paths' shapes, bf16: K6 at BERT-base's [16 x 512, 768],
+    # K5 at the `small` training step's [16 x 1024, 512]; 6 input sets a
+    # kernel so each launch finds its input out of L2. A call of the
+    # kernel takes less time on the card than its launch takes on the
+    # host, so back-to-back calls under CUDA events time the host: the
+    # device time of each call comes from the profiler, and the CUDA-event
+    # time per call is printed beside it
+    entries = {}
+    for kind, (rows, d) in (("ln", (8192, 768)), ("rms", (16384, 512))):
+        name, replaces, ops = _NORMS[kind]
+        _, kernel, plain = _norm_fns(kind)
+        sets = [_norm_inputs(kind, rows, d, torch.bfloat16, 900 + i)
+                for i in range(6)]
+        sets = [(x, *params) for x, params in sets]
+        err = (kernel(*sets[0]).float() - plain(*sets[0]).float()).abs() \
+            .max().item()
+        if kind == "rms":
+            lib = getattr(F, "rms_norm", None)
+            lib_fn = None if lib is None else (
+                lambda x, w: lib(x, (d,), w, 1e-6))
+        else:
+            lib_fn = lambda x, w, b: F.layer_norm(x, (d,), w, b, 1e-6)
+        fns = {"kernel": kernel, "plain": plain, "library": lib_fn}
+        dev_ms = {k: None if f is None else device_ms(_rotating(f, sets))
+                  for k, f in fns.items()}
+        call_ms = {k: None if f is None else time_ms(_rotating(f, sets),
+                                                     iters=60)
+                   for k, f in fns.items()}
+        ms, plain_ms, lib_ms = (dev_ms[k] for k in fns)
+        itemsize = 2
+        nparams = len(sets[0]) - 1
+        nbytes = 2 * rows * d * itemsize + nparams * d * itemsize
+        flops = rows * d * ops
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        txt = lambda t: "n/a" if t is None else f"{t:.4f} ms"
+        print(f"[10] {name} at [{rows}, {d}] bf16, device time per call: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.nn.functional.{name} {txt(lib_ms)}; bound "
+              f"{bound:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB); kernel "
+              f"at {nbytes / ms / 1e6:.0f} GB/s; CUDA-event time per call "
+              f"(host launches included): kernel {txt(call_ms['kernel'])}, "
+              f"plain {txt(call_ms['plain'])}, library "
+              f"{txt(call_ms['library'])}; max abs err vs plain {err:.3e}",
+              flush=True)
+        report[f"{name}_timing"] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, call_ms=call_ms,
+                                        bound_ms=bound, bytes=nbytes,
+                                        flops=flops, rows=rows, d=d)
+        entries[kind] = dict(
+            name=name, route="cuda", source="tony_tpu_torch/csrc/norms.cu",
+            replaces=replaces, launches=None, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            library_ms=lib_ms)
+        del sets
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_bert_parity(report):
+    """[11] BERT_TINY in f32 on the card and on the CPU from one set of
+    weights: MLM logits within 1e-3, then 3 train steps with losses
+    within 1e-4 relative."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from tony_tpu_torch import pretrain_bert
+    from tony_tpu_torch.models import bert as B
+    from tony_tpu_torch.models import train as TR
+    cfg = dataclasses.replace(B.BERT_TINY, dtype=torch.float32)
+    cpu = B.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    source = pretrain_bert.synthetic_mlm_batches(7, 4, 128, cfg)
+    batches = [{k: torch.from_numpy(v) for k, v in next(source).items()}
+               for _ in range(3)]
+    rs = np.random.RandomState(8)
+    type_ids = torch.from_numpy(rs.randint(0, 2, size=(4, 128)))
+    gpu = _copy_tree(cpu, "cuda")
+    with torch.no_grad():
+        lg_c = B.forward(cpu, batches[0]["tokens"], cfg, type_ids)
+        lg_g = B.forward(gpu, batches[0]["tokens"].cuda(), cfg,
+                         type_ids.cuda())
+    err = (lg_g.cpu() - lg_c).abs().max().item()
+    del gpu
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        opt = TR.default_optimizer(lr=1e-3, warmup_steps=1, total_steps=10)
+        step = TR.make_train_step(lambda p, b: B.mlm_loss(p, b, cfg), opt)
+        state = TR.init_state(_copy_tree(cpu, dev), opt)
+        out = []
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            out.append(float(m["loss"]))
+        losses[dev] = out
+    a, b_ = np.array(losses["cuda"]), np.array(losses["cpu"])
+    worst = float(np.max(np.abs(a - b_) / np.abs(b_)))
+    print(f"[11] f32 BERT_TINY, card vs CPU: MLM logits max |err| {err:.3e} "
+          f"(limit 1e-3); 3 train steps, losses "
+          f"{[round(x, 6) for x in losses['cuda']]} (card), worst relative "
+          f"difference {worst:.2e} (limit 1e-4)", flush=True)
+    report["bert_parity"] = dict(logits_max_abs_err=err, losses=losses,
+                                 worst=worst)
+    if not err <= 1e-3:
+        fail("f32 BERT logits differ between the card and the CPU")
+    if not worst <= 1e-4:
+        fail("f32 BERT training losses differ between the card and the CPU")
+
+
+def bert_train_flops_per_token(cfg, seq: int) -> float:
+    """Model FLOPs per trained token of BERT: 3 x the forward's matmul
+    FLOPs, L(8d^2 + 4df + 4Sd) + 2d^2 + 2dV — the projections, the MLP,
+    attention counted in full (it is not causal), the MLM dense layer and
+    the tied head."""
+    d, f, L, v = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    return 3.0 * (L * (8 * d * d + 4 * d * f + 4 * seq * d)
+                  + 2 * d * d + 2 * d * v)
+
+
+def phase_bert(report, card):
+    """[12] The BERT slice at full width and depth: BERT-base bf16
+    through pretrain_bert's code path, batch 16 x seq 512,
+    DevicePrefetcher depth 2, 20 steps: every loss finite; per step K1
+    and K2 once per layer, K6 2 x n_layers + 2, K3 and K5 never; step
+    time, tokens/s, MFU, peak memory and data wait; then 3 profiled
+    steps."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tony_tpu_torch import pretrain_bert, tree_leaves
+    from tony_tpu_torch.io.prefetch import DevicePrefetcher
+    from tony_tpu_torch.models.loop import run_training
+    from tony_tpu_torch.models.train import init_state
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    steps, batch, seq = 20, 16, 512
+    cfg, params = pretrain_bert.build("base", "cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    L = cfg.n_layers
+    fns = dict(k1=A.flash_forward, k2=A.flash_backward_fused,
+               k3a=A.flash_backward_dq, k3b=A.flash_backward_dkv,
+               k5=N.rms_norm_forward, k6=N.layer_norm_forward)
+    opt, step_fn = pretrain_bert.make_step(cfg, 1e-4, steps)
+    state = init_state(params, opt)
+
+    def run(state, n, seed, walls=None):
+        source = pretrain_bert.synthetic_mlm_batches(seed, batch, seq, cfg)
+        data = _TimedData(DevicePrefetcher(source, device="cuda", depth=2))
+        losses = []
+
+        def timed_step(st, b):
+            t0 = time.perf_counter()
+            st, m = step_fn(st, b)
+            losses.append(m["loss"])
+            if walls is not None:
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            return st, m
+
+        state, _ = run_training(timed_step, state, data, n)
+        return state, [float(x) for x in losses], data.waits
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+    walls = []
+    t0 = time.perf_counter()
+    state, losses, waits = run(state, steps, 1000, walls)
+    wall = time.perf_counter() - t0
+    c = {k: fn.launches for k, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(walls[-10:]) * 1e3
+    tok_s = batch * seq / (step_ms / 1e3)
+    fpt = bert_train_flops_per_token(cfg, seq)
+    mfu = tok_s * fpt / BF16_FLOPS
+    wait_ms = statistics.median(waits) * 1e3
+    print(f"[12] BERT-base bf16 ({n_params / 1e6:.1f} M params) training on "
+          f"{card}: {steps} steps of {batch}x{seq} in {wall:.2f}s; step "
+          f"{step_ms:.2f} ms (median of the last 10), {tok_s:,.0f} tokens/s, "
+          f"MFU {mfu:.4f} ({fpt / 1e6:.1f} MFLOP/token vs 989 TFLOP/s), peak "
+          f"memory {peak / 2**30:.2f} GiB, data wait median {wait_ms:.3f} "
+          f"ms; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {c}",
+          flush=True)
+    report["bert"] = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+                          flops_per_token=fpt, peak_bytes=peak,
+                          data_wait_median_ms=wait_ms, losses=losses,
+                          walls=walls, launches=c, wall_s=wall,
+                          params=n_params)
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail("a BERT training loss is not finite")
+    want = dict(k1=L * steps, k2=L * steps, k3a=0, k3b=0, k5=0,
+                k6=(2 * L + 2) * steps)
+    if c != want:
+        fail(f"BERT launch counts {c} != {want}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(state, 3, 2000)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, _ = _device_times(prof)
+    total = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    if total == 0:
+        print("[12b] device busy share: not measured (the profiler recorded "
+              "no device time)", flush=True)
+    else:
+        print(f"[12b] 3 profiled BERT-base steps: device busy "
+              f"{total / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall (share "
+              f"{total / wall_us:.3f}); top: "
+              + "; ".join(f"{n[:48]} {us / 1e3:.1f} ms" for n, us in top),
+              flush=True)
+    report["bert_profile"] = dict(wall_us=wall_us, device_us=total, top=top)
+    return c
 
 
 def main() -> int:
@@ -957,19 +1351,25 @@ def main() -> int:
     k1 = phase_kernel(report)
     bwd = phase_backward(report)
     k4 = phase_adamw(report)
+    norms = phase_norms(report)
     phase_parity(report)
     phase_train_parity(report)
-    serve_k1 = phase_serve(report, card)
+    phase_bert_parity(report)
+    serve_k1, serve_k5 = phase_serve(report, card)
     counts = phase_train(report, card)
+    bert = phase_bert(report, card)
     # launches on the main paths, each counted from 0 over its own run:
-    # K1 over the serve (phase 5) and the training run (phase 9); K2 over
-    # the training run; K3a/K3b over the run with the budget at 0; K4 over
-    # the run with the fused optimizer
-    k1["launches"] = serve_k1 + counts["k1"]
-    bwd["fused"]["launches"] = counts["k2"]
+    # K1 over the serve (phase 5), the LM training run (phase 9) and the
+    # BERT run (phase 12); K2 over both training runs; K3a/K3b over the
+    # run with the budget at 0; K4 over the run with the fused optimizer;
+    # K5 over the serve and the LM training run; K6 over the BERT run
+    k1["launches"] = serve_k1 + counts["k1"] + bert["k1"]
+    bwd["fused"]["launches"] = counts["k2"] + bert["k2"]
     bwd["dq"]["launches"] = counts["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"]
     k4["launches"] = counts["k4"]
+    norms["rms"]["launches"] = serve_k5 + counts["k5"]
+    norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -977,7 +1377,7 @@ def main() -> int:
         json.dump(report, f, indent=1, default=str)
     print(f"wall {report['wall_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": [k1, bwd["fused"], bwd["dq"], bwd["dkv"],
-                                  k4]}))
+                                  k4, norms["rms"], norms["ln"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ A package of its own beside ``tony_tpu``: it imports ``torch`` and
 numpy, never ``jax``, and nothing from ``tony_tpu``. Module names mirror
 the JAX package's (``ops/attention.py``, ``models/decode.py``, ...) so
 each counterpart is easy to find. The ported slices are the serving
-and the single-device training paths of the flagship decoder LM; their
-attention and optimizer run through hand-written CUDA kernels
-(``csrc/``).
+and the single-device training paths of the flagship decoder LM and
+single-device BERT MLM pretraining; their attention, norms and fused
+optimizer run through hand-written CUDA kernels (``csrc/``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU they raise (:func:`resolve_device`).

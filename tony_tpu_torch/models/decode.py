@@ -33,7 +33,7 @@ import torch
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import transformer as T
-from tony_tpu_torch.ops.norms import rms_norm_reference
+from tony_tpu_torch.ops.norms import rms_norm
 
 
 class GenerateOutput(NamedTuple):
@@ -260,7 +260,7 @@ def extend_step(params: dict, tokens, cache: dict, pos,
     tensor; ``pos_range``: (min, max) of ``pos`` over rows as host ints
     (read back from ``pos`` when absent)."""
     x, cache = _blocks_forward(params, tokens, cache, pos, cfg, pos_range)
-    x = rms_norm_reference(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"])
     return T.lm_head_logits(x, params["lm_head"], cfg), cache
 
 
@@ -291,7 +291,7 @@ def _prompt_forward(params, tokens, cfg, bufs):
         x = T._finish_block(x, o, p)
         _write_kv_chunk(bufs["k"], k, li, 0)
         _write_kv_chunk(bufs["v"], v, li, 0)
-    return rms_norm_reference(x, params["final_norm"]), bufs
+    return rms_norm(x, params["final_norm"]), bufs
 
 
 @torch.no_grad()

@@ -154,7 +154,8 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     """``step(state, batch) -> (state, {"loss", "grad_norm", "step"})``.
 
     ``loss_fn(params, batch) -> scalar``. The gradient is taken with
-    respect to every leaf of ``state["params"]``; an optimizer with
+    respect to every leaf of ``state["params"]`` (zero for a leaf the
+    loss does not read); an optimizer with
     ``fused_apply`` (K4) updates the params inside it, the other through
     its ``apply``. ``loss`` and ``grad_norm`` stay device tensors (reading
     them is the caller's choice)."""
@@ -167,11 +168,14 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             t.requires_grad_(True)
         try:
             loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        it = iter(grads)
+        # a leaf the loss does not read (BERT's type_embed without
+        # type_ids) gets a zero gradient, as jax.grad gives it
+        it = (torch.zeros_like(t) if g is None else g
+              for t, g in zip(leaves, grads))
         grads = tree_map(lambda _: next(it), params)
         if fused:
             params, opt_state, gnorm = optimizer.fused_apply(

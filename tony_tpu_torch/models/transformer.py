@@ -11,9 +11,10 @@ K3a + K3b, backward) and their plain versions on the CPU, through the
 differentiable :func:`~tony_tpu_torch.ops.attention.flash_attention`.
 With ``cfg.remat`` (policy ``"full"``) each block runs under
 ``torch.utils.checkpoint``: only its input is kept, and the backward
-recomputes the block (K1 included) before differentiating it. RMSNorm,
-RoPE and the SwiGLU MLP are plain torch with the JAX package's f32
-points: RoPE and norms in
+recomputes the block (K1 included) before differentiating it. RMSNorm
+runs the CUDA kernel K5 on the card and its plain version on the CPU
+(:func:`~tony_tpu_torch.ops.norms.rms_norm`, f32 math). RoPE and the
+SwiGLU MLP are plain torch with the JAX package's f32 points: RoPE in
 f32 math, the lm_head accumulated in f32 and stored in
 ``cfg.logits_storage_dtype``.
 
@@ -34,7 +35,7 @@ import torch.utils.checkpoint
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models.train import masked_cross_entropy
 from tony_tpu_torch.ops.attention import flash_attention
-from tony_tpu_torch.ops.norms import rms_norm_reference
+from tony_tpu_torch.ops.norms import rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,7 +238,7 @@ def _project_qkv(x, p, rope):
     RoPE on q and k. x: ``[B, S, D]``; returns q ``[B, S, H, hd]`` and
     k, v ``[B, S, KV, hd]``."""
     cos, sin = rope
-    h = rms_norm_reference(x, p["attn_norm"])
+    h = rms_norm(x, p["attn_norm"])
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
@@ -248,7 +249,7 @@ def _finish_block(x, o, p):
     """The rest of a block after attention: the output projection and
     the residual, then RMSNorm, the MLP and its residual."""
     x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    h = rms_norm_reference(x, p["mlp_norm"])
+    h = rms_norm(x, p["mlp_norm"])
     return x + _mlp(h, p)
 
 
@@ -273,7 +274,7 @@ def lm_head_logits(x, w, cfg: TransformerConfig):
 
 def _lm_head(params: dict, x, cfg: TransformerConfig):
     """final_norm + lm_head on block output ``[B, S, D]`` → logits."""
-    x = rms_norm_reference(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"])
     return lm_head_logits(x, params["lm_head"], cfg)
 
 

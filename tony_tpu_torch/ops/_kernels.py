@@ -1,9 +1,10 @@
 """Build and bind the package's hand-written CUDA kernels.
 
 Each source under ``tony_tpu_torch/csrc/`` (``flash_fwd.cu``,
-``flash_bwd.cu``, ``adamw.cu``) is compiled by its own ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-:mod:`ctypes` — no PyTorch headers, so a build takes seconds. The
+``flash_bwd.cu``, ``adamw.cu``, ``norms.cu``) is compiled by its own
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+and loaded with :mod:`ctypes` — no PyTorch headers, so a build takes
+seconds. The
 compilers run side by side. Libraries are built at first use into
 ``build/`` at the repository root, each named by a hash of its source and
 the flags, so an edited kernel rebuilds and an unchanged one is reused. A
@@ -50,6 +51,12 @@ ENTRY_POINTS = {
     "adamw.cu": {
         # p, g, m, v, scalars, dtype, n, stream
         "tony_adamw": [_VP] * 5 + [_I, _L, _VP],
+    },
+    "norms.cu": {
+        # x, w, out, x dtype, w dtype, rows, d, eps, stream
+        "tony_rms_norm": [_VP] * 3 + [_I, _I, _L, _I, _F, _VP],
+        # x, w, b, out, x dtype, w dtype, b dtype, rows, d, eps, stream
+        "tony_layer_norm": [_VP] * 4 + [_I, _I, _I, _L, _I, _F, _VP],
     },
 }
 SOURCES = tuple(os.path.join(CSRC, name) for name in ENTRY_POINTS)
