@@ -9,25 +9,31 @@ result:
 1. the card (name and power limit as nvidia-smi reports them), torch and
    CUDA versions — no card means exit 1;
 2. build the seven kernels from ``tony_tpu_torch/csrc`` (one nvcc per
-   source, in parallel);
-3. hold the flash-attention forward kernel (K1) against its plain torch
+   source, in parallel) and print ptxas's registers, spills and the
+   dynamic shared memory of each tensor-core attention instantiation;
+3. hold the flash-attention forward kernel (K1; bf16 runs its
+   tensor-core kernel, f32 its FP32-pipe kernel) against its plain torch
    version on the card: f32 and bf16, MHA and GQA, causal / windows 24,
    64 and 100 / non-causal, S in {17, 128, 512}, head_dim in {32, 64,
    128}; and at the main paths' shapes, [8, S_b, 8, 64] bf16 causal for
-   every serving admission bucket S_b in {64, 128, 256, 512} and the
-   training shape [16, 1024, 8, 64]; then time the kernel, the plain
-   version and PyTorch's scaled_dot_product_attention (a yardstick only —
-   the port never calls it) at the serving prefill shape, beside the
-   bound computed from this call's FLOPs and bytes, and the kernel alone
-   at the training shape;
+   every serving admission bucket S_b in {64, 128, 256, 512}, the
+   training shape [16, 1024, 8, 64] and BERT's [16, 512, 12, 64]
+   non-causal; then time the kernel (CUDA events per call, and its
+   device time with the calls queued ahead of the card) and PyTorch's
+   scaled_dot_product_attention (a yardstick only — the port never calls
+   it) at the serving prefill, training and BERT shapes, beside the
+   bound computed from this call's FLOPs and bytes, and the plain version
+   at the serving shape;
 6. hold the backward kernels, K2 (fused) and K3a + K3b (two-pass), against
    the plain backward (and K1's o and lse, which they read, against the
    plain forward): f32 and bf16, MHA and GQA, causal / windows 24, 64 and
    100 / non-causal, S in {17, 128, 512, 1024}, head_dim in {32, 64, 128},
    with and without an lse cotangent, both routes; then time both routes,
-   the plain
-   backward and SDPA's backward (yardstick) at [16, 1024, 8, 64] bf16
-   causal, each beside its bound;
+   the plain backward and SDPA's backward (yardstick) at [16, 1024, 8, 64]
+   bf16 causal, and K2 and SDPA's backward at BERT's [16, 512, 12, 64]
+   non-causal, by CUDA events per call and by device time with the
+   calls queued ahead of the card (each kernel alone, and its whole
+   wrapper), each beside its bound;
 7. hold fused AdamW (K4) against its plain version over the ``small``
    parameter tree in bf16 and f32, 3 steps with a clip on one; then time
    it over the bf16 tree beside its byte bound, the plain version and
@@ -55,7 +61,8 @@ result:
 5. the serving slice at full width in bf16: ``small`` through
    ``tony_tpu_torch.serve_lm``'s code path, 24 mixed requests through 8
    slots, pipelined; every request gets its budget, every token is in the
-   vocabulary, K1 ran n_layers times per admit_rows call and K5
+   vocabulary, K1 ran n_layers times per admit_rows call (each on its
+   tensor-core kernel) and K5
    2 x n_layers + 1 times per model forward; then a short serve under
    torch.profiler gives the device busy share and the device launches
    per decode step;
@@ -63,7 +70,8 @@ result:
    ``tony_tpu_torch.train_lm``'s code path, batch 16 x seq 1024, remat
    "full", DevicePrefetcher depth 2, 20 steps: every loss finite, K1
    launched 2 x n_layers per step (forward and remat recompute), K2
-   n_layers per step, K3 never, K5 4 x n_layers + 1 per step; step time,
+   n_layers per step, K3 never, K5 4 x n_layers + 1 per step, every K1,
+   K2 and K3b launch on its tensor-core kernel; step time,
    tokens/s, MFU, peak memory and data wait; a profiled window of 3
    steps (device busy share); 3 steps
    with the fused optimizer (K4 once per leaf per step), 3 with the budget at 0
@@ -72,7 +80,8 @@ result:
 12. the BERT slice at full width and depth: BERT-base bf16 through
    ``tony_tpu_torch.pretrain_bert``'s code path, batch 16 x seq 512,
    DevicePrefetcher depth 2, 20 steps: every loss finite, per step K1
-   and K2 n_layers times, K6 2 x n_layers + 2, K3 and K5 never; step
+   and K2 n_layers times (on their tensor-core kernels), K6 2 x n_layers
+   + 2, K3 and K5 never; step
    time, tokens/s, MFU, peak memory, data wait; 3 profiled steps;
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -136,6 +145,42 @@ def device_ms(fn, iters: int = 30) -> float:
     return sum(dev.values()) / 1e3 / iters
 
 
+def queued_ms(fn, iters: int = 30):
+    """Mean device milliseconds per call with every call queued before
+    the card reaches the first: a sleep kernel holds the stream while the
+    host enqueues ``iters`` calls between two CUDA events, so the window
+    holds the calls' device time, not the host's launch time (which
+    exceeds a small kernel's). None if the host never got ahead of the
+    card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for attempt in range(3):
+        # about 2 GHz: a sleep of 2, then 4, then 8 times the host's time
+        # to enqueue the window
+        torch.cuda._sleep(int(2e9 * host_s * iters * 2 ** (attempt + 1)))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()   # the card had not reached the window
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+    return None
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
 def phase_card():
     import torch
     if not torch.cuda.is_available():
@@ -154,7 +199,55 @@ def phase_card():
     return card
 
 
-def phase_build():
+def _tc_smem_bytes(kernel: str, args: list) -> int:
+    """Dynamic shared memory of a tensor-core attention kernel's launch,
+    as ``tc_smem_bytes`` (flash_fwd.cu) and ``tc_kv_smem_bytes``
+    (flash_bwd.cu) size it from the template arguments: the forward
+    <D, MT> holds the q tile [64 MT, D] and two stages of K and V
+    ([64, D] bf16 each); the backward <D, WITH_DQ> (16 NW kv rows, NW = 8
+    at D <= 64, else 4) K and V [16 NW, D], two stages of Q and dO
+    [64, D], the dS^T tile [16 NW, 64] (bf16) and two stages of lse and
+    delta (64 f32 each)."""
+    d = int(args[0])
+    if kernel.startswith("flash_fwd"):
+        return 2 * (64 * int(args[1]) + 4 * 64) * d
+    rows = 16 * (8 if d <= 64 else 4)
+    return 2 * (2 * rows * d + 4 * 64 * d + rows * 64) + 4 * 4 * 64
+
+
+def _ptxas_rows(log: str) -> list:
+    """The tensor-core kernels of an nvcc ``-Xptxas=-v`` log: one dict per
+    instantiation with its registers, stack frame and spill bytes."""
+    import re
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_[a-z_]+_tc_kernel)I((?:L[ib]\d+E)+)E",
+                          m.group(1))
+            cur = None
+            if k:
+                args = [("true" if v == "1" else "false") if t == "b" else v
+                        for t, v in re.findall(r"L([ib])(\d+)E",
+                                               k.group(2))]
+                cur = dict(kernel=f"{k.group(1)}<{', '.join(args)}>",
+                           args=args)
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def phase_build(report):
     from tony_tpu_torch.ops import _kernels
     seconds = _kernels.build()
     names = ", ".join(os.path.relpath(s, HERE) for s in _kernels.SOURCES)
@@ -164,6 +257,16 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {src}: {line.strip()}")
+    rows = [r for log in _kernels.BUILD_LOG.values()
+            for r in _ptxas_rows(log)]
+    for r in rows:
+        r["dynamic_smem"] = _tc_smem_bytes(r["kernel"], r.pop("args"))
+        print(f"[2] {r['kernel']}: {r.get('registers')} registers, "
+              f"{r['dynamic_smem']} bytes of dynamic shared memory, stack "
+              f"{r.get('stack')} bytes, spill stores {r.get('spill_stores')}"
+              f" / loads {r.get('spill_loads')} bytes", flush=True)
+    report["build_s"] = seconds
+    report["tc_kernels"] = rows
     return seconds
 
 
@@ -239,40 +342,73 @@ def phase_kernel(report):
         if not (eo <= lo and el <= ll):
             fail(f"K1 disagrees with its plain version at S={s}")
         err = max(err, eo)
-    train_ms = time_ms(lambda: A.flash_attention_with_lse(q, k, v,
-                                                          causal=True))
-    print(f"[3] K1 at the training shape [{b}, {s}, {h}, {d}] bf16 causal: "
-          f"{train_ms:.4f} ms", flush=True)
-    # timed at the serving prefill shape
-    b, s = 8, 512
-    q, k, v = _qkv(b, s, h, h, d, torch.bfloat16, seed=99 + s)
-    ms = time_ms(lambda: A.flash_attention_with_lse(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: A._dense_with_lse(q, k, v, causal=True,
-                                                 scale=None))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    pairs = b * h * s * (s + 1) // 2                # attended (q, k) pairs
-    flops = 4 * d * pairs
-    nbytes = 4 * b * s * h * d * 2 + b * h * s * 4  # q, k, v, o + lse
-    t_ops = flops / BF16_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[3] K1 at B={b} S={s} H={h} D={d} bf16 causal: kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB); kernel at "
-          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    report["k1_timing"] = dict(ms=ms, train_shape_ms=train_ms,
-                               plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               flops=flops, bytes=nbytes, max_abs_err=err)
+    # the BERT slice's shape, non-causal
+    b, s, h, d = 16, 512, 12, 64
+    q, k, v = _qkv(b, s, h, h, d, torch.bfloat16, seed=77)
+    o, lse = A.flash_attention_with_lse(q, k, v, causal=False)
+    ro, rlse = A._dense_with_lse(q.float(), k.float(), v.float(),
+                                 causal=False, scale=None)
+    eo = (o.float() - ro).abs().max().item()
+    el = (lse - rlse).abs().max().item()
+    print(f"[3] K1 vs plain at [{b}, {s}, {h}, {d}] bf16 non-causal: |o| "
+          f"err {eo:.3e} (limit {lo:g}), |lse| err {el:.3e} (limit {ll:g})",
+          flush=True)
+    if not (eo <= lo and el <= ll):
+        fail("K1 disagrees with its plain version at the BERT shape")
+    del q, k, v, o, lse, ro, rlse
+
+    # timed at the serving prefill shape (with the plain version), the
+    # training shape and the BERT shape: CUDA-event time per call (the
+    # host wrapper included), device time with the calls queued ahead of
+    # the card, and the same two for SDPA (a yardstick the port never
+    # calls)
+    timings = {}
+    for key, (b, s, h, causal) in (("serve", (8, 512, 8, True)),
+                                   ("train", (16, 1024, 8, True)),
+                                   ("bert", (16, 512, 12, False))):
+        q, k, v = _qkv(b, s, h, h, d, torch.bfloat16, seed=99 + s)
+        kern = lambda: A.flash_attention_with_lse(q, k, v, causal=causal)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+        t = dict(shape=[b, s, h, d], causal=causal, ms=time_ms(kern),
+                 device_ms=queued_ms(kern), library_ms=time_ms(sdpa),
+                 library_device_ms=queued_ms(sdpa))
+        if key == "serve":
+            t["plain_ms"] = time_ms(lambda: A._dense_with_lse(
+                q, k, v, causal=True, scale=None))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        t["flops"] = 4 * d * pairs                  # attended (q, k) pairs
+        t["bytes"] = 4 * b * s * h * d * 2 + b * h * s * 4  # q k v o, lse
+        t_ops = t["flops"] / BF16_FLOPS * 1e3
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = max(t_ops, t_bytes)
+        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        plain = (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t
+                 else "")
+        print(f"[3] K1 at B={b} S={s} H={h} D={d} bf16 "
+              f"{'causal' if causal else 'non-causal'}: kernel "
+              f"{t['ms']:.4f} ms per call ({_ms(t['device_ms'])} device)"
+              f"{plain}, sdpa {t['library_ms']:.4f} ms "
+              f"({_ms(t['library_device_ms'])} device), bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} "
+              f"({t['flops'] / 1e9:.2f} GFLOP, {t['bytes'] / 1e6:.2f} MB); "
+              f"kernel at {t['flops'] / (t['device_ms'] or t['ms']) / 1e9:.1f}"
+              f" TFLOP/s of {'device' if t['device_ms'] else 'call'} time",
+              flush=True)
+        timings[key] = t
+        del q, k, v, qt, kt, vt
+    report["k1_timing"] = dict(timings, max_abs_err=err)
+    # the kernels line: device times (the CUDA-event time per call where
+    # the host never got ahead of the card)
+    t = timings["serve"]
     return dict(name="flash_fwd", route="cuda",
                 source="tony_tpu_torch/csrc/flash_fwd.cu",
                 replaces="tony_tpu/ops/attention.py:173", launches=None,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                max_abs_err=err, ms=t["device_ms"] or t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"],
+                library_ms=t["library_device_ms"] or t["library_ms"])
 
 
 def phase_parity(report):
@@ -355,6 +491,22 @@ def phase_serve_vs_generate(report, params, cfg):
                                        steps=batcher.steps_executed)
 
 
+def _check_tc_variants(what):
+    """Fail unless every bf16 launch of K1, K2 and K3b since the counts
+    were last zeroed went through the tensor-core kernels; return the
+    per-variant counts."""
+    from tony_tpu_torch.ops import attention as A
+    out = {}
+    for key, fn in (("k1", A.flash_forward), ("k2", A.flash_backward_fused),
+                    ("k3b", A.flash_backward_dkv)):
+        v = dict(fn.variant_launches)
+        out[key] = v
+        if v["fp32_pipe"] or v["tensor_core"] != fn.launches:
+            fail(f"{what}: {key} launches {fn.launches}, by variant {v}: a "
+                 f"bf16 launch missed the tensor-core kernel")
+    return out
+
+
 def phase_serve(report, card):
     import torch
     from tony_tpu_torch import serve_lm
@@ -368,11 +520,12 @@ def phase_serve(report, card):
                                   chunk=8, pipeline=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.flash_forward.launches = 0
+    A.reset_launches()
     N.rms_norm_forward.launches = 0
     S.CALL_COUNTS.clear()
     res = serve_lm.serve(batcher, prompts, budgets)
     launches = A.flash_forward.launches
+    variants = _check_tc_variants("the bf16 serve")["k1"]
     k5 = N.rms_norm_forward.launches
     admits = sum(c for (name, _), c in S.CALL_COUNTS.items()
                  if name == "admit_rows")
@@ -387,7 +540,8 @@ def phase_serve(report, card):
           f"{res['tokens']} tokens in {res['wall_s']:.3f}s "
           f"({tok_s:.1f} tokens/s), slot-step utilization "
           f"{res['utilization']:.3f}, peak memory {peak / 2**20:.1f} MiB, "
-          f"K1 launches {launches} over {admits} admit_rows calls, K5 "
+          f"K1 launches {launches} over {admits} admit_rows calls "
+          f"({variants['tensor_core']} on the tensor-core kernel), K5 "
           f"launches {k5} over {forwards} model forwards", flush=True)
     report["serve"] = dict(wall_s=res["wall_s"], tokens=res["tokens"],
                            tokens_per_s=tok_s,
@@ -497,6 +651,33 @@ def _run_route(route, args, causal, window):
     return (dq,) + A.flash_backward_dkv(*args, **kw)
 
 
+def _raw_backward(name, args, causal):
+    """A call of one backward kernel's C entry point alone ("fused" K2,
+    "dq" K3a, "dkv" K3b) on inputs its wrapper prepares once (delta, the
+    f32 dQ buffer, the outputs): the kernel's device time without the
+    wrapper's other work. K2's dQ buffer is not zeroed again between
+    calls, which the timing does not see."""
+    import torch
+    from tony_tpu_torch.ops import attention as A
+    q, k, v, o, lse, do, dlse = args
+    q, k, v, do, lse, delta = A._bwd_inputs(q, k, v, o, lse, do, dlse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    if name == "fused":
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        outs = [dq, dk, dv]
+    else:
+        dq = torch.empty_like(q)
+        outs = [dq] if name == "dq" else [dk, dv]
+    fn_name = {"fused": "tony_flash_bwd_fused", "dq": "tony_flash_bwd_dq",
+               "dkv": "tony_flash_bwd_dkv"}[name]
+    ptrs = ins + [t.data_ptr() for t in outs]
+    keep = (q, k, v, do, lse, delta, dq, dk, dv)
+    return lambda: A._launch_bwd(fn_name, keep[0], keep[1], ptrs,
+                                 causal=causal, scale=q.shape[-1] ** -0.5,
+                                 window=None)
+
+
 def phase_backward(report):
     """[6] K2 and K3a/K3b against the plain backward on the card, then
     timed at the training slice's shape."""
@@ -554,86 +735,119 @@ def phase_backward(report):
     report["bwd_cases"] = n
     report["bwd_worst"] = {f"{a} {b}": v for (a, b), v in worst.items()}
 
-    # the training slice's shape: [16, 1024, 8, 64] bf16 causal
-    b, s, h, d = 16, 1024, 8, 64
+    # the training slice's shape [16, 1024, 8, 64] bf16 causal (both
+    # routes and the plain backward) and the BERT slice's [16, 512, 12,
+    # 64] non-causal (K2): relative error, CUDA-event time per call (the
+    # wrapper included: delta, the dQ buffer, the cast), device time with
+    # the calls queued ahead of the card of the kernel alone and of the
+    # whole wrapper, and SDPA's backward (a yardstick the port never
+    # calls)
+    shapes = {"train": (16, 1024, 8, True, ("fused", "two_pass")),
+              "bert": (16, 512, 12, False, ("fused",))}
+    d = 64
     dt = torch.bfloat16
-    args, ref = _bwd_case(b, s, h, h, d, dt, True, None, False, seed=4242)
-    q, k, v, o, lse, do, _ = args
-    errs, abs_errs = {}, {}
-    for route in ("fused", "two_pass"):
-        got = _run_route(route, args, True, None)
-        diffs = [(g.float() - r).abs().max().item() for g, r in zip(got, ref)]
-        abs_errs[route] = max(diffs)
-        errs[route] = max(e / max(r.abs().max().item(), 1e-30)
-                          for e, r in zip(diffs, ref))
-        if not errs[route] <= 2e-2:
-            fail(f"{route} backward at the slice shape: relative err "
-                 f"{errs[route]:.3e} > 2e-2")
-    del ref
-    kw = dict(causal=True, scale=d ** -0.5, window=None)
-    plain = lambda: A._dense_backward(q, k, v, o, lse, do, None, causal=True,
-                                      scale=None)
-    times = {
-        "fused": time_ms(lambda: A.flash_backward_fused(
-            q, k, v, o, lse, do, **kw), iters=10),
-        "dq": time_ms(lambda: A.flash_backward_dq(
-            q, k, v, o, lse, do, **kw), iters=10),
-        "dkv": time_ms(lambda: A.flash_backward_dkv(
-            q, k, v, o, lse, do, **kw), iters=10),
-        "plain": time_ms(plain, iters=3),
-    }
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    times["sdpa_bwd"] = time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), iters=10)
-    del out
-    pairs = b * h * s * (s + 1) // 2
-    tensor = b * s * h * d * 2                     # one [B,S,H,D] bf16
-    rows = b * h * s * 4                           # one [B,H,S] f32
-    # products over the attended pairs and bytes read + written:
-    # K2 and the whole backward: q k^T, do v^T, p^T do, ds^T q, ds k;
-    # K3a: q k^T, do v^T, ds k (reads q k v do lse delta, writes dq);
-    # K3b: q k^T, do v^T, p^T do, ds^T q (writes dk, dv)
-    work = {"fused": (5, 5 * tensor + rows, 3 * tensor),
-            "dq": (3, 4 * tensor + 2 * rows, tensor),
-            "dkv": (4, 4 * tensor + 2 * rows, 2 * tensor)}
-    out_rows = {}
-    for name, (products, rd, wr) in work.items():
-        flops = products * 2 * d * pairs
-        t_ops = flops / BF16_FLOPS * 1e3
-        t_bytes = (rd + wr) / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        out_rows[name] = dict(ms=times[name], bound_ms=bound,
-                              bound_by="operations" if t_ops >= t_bytes
-                              else "bytes", flops=flops, bytes=rd + wr)
-        print(f"[6] {name} at B={b} S={s} H={h} D={d} bf16 causal: "
-              f"{times[name]:.4f} ms, bound {bound:.5f} ms by "
-              f"{out_rows[name]['bound_by']} ({flops / 1e9:.2f} GFLOP, "
-              f"{(rd + wr) / 1e6:.2f} MB); {flops / times[name] / 1e9:.1f} "
-              f"TFLOP/s", flush=True)
-    print(f"[6] two-pass total {times['dq'] + times['dkv']:.4f} ms; plain "
-          f"backward {times['plain']:.4f} ms; sdpa backward "
-          f"{times['sdpa_bwd']:.4f} ms; err (max abs, relative to the "
-          f"largest entry) fused {abs_errs['fused']:.3e} "
-          f"({errs['fused']:.3e}), two-pass {abs_errs['two_pass']:.3e} "
-          f"({errs['two_pass']:.3e})", flush=True)
-    report["bwd_timing"] = dict(times=times, rows=out_rows, errs=errs,
-                                abs_errs=abs_errs)
-    entries = {}
-    for name, kname, src_line in (
-            ("fused", "flash_bwd_fused", "tony_tpu/ops/attention.py:339"),
-            ("dq", "flash_bwd_dq", "tony_tpu/ops/attention.py:525"),
-            ("dkv", "flash_bwd_dkv", "tony_tpu/ops/attention.py:571")):
-        r = out_rows[name]
-        entries[name] = dict(
-            name=kname, route="cuda",
-            source="tony_tpu_torch/csrc/flash_bwd.cu", replaces=src_line,
-            launches=None, max_abs_err=abs_errs["fused" if name == "fused"
-                                                else "two_pass"],
-            ms=r["ms"], plain_ms=times["plain"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=times["sdpa_bwd"])
+    bwd_timing, entries = {}, {}
+    for key, (b, s, h, causal, routes) in shapes.items():
+        args, ref = _bwd_case(b, s, h, h, d, dt, causal, None, False,
+                              seed=4242 + s)
+        q, k, v, o, lse, do, _ = args
+        errs, abs_errs = {}, {}
+        for route in routes:
+            got = _run_route(route, args, causal, None)
+            diffs = [(g.float() - r).abs().max().item()
+                     for g, r in zip(got, ref)]
+            abs_errs[route] = max(diffs)
+            errs[route] = max(e / max(r.abs().max().item(), 1e-30)
+                              for e, r in zip(diffs, ref))
+            if not errs[route] <= 2e-2:
+                fail(f"{route} backward at [{b}, {s}, {h}, {d}]: relative "
+                     f"err {errs[route]:.3e} > 2e-2")
+        del ref, got
+        kw = dict(causal=causal, scale=d ** -0.5, window=None)
+        fns = {"fused": lambda: A.flash_backward_fused(q, k, v, o, lse, do,
+                                                       **kw)}
+        if key == "train":
+            fns["dq"] = lambda: A.flash_backward_dq(q, k, v, o, lse, do, **kw)
+            fns["dkv"] = lambda: A.flash_backward_dkv(q, k, v, o, lse, do,
+                                                      **kw)
+        times = {name: time_ms(fn, iters=10) for name, fn in fns.items()}
+        dev = {name: queued_ms(_raw_backward(name, args, causal), iters=10)
+               for name in fns}
+        wrapper_dev = {name: queued_ms(fn, iters=10)
+                       for name, fn in fns.items()}
+        if key == "train":
+            times["plain"] = time_ms(lambda: A._dense_backward(
+                q, k, v, o, lse, do, None, causal=True, scale=None), iters=3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True)
+        times["sdpa_bwd"] = time_ms(sdpa_bwd, iters=10)
+        dev["sdpa_bwd"] = queued_ms(sdpa_bwd, iters=10)
+        del out
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        tensor = b * s * h * d * 2                     # one [B,S,H,D] bf16
+        rows = b * h * s * 4                           # one [B,H,S] f32
+        # products over the attended pairs and bytes read + written:
+        # K2 and the whole backward: q k^T, do v^T, p^T do, ds^T q, ds k;
+        # K3a: q k^T, do v^T, ds k (reads q k v do lse delta, writes dq);
+        # K3b: q k^T, do v^T, p^T do, ds^T q (writes dk, dv)
+        work = {"fused": (5, 5 * tensor + rows, 3 * tensor),
+                "dq": (3, 4 * tensor + 2 * rows, tensor),
+                "dkv": (4, 4 * tensor + 2 * rows, 2 * tensor)}
+        rows_k = {}
+        for name in fns:
+            products, rd, wr = work[name]
+            flops = products * 2 * d * pairs
+            t_ops = flops / BF16_FLOPS * 1e3
+            t_bytes = (rd + wr) / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            rows_k[name] = dict(ms=times[name], device_ms=dev[name],
+                                wrapper_device_ms=wrapper_dev[name],
+                                bound_ms=bound,
+                                bound_by="operations" if t_ops >= t_bytes
+                                else "bytes", flops=flops, bytes=rd + wr)
+            print(f"[6] {name} at B={b} S={s} H={h} D={d} bf16 "
+                  f"{'causal' if causal else 'non-causal'}: {times[name]:.4f}"
+                  f" ms per call, {_ms(dev[name])} device (kernel), "
+                  f"{_ms(wrapper_dev[name])} device (wrapper), bound "
+                  f"{bound:.5f} ms by {rows_k[name]['bound_by']} "
+                  f"({flops / 1e9:.2f} GFLOP, {(rd + wr) / 1e6:.2f} MB); "
+                  f"{flops / (dev[name] or times[name]) / 1e9:.1f} TFLOP/s "
+                  f"of {'device' if dev[name] else 'call'} time", flush=True)
+        plain = (f"plain backward {times['plain']:.4f} ms; "
+                 if "plain" in times else "")
+        two = (f"two-pass total {times['dq'] + times['dkv']:.4f} ms; "
+               if "dq" in times else "")
+        print(f"[6] at [{b}, {s}, {h}, {d}]: {two}{plain}sdpa backward "
+              f"{times['sdpa_bwd']:.4f} ms ({_ms(dev['sdpa_bwd'])} "
+              f"device); err (max abs, relative to the largest entry) "
+              + ", ".join(f"{r} {abs_errs[r]:.3e} ({errs[r]:.3e})"
+                          for r in routes), flush=True)
+        bwd_timing[key] = dict(times=times, device=dev, rows=rows_k,
+                               errs=errs, abs_errs=abs_errs)
+        if key == "train":
+            for name, kname, src_line in (
+                    ("fused", "flash_bwd_fused",
+                     "tony_tpu/ops/attention.py:339"),
+                    ("dq", "flash_bwd_dq", "tony_tpu/ops/attention.py:525"),
+                    ("dkv", "flash_bwd_dkv",
+                     "tony_tpu/ops/attention.py:571")):
+                r = rows_k[name]
+                entries[name] = dict(
+                    name=kname, route="cuda",
+                    source="tony_tpu_torch/csrc/flash_bwd.cu",
+                    replaces=src_line, launches=None,
+                    max_abs_err=abs_errs["fused" if name == "fused"
+                                         else "two_pass"],
+                    ms=r["wrapper_device_ms"] or r["ms"],
+                    plain_ms=times["plain"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"],
+                    library_ms=dev["sdpa_bwd"] or times["sdpa_bwd"])
+        del args, q, k, v, o, lse, do, qt, kt, vt
+    report["bwd_timing"] = bwd_timing
     return entries
 
 
@@ -871,9 +1085,8 @@ def phase_train(report, card):
     L = cfg.n_layers
 
     def zero_counts():
-        for fn in (A.flash_forward, A.flash_backward_fused,
-                   A.flash_backward_dq, A.flash_backward_dkv,
-                   O.adamw_update, N.rms_norm_forward):
+        A.reset_launches()
+        for fn in (O.adamw_update, N.rms_norm_forward):
             fn.launches = 0
 
     def counts():
@@ -891,6 +1104,7 @@ def phase_train(report, card):
     state, losses, walls, waits = _train_run(cfg, params, steps, timed=True)
     wall = time.perf_counter() - t0
     c = counts()
+    variants = _check_tc_variants("bf16 small training")
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(walls[-10:]) * 1e3
     tok_s = batch * seq / (step_ms / 1e3)
@@ -902,8 +1116,9 @@ def phase_train(report, card):
           f"{tok_s:,.0f} tokens/s, MFU {mfu:.4f} ({fpt / 1e6:.1f} MFLOP/"
           f"token vs 989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB, data "
           f"wait median {wait_ms:.3f} ms; losses {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; launches {c}", flush=True)
-    report["train"] = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+          f"{losses[-1]:.4f}; launches {c}; K1 and K2 by variant "
+          f"{variants['k1']}, {variants['k2']}", flush=True)
+    report["train"] = dict(variants=variants, step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
                            flops_per_token=fpt, peak_bytes=peak,
                            data_wait_median_ms=wait_ms, losses=losses,
                            walls=walls, launches=c, wall_s=wall)
@@ -937,8 +1152,10 @@ def phase_train(report, card):
         c = counts()
     finally:
         A._FUSED_PARTIALS_BYTES = budget
-    print(f"[9] 3 steps with the partials budget at 0: launches {c}, losses "
-          f"{[round(x, 4) for x in tl]}", flush=True)
+    k3b_variants = _check_tc_variants("bf16 two-pass training")["k3b"]
+    print(f"[9] 3 steps with the partials budget at 0: launches {c}, K3b by "
+          f"variant {k3b_variants}, losses {[round(x, 4) for x in tl]}",
+          flush=True)
     if c["k3a"] != 3 * L or c["k3b"] != 3 * L or c["k2"] != 0:
         fail(f"two-pass run: launches {c}, want K3a = K3b = {3 * L}, K2 0")
     train_counts["k3a"], train_counts["k3b"] = c["k3a"], c["k3b"]
@@ -1283,6 +1500,7 @@ def phase_bert(report, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
     for fn in fns.values():
         fn.launches = 0
     walls = []
@@ -1290,6 +1508,7 @@ def phase_bert(report, card):
     state, losses, waits = run(state, steps, 1000, walls)
     wall = time.perf_counter() - t0
     c = {k: fn.launches for k, fn in fns.items()}
+    variants = _check_tc_variants("bf16 BERT training")
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(walls[-10:]) * 1e3
     tok_s = batch * seq / (step_ms / 1e3)
@@ -1301,9 +1520,10 @@ def phase_bert(report, card):
           f"{step_ms:.2f} ms (median of the last 10), {tok_s:,.0f} tokens/s, "
           f"MFU {mfu:.4f} ({fpt / 1e6:.1f} MFLOP/token vs 989 TFLOP/s), peak "
           f"memory {peak / 2**30:.2f} GiB, data wait median {wait_ms:.3f} "
-          f"ms; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {c}",
+          f"ms; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {c}; "
+          f"K1 and K2 by variant {variants['k1']}, {variants['k2']}",
           flush=True)
-    report["bert"] = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+    report["bert"] = dict(variants=variants, step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
                           flops_per_token=fpt, peak_bytes=peak,
                           data_wait_median_ms=wait_ms, losses=losses,
                           walls=walls, launches=c, wall_s=wall,
@@ -1347,7 +1567,7 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    report["build_s"] = phase_build()
+    phase_build(report)
     k1 = phase_kernel(report)
     bwd = phase_backward(report)
     k4 = phase_adamw(report)

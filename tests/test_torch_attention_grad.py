@@ -6,7 +6,8 @@ their plain backward, ``_dense_backward``) against ``jax.grad`` of the
 JAX ``flash_attention`` in Pallas interpret mode (block 32, as
 tests/test_ops.py runs it) and of ``reference_attention``, on inputs made
 from a seeded numpy generator. f32 throughout, dq/dk/dv to 5e-5 — the JAX
-tests' own limit (the blockwise and dense sums round differently). The
+tests' own limit (the blockwise and dense sums round differently) — and
+bf16 on two cases, to 2% of the largest entry. The
 CUDA kernels are held to the plain backward on the card (``cuda`` marker
 here; chip_smoke.py phase 6 at the training shapes).
 """
@@ -92,6 +93,55 @@ def test_grads_match_jax_flash_interpret(case, with_lse):
                                      block_q=block, block_k=block),
                       q, k, v, wo, wl, with_lse)
     _check(got, want)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa"])
+def test_bf16_plain_backward_matches_jax_flash_interpret(case):
+    """The bf16 plain backward (autograd through the CPU path) against
+    ``jax.grad`` of the JAX flash backward in bf16, Pallas interpret mode.
+    Both round p and ds to bf16 before the dV, dK and dQ products, and
+    each rounds its gradients (JAX also its pre-scaled q) to bf16, so they
+    differ by a few bf16 units in the last place of the largest entry
+    (under 1% on these inputs): held to 2% of the largest entry, the
+    limit of tests/test_ops.py's bf16 gradient tests."""
+    b, s, h, kv, d, causal, window, block = CASES[case]
+    q, k, v, wo, _ = _inputs(b, s, h, kv, d, seed=15)
+    ts = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+          for x in (q, k, v)]
+    o = A.flash_attention(*ts, causal=causal, window=window)
+    got = torch.autograd.grad((o.float() * torch.from_numpy(wo)).sum(), ts)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+
+    def loss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal, window=window, block_q=block,
+                      block_k=block)
+        return jnp.sum(o.astype(jnp.float32) * wo)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w,
+                                   atol=0.02 * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+
+
+def test_plain_backward_rounds_p_and_ds_to_the_input_dtype():
+    """In bf16 the plain backward's dV is the product of the bf16-rounded
+    p with do (as the kernels and the JAX backward form it), not of the
+    f32 p; in f32 the rounding is the identity."""
+    q, k, v, do, _ = (torch.from_numpy(x) for x in
+                      _inputs(1, 40, 2, 2, 32, seed=16))
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd, dod = (x.to(dtype) for x in (q, k, v, do))
+        o, lse = A._dense_with_lse(qd, kd, vd, causal=True, scale=None)
+        _, _, dv = A._dense_backward(qd, kd, vd, o, lse, dod, causal=True,
+                                     scale=None)
+        s = torch.einsum("bqhd,bkhd->bhqk", qd.float(), kd.float()) * 32 ** -0.5
+        p = torch.exp(s - lse.float()[..., None]).tril()
+        want = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(),
+                            dod.float()).to(dtype)
+        torch.testing.assert_close(dv, want, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("with_lse", [False, True], ids=["o", "o_lse"])

@@ -4,7 +4,7 @@ Each source under ``tony_tpu_torch/csrc/`` (``flash_fwd.cu``,
 ``flash_bwd.cu``, ``adamw.cu``, ``norms.cu``) is compiled by its own
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 and loaded with :mod:`ctypes` — no PyTorch headers, so a build takes
-seconds. The
+seconds. The attention sources share ``csrc/tc_common.cuh``. The
 compilers run side by side. Libraries are built at first use into
 ``build/`` at the repository root, each named by a hash of its source and
 the flags, so an edited kernel rebuilds and an unchanged one is reused. A
@@ -17,6 +17,7 @@ touched only when a kernel is first built or launched.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -70,9 +71,14 @@ _lib = None
 
 
 def library_path(source: str) -> str:
-    """Path of ``source``'s built library (may not exist yet)."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of ``source``'s built library (may not exist yet), named by a
+    hash of the source, every header under ``csrc/`` (``*.cuh``, which a
+    source may include) and the flags."""
+    digest = hashlib.sha256()
+    for path in [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

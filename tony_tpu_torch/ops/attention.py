@@ -10,7 +10,10 @@ window``, default scale ``head_dim ** -0.5``, o in the input dtype and a
 natural-log lse ``[batch, heads, seq]`` in f32.
 
 Dispatch is by the tensors' device: a CUDA tensor launches the kernels
-or raises; a CPU tensor takes the plain versions. Forward: K1
+or raises; a CPU tensor takes the plain versions. On the card, dtype
+picks the kernel inside the C entry points (:func:`kernel_variant`):
+bf16 the tensor-core kernels (mma.sync, FlashAttention-2 design), f32
+the FP32-pipe kernels. Forward: K1
 (``csrc/flash_fwd.cu``, :func:`flash_forward`), plain
 :func:`_dense_with_lse`. Backward (``csrc/flash_bwd.cu``): K2, the fused
 kv-major pass (:func:`flash_backward_fused`), or, when its f32 dQ
@@ -68,42 +71,90 @@ def _check_kv_heads(h: int, hk: int) -> None:
         raise ValueError(f"kv heads ({hk}) must divide query heads ({h})")
 
 
+#: the kernel a dtype runs in K1, K2 and K3b: bf16 the tensor-core kernels
+#: (mma.sync), f32 the FP32-pipe kernels (full f32, no TF32). K3a runs
+#: its FP32-pipe kernel in both dtypes.
+VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "fp32_pipe"}
+
+
+def kernel_variant(dtype, wrapper=None) -> str:
+    """``"tensor_core"`` or ``"fp32_pipe"``: the kernel that ``wrapper``
+    (one of the four kernel wrappers; K1 by default) launches for inputs
+    of ``dtype``, as the C entry points dispatch."""
+    if dtype not in VARIANTS:
+        raise TypeError(f"the attention kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    if wrapper is flash_backward_dq:
+        return "fp32_pipe"
+    return VARIANTS[dtype]
+
+
+def _count(wrapper, dtype) -> None:
+    wrapper.launches += 1
+    wrapper.variant_launches[kernel_variant(dtype, wrapper)] += 1
+
+
+def reset_launches() -> None:
+    """Zero every attention wrapper's launch counts (total and per
+    variant)."""
+    for fn in (flash_forward, flash_backward_fused, flash_backward_dq,
+               flash_backward_dkv):
+        fn.launches = 0
+        fn.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte-aligned address: the tensor-core
+    kernels move tiles with 16-byte copies. A view that starts off that
+    alignment is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(fn_name, device, args) -> None:
+    """Call C entry point ``fn_name`` with ``args`` and the current stream
+    of ``device``; raise if the launch was refused."""
+    fn = getattr(_kernels.load(), fn_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    _kernels.check(rc, fn_name)
+
+
 def flash_forward(q, k, v, *, causal: bool, scale: float,
                   window: int | None):
-    """Launch the CUDA flash-attention forward on contiguous CUDA tensors
-    and return ``(o, lse)``. The wrapper of the kernel: it checks what
-    the kernel takes, allocates the outputs and launches on the current
+    """Launch the CUDA flash-attention forward on CUDA tensors and return
+    ``(o, lse)``: bf16 runs the tensor-core kernel, f32 the FP32-pipe
+    kernel (:func:`kernel_variant`). The wrapper of the kernels: it checks
+    what they take, allocates the outputs and launches on the current
     stream without synchronising. ``flash_forward.launches`` counts the
-    launches made."""
+    launches made, ``flash_forward.variant_launches`` them by variant."""
     b, sq, h, d = _check_cuda_qkv("flash_forward", q, k, v)
     sk, hk = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _kernels.load().tony_flash_fwd
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
-                float(scale), int(causal), int(window or 0), stream)
-    _kernels.check(rc, "flash_fwd")
-    flash_forward.launches += 1
+    _launch("tony_flash_fwd", q.device,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
+             float(scale), int(causal), int(window or 0)))
+    _count(flash_forward, q.dtype)
     return o, lse
 
 
-flash_forward.launches = 0
+def _check_device(what: str, ts) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{what} takes CUDA tensors")
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{what}: all tensors must be on one device")
 
 
 def _check_cuda_qkv(what: str, q, k, v, *more):
-    """Check what the CUDA kernels take: CUDA tensors on one device, f32
-    or bf16 of one dtype, q [B,S,H,D] and k = v [B,Sk,KV,D] with KV
-    dividing H and D in (32, 64, 128); ``more`` are tensors shaped like q.
-    Returns q's shape."""
+    """Check what the CUDA kernels take: f32 or bf16 tensors of one dtype,
+    q [B,S,H,D] and k = v [B,Sk,KV,D] with KV dividing H and D in (32,
+    64, 128), on one CUDA device; ``more`` are tensors shaped like q.
+    Dtype and shapes are checked before the device. Returns q's shape."""
     ts = (q, k, v) + more
-    if not all(t.is_cuda for t in ts):
-        raise ValueError(f"{what} takes CUDA tensors")
-    if any(t.device != q.device for t in ts):
-        raise ValueError(f"{what}: all tensors must be on one device")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"{what} takes float32 or bfloat16 tensors of one "
                         f"dtype, got {[t.dtype for t in ts]}")
@@ -120,61 +171,58 @@ def _check_cuda_qkv(what: str, q, k, v, *more):
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels "
                          f"(supported: {_HEAD_DIMS})")
     _check_kv_heads(h, k.shape[2])
+    _check_device(what, ts)
     return b, sq, h, d
 
 
 def _bwd_inputs(q, k, v, o, lse, do, dlse):
-    """Contiguous q, k, v, do, the lse [B,H,S] f32 and delta = rowsum(do
-    * o) - dlse [B,H,S] f32 that every backward kernel reads. delta is
-    one plain pass outside the kernels, as the JAX package computes it
-    outside its Pallas calls; dlse folds in here so the kernels never see
-    it."""
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    """Contiguous, 16-byte-aligned q, k, v, do, the lse [B,H,S] f32 and
+    delta = rowsum(do * o) - dlse [B,H,S] f32 that every backward kernel
+    reads. delta is one plain pass outside the kernels, as the JAX
+    package computes it outside its Pallas calls; dlse folds in here so
+    the kernels never see it."""
+    delta = (do.float() * o).sum(-1).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.float()
-    return (q.contiguous(), k.contiguous(), v.contiguous(),
-            do.contiguous(), lse.float().contiguous(), delta.contiguous())
+    return (_aligned(q), _aligned(k), _aligned(v), _aligned(do),
+            lse.float().contiguous(), delta.contiguous())
 
 
-def _launch_bwd(fn_name, q, k, v, ptrs, *, causal, scale, window):
+def _launch_bwd(fn_name, q, k, ptrs, *, causal, scale, window):
     b, sq, h, d = q.shape
-    fn = getattr(_kernels.load(), fn_name)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*ptrs, _DTYPE_CODES[q.dtype], b, sq, k.shape[1], h,
-                k.shape[2], d, float(scale), int(causal), int(window or 0),
-                stream)
-    _kernels.check(rc, fn_name)
+    _launch(fn_name, q.device,
+            (*ptrs, _DTYPE_CODES[q.dtype], b, sq, k.shape[1], h, k.shape[2],
+             d, float(scale), int(causal), int(window or 0)))
 
 
 def flash_backward_fused(q, k, v, o, lse, do, dlse=None, *, causal: bool,
                          scale: float, window: int | None):
     """K2: the fused kv-major backward on CUDA tensors → ``(dq, dk, dv)``
-    in the input dtype. dQ accumulates across kv tiles with f32 atomics
-    into a zeroed f32 buffer, cast once at the end. The kernel's wrapper:
-    checks, allocates, launches on the current stream without
-    synchronising; ``flash_backward_fused.launches`` counts launches."""
+    in the input dtype (bf16 the tensor-core kernel, f32 the FP32-pipe
+    one). dQ accumulates across kv tiles with f32 atomics into a zeroed
+    f32 buffer, cast once at the end. The kernel's wrapper: checks,
+    allocates, launches on the current stream without synchronising;
+    ``flash_backward_fused.launches`` counts launches (and
+    ``variant_launches`` by variant)."""
     _check_cuda_qkv("flash_backward_fused", q, k, v, o, do)
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, o, lse, do, dlse)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("tony_flash_bwd_fused", q, k, v,
+    _launch_bwd("tony_flash_bwd_fused", q, k,
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
                  dk.data_ptr(), dv.data_ptr()),
                 causal=causal, scale=scale, window=window)
-    flash_backward_fused.launches += 1
+    _count(flash_backward_fused, q.dtype)
     return dq_acc.to(q.dtype), dk, dv
-
-
-flash_backward_fused.launches = 0
 
 
 def flash_backward_dq(q, k, v, o, lse, do, dlse=None, *, causal: bool,
                       scale: float, window: int | None):
     """K3a: the q-major dQ pass of the two-pass backward on CUDA tensors
-    → dq in the input dtype (f32 accumulation, deterministic).
-    ``flash_backward_dq.launches`` counts launches."""
+    → dq in the input dtype (f32 accumulation, deterministic; the
+    FP32-pipe kernel in both dtypes). ``flash_backward_dq.launches``
+    counts launches."""
     _check_cuda_qkv("flash_backward_dq", q, k, v, o, do)
     return _launch_dq(_bwd_inputs(q, k, v, o, lse, do, dlse), causal=causal,
                       scale=scale, window=window)
@@ -183,22 +231,20 @@ def flash_backward_dq(q, k, v, o, lse, do, dlse=None, *, causal: bool,
 def _launch_dq(inputs, *, causal, scale, window):
     q, k, v, do, lse, delta = inputs
     dq = torch.empty_like(q)
-    _launch_bwd("tony_flash_bwd_dq", q, k, v,
+    _launch_bwd("tony_flash_bwd_dq", q, k,
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
                 causal=causal, scale=scale, window=window)
-    flash_backward_dq.launches += 1
+    _count(flash_backward_dq, q.dtype)
     return dq
-
-
-flash_backward_dq.launches = 0
 
 
 def flash_backward_dkv(q, k, v, o, lse, do, dlse=None, *, causal: bool,
                        scale: float, window: int | None):
     """K3b: the kv-major dK/dV pass of the two-pass backward on CUDA
     tensors → ``(dk, dv)`` in the input dtype, summed over each kv head's
-    query group. ``flash_backward_dkv.launches`` counts launches."""
+    query group (bf16 the tensor-core kernel, f32 the FP32-pipe one).
+    ``flash_backward_dkv.launches`` counts launches."""
     _check_cuda_qkv("flash_backward_dkv", q, k, v, o, do)
     return _launch_dkv(_bwd_inputs(q, k, v, o, lse, do, dlse), causal=causal,
                        scale=scale, window=window)
@@ -207,16 +253,16 @@ def flash_backward_dkv(q, k, v, o, lse, do, dlse=None, *, causal: bool,
 def _launch_dkv(inputs, *, causal, scale, window):
     q, k, v, do, lse, delta = inputs
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("tony_flash_bwd_dkv", q, k, v,
+    _launch_bwd("tony_flash_bwd_dkv", q, k,
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                  dv.data_ptr()),
                 causal=causal, scale=scale, window=window)
-    flash_backward_dkv.launches += 1
+    _count(flash_backward_dkv, q.dtype)
     return dk, dv
 
 
-flash_backward_dkv.launches = 0
+reset_launches()
 
 
 def fused_dq_bytes(q_shape) -> int:
@@ -339,8 +385,11 @@ def _dense_backward(q, k, v, o, lse, do, dlse=None, *, causal: bool,
     of K2 and K3a/K3b, taken for CPU tensors and used by the tests and
     the chip smoke to hold the kernels to. In f32 whatever the input
     dtype: ``p = exp(s - lse)`` (0 where masked), ``delta = rowsum(do·o)
-    - dlse``, ``ds = p·(dp - delta)``; dK/dV of a kv head sum over its
-    query group. Outputs in the inputs' dtypes."""
+    - dlse``, ``ds = p·(dp - delta)``; p and ds round to the input dtype
+    before the products that consume them (dV, dK, dQ), as the JAX
+    package's backward kernels and the CUDA kernels do (the identity in
+    f32); dK/dV of a kv head sum over its query group. Outputs in the
+    inputs' dtypes."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     _check_kv_heads(h, hk)
@@ -364,9 +413,10 @@ def _dense_backward(q, k, v, o, lse, do, dlse=None, *, causal: bool,
         delta = delta - dlse.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    pr, dsr = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsr, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsr, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", pr, dof)
     dk = dk.reshape(b, sk, hk, rep, d).sum(3)
     dv = dv.reshape(b, sk, hk, rep, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
