@@ -10,7 +10,8 @@ result:
    CUDA versions — no card means exit 1;
 2. build the seven kernels from ``tony_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and print ptxas's registers, spills and the
-   dynamic shared memory of each tensor-core attention instantiation;
+   dynamic shared memory of each tensor-core attention instantiation
+   (K1, K2/K3b and K3a);
 3. hold the flash-attention forward kernel (K1; bf16 runs its
    tensor-core kernel, f32 its FP32-pipe kernel) against its plain torch
    version on the card: f32 and bf16, MHA and GQA, causal / windows 24,
@@ -28,16 +29,21 @@ result:
    the plain backward (and K1's o and lse, which they read, against the
    plain forward): f32 and bf16, MHA and GQA, causal / windows 24, 64 and
    100 / non-causal, S in {17, 128, 512, 1024}, head_dim in {32, 64, 128},
-   with and without an lse cotangent, both routes; then time both routes,
-   the plain backward and SDPA's backward (yardstick) at [16, 1024, 8, 64]
-   bf16 causal, and K2 and SDPA's backward at BERT's [16, 512, 12, 64]
+   with and without an lse cotangent, both routes, and K3a run twice per
+   two-pass case for bitwise equal dQ (it has no atomics); then time K2,
+   K3a and K3b and SDPA's backward (yardstick) at [16, 1024, 8, 64] bf16
+   causal (with the plain backward) and at BERT's [16, 512, 12, 64]
    non-causal, by CUDA events per call and by device time with the
    calls queued ahead of the card (each kernel alone, and its whole
    wrapper), each beside its bound;
 7. hold fused AdamW (K4) against its plain version over the ``small``
    parameter tree in bf16 and f32, 3 steps with a clip on one; then time
-   it over the bf16 tree beside its byte bound, the plain version and
-   ``torch.optim.AdamW(fused=True)`` (yardstick);
+   it over the f32 tree beside its byte bound, the plain version and
+   ``torch.optim.AdamW(fused=True)``, which computes the same function
+   there (f32 p, g, m and v: 28 B/element; yardstick), and over the bf16
+   tree, where that call keeps bf16 moments (14 B/element against K4's
+   22) and is printed as another function; every timed call with its
+   GB/s;
 10. hold RMSNorm (K5) and LayerNorm (K6) against their plain versions: f32
    (max abs <= 1e-5) and bf16 (within one ulp + 1e-5), d in {64, 128,
    512, 768, 770, 4096}, rows in {1, 17, 8192, 16384}, and an x off
@@ -71,11 +77,13 @@ result:
    "full", DevicePrefetcher depth 2, 20 steps: every loss finite, K1
    launched 2 x n_layers per step (forward and remat recompute), K2
    n_layers per step, K3 never, K5 4 x n_layers + 1 per step, every K1,
-   K2 and K3b launch on its tensor-core kernel; step time,
+   K2, K3a and K3b launch on its tensor-core kernel; step time,
    tokens/s, MFU, peak memory and data wait; a profiled window of 3
    steps (device busy share); 3 steps
-   with the fused optimizer (K4 once per leaf per step), 3 with the budget at 0
-   (K3a and K3b n_layers per step each, K2 never), and a checkpoint at
+   with the fused optimizer (K4 once per leaf per step), 8 with the
+   budget at 0 (K3a and K3b n_layers per step each, K2 never; the median
+   step time and, over 3 more profiled steps, the device time per step,
+   each beside the fused run's), and a checkpoint at
    step 2 whose resume reaches the uninterrupted step-3 loss;
 12. the BERT slice at full width and depth: BERT-base bf16 through
    ``tony_tpu_torch.pretrain_bert``'s code path, batch 16 x seq 512,
@@ -181,6 +189,11 @@ def _ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
+def _sum(*ts):
+    """The sum of times, None if any was not measured."""
+    return None if None in ts else sum(ts)
+
+
 def phase_card():
     import torch
     if not torch.cuda.is_available():
@@ -201,17 +214,21 @@ def phase_card():
 
 def _tc_smem_bytes(kernel: str, args: list) -> int:
     """Dynamic shared memory of a tensor-core attention kernel's launch,
-    as ``tc_smem_bytes`` (flash_fwd.cu) and ``tc_kv_smem_bytes``
-    (flash_bwd.cu) size it from the template arguments: the forward
-    <D, MT> holds the q tile [64 MT, D] and two stages of K and V
-    ([64, D] bf16 each); the backward <D, WITH_DQ> (16 NW kv rows, NW = 8
-    at D <= 64, else 4) K and V [16 NW, D], two stages of Q and dO
+    as ``tc_smem_bytes`` (flash_fwd.cu), ``tc_dq_smem_bytes`` and
+    ``tc_kv_smem_bytes`` (flash_bwd.cu) size it from the template
+    arguments: the forward <D, MT> holds the q tile [64 MT, D] and two
+    stages of K and V ([64, D] bf16 each); the dQ pass <D> (16 NW q rows,
+    NW = 8 at D <= 64, else 4) the Q and dO tiles [16 NW, D] and two
+    stages of K and V; the kv-major backward <D, WITH_DQ> (16 NW kv rows,
+    NW as the dQ pass's) K and V [16 NW, D], two stages of Q and dO
     [64, D], the dS^T tile [16 NW, 64] (bf16) and two stages of lse and
     delta (64 f32 each)."""
     d = int(args[0])
     if kernel.startswith("flash_fwd"):
         return 2 * (64 * int(args[1]) + 4 * 64) * d
     rows = 16 * (8 if d <= 64 else 4)
+    if kernel.startswith("flash_bwd_dq"):
+        return 2 * (2 * rows + 4 * 64) * d
     return 2 * (2 * rows * d + 4 * 64 * d + rows * 64) + 4 * 4 * 64
 
 
@@ -492,12 +509,13 @@ def phase_serve_vs_generate(report, params, cfg):
 
 
 def _check_tc_variants(what):
-    """Fail unless every bf16 launch of K1, K2 and K3b since the counts
-    were last zeroed went through the tensor-core kernels; return the
-    per-variant counts."""
+    """Fail unless every bf16 launch of K1, K2, K3a and K3b since the
+    counts were last zeroed went through the tensor-core kernels; return
+    the per-variant counts."""
     from tony_tpu_torch.ops import attention as A
     out = {}
     for key, fn in (("k1", A.flash_forward), ("k2", A.flash_backward_fused),
+                    ("k3a", A.flash_backward_dq),
                     ("k3b", A.flash_backward_dkv)):
         v = dict(fn.variant_launches)
         out[key] = v
@@ -678,9 +696,25 @@ def _raw_backward(name, args, causal):
                                  window=None)
 
 
+def _check_dq_repeats(args, dq, causal, window):
+    """Fail unless a second K3a run on the same inputs gives bitwise the
+    same dQ: the q-major pass adds in a fixed order, with no atomics."""
+    import torch
+    from tony_tpu_torch.ops import attention as A
+    again = A.flash_backward_dq(*args, causal=causal,
+                                scale=args[0].shape[-1] ** -0.5,
+                                window=window)
+    if not torch.equal(again, dq):
+        q = args[0]
+        fail(f"K3a is not deterministic: two runs differ by "
+             f"{(again.float() - dq.float()).abs().max().item():.3e} at "
+             f"{tuple(q.shape)} {q.dtype} causal={causal} window={window}")
+
+
 def phase_backward(report):
-    """[6] K2 and K3a/K3b against the plain backward on the card, then
-    timed at the training slice's shape."""
+    """[6] K2 and K3a/K3b against the plain backward on the card (K3a
+    twice, for bitwise equal dQ), then timed at the training and BERT
+    shapes."""
     import torch
     import torch.nn.functional as F
     from tony_tpu_torch.ops import attention as A
@@ -690,7 +724,7 @@ def phase_backward(report):
     # entry, against the dense f32 gradient of the same bf16 inputs.
     rel = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     worst = {}
-    n = 0
+    n = n_det = 0
     for dtype in rel:
         for kv in (8, 2):
             for causal, window in MASKS:
@@ -703,6 +737,10 @@ def phase_backward(report):
                                                   seed=1000 + n)
                             for route in ("fused", "two_pass"):
                                 got = _run_route(route, args, causal, w_s)
+                                if route == "two_pass":
+                                    _check_dq_repeats(args, got[0], causal,
+                                                      w_s)
+                                    n_det += 1
                                 torch.cuda.synchronize()
                                 for name, g, r in zip(("dq", "dk", "dv"),
                                                       got, ref):
@@ -732,6 +770,8 @@ def phase_backward(report):
     for (dtype, route), (ratio, where) in sorted(worst.items()):
         print(f"[6] {route} backward vs plain, {dtype}: worst err/limit "
               f"{ratio:.3f} ({where})", flush=True)
+    print(f"[6] K3a deterministic: a second run gave bitwise equal dQ in "
+          f"all {n_det} two-pass cases", flush=True)
     report["bwd_cases"] = n
     report["bwd_worst"] = {f"{a} {b}": v for (a, b), v in worst.items()}
 
@@ -743,7 +783,7 @@ def phase_backward(report):
     # whole wrapper, and SDPA's backward (a yardstick the port never
     # calls)
     shapes = {"train": (16, 1024, 8, True, ("fused", "two_pass")),
-              "bert": (16, 512, 12, False, ("fused",))}
+              "bert": (16, 512, 12, False, ("fused", "two_pass"))}
     d = 64
     dt = torch.bfloat16
     bwd_timing, entries = {}, {}
@@ -751,12 +791,15 @@ def phase_backward(report):
         args, ref = _bwd_case(b, s, h, h, d, dt, causal, None, False,
                               seed=4242 + s)
         q, k, v, o, lse, do, _ = args
-        errs, abs_errs = {}, {}
+        errs, abs_errs, out_errs = {}, {}, {}
         for route in routes:
             got = _run_route(route, args, causal, None)
+            if route == "two_pass":
+                _check_dq_repeats(args, got[0], causal, None)
             diffs = [(g.float() - r).abs().max().item()
                      for g, r in zip(got, ref)]
             abs_errs[route] = max(diffs)
+            out_errs[route] = diffs          # dq, dk, dv
             errs[route] = max(e / max(r.abs().max().item(), 1e-30)
                               for e, r in zip(diffs, ref))
             if not errs[route] <= 2e-2:
@@ -765,11 +808,10 @@ def phase_backward(report):
         del ref, got
         kw = dict(causal=causal, scale=d ** -0.5, window=None)
         fns = {"fused": lambda: A.flash_backward_fused(q, k, v, o, lse, do,
-                                                       **kw)}
-        if key == "train":
-            fns["dq"] = lambda: A.flash_backward_dq(q, k, v, o, lse, do, **kw)
-            fns["dkv"] = lambda: A.flash_backward_dkv(q, k, v, o, lse, do,
-                                                      **kw)
+                                                       **kw),
+               "dq": lambda: A.flash_backward_dq(q, k, v, o, lse, do, **kw),
+               "dkv": lambda: A.flash_backward_dkv(q, k, v, o, lse, do,
+                                                   **kw)}
         times = {name: time_ms(fn, iters=10) for name, fn in fns.items()}
         dev = {name: queued_ms(_raw_backward(name, args, causal), iters=10)
                for name in fns}
@@ -819,8 +861,10 @@ def phase_backward(report):
                   f"of {'device' if dev[name] else 'call'} time", flush=True)
         plain = (f"plain backward {times['plain']:.4f} ms; "
                  if "plain" in times else "")
-        two = (f"two-pass total {times['dq'] + times['dkv']:.4f} ms; "
-               if "dq" in times else "")
+        two = (f"two-pass total {times['dq'] + times['dkv']:.4f} ms per "
+               f"call, {_ms(_sum(wrapper_dev['dq'], wrapper_dev['dkv']))} "
+               f"device (wrappers; K2's wrapper "
+               f"{_ms(wrapper_dev['fused'])}); ")
         print(f"[6] at [{b}, {s}, {h}, {d}]: {two}{plain}sdpa backward "
               f"{times['sdpa_bwd']:.4f} ms ({_ms(dev['sdpa_bwd'])} "
               f"device); err (max abs, relative to the largest entry) "
@@ -840,14 +884,26 @@ def phase_backward(report):
                     name=kname, route="cuda",
                     source="tony_tpu_torch/csrc/flash_bwd.cu",
                     replaces=src_line, launches=None,
-                    max_abs_err=abs_errs["fused" if name == "fused"
-                                         else "two_pass"],
+                    # each kernel's own outputs: K3a dq, K3b dk and dv
+                    max_abs_err={"fused": abs_errs["fused"],
+                                 "dq": out_errs["two_pass"][0],
+                                 "dkv": max(out_errs["two_pass"][1:])}[name],
                     ms=r["wrapper_device_ms"] or r["ms"],
                     plain_ms=times["plain"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"],
                     library_ms=dev["sdpa_bwd"] or times["sdpa_bwd"])
         del args, q, k, v, o, lse, do, qt, kt, vt
     report["bwd_timing"] = bwd_timing
+    # the BERT shape [16, 512, 12, 64] non-causal beside each backward
+    # kernel's row (its kernels-line numbers are the training shape's)
+    bert = bwd_timing["bert"]
+    for name, e in entries.items():
+        r = bert["rows"][name]
+        e["bert_shape"] = dict(ms=r["wrapper_device_ms"] or r["ms"],
+                               kernel_device_ms=r["device_ms"],
+                               bound_ms=r["bound_ms"],
+                               library_ms=bert["device"]["sdpa_bwd"]
+                               or bert["times"]["sdpa_bwd"])
     return entries
 
 
@@ -911,48 +967,79 @@ def phase_adamw(report):
             fail(f"K4 disagrees with its plain version in {dtype}")
     report["adamw_worst"] = worst
 
-    # timed on the bf16 tree: every leaf once, as a training step does
-    cfg = T.PRESETS["small"].scaled(dtype=torch.bfloat16)
-    params = tree_leaves(T.init_params(torch.Generator().manual_seed(3),
-                                         cfg, device="cuda"))
-    grads = [torch.randn_like(p) * 1e-3 for p in params]
-    ms_ = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-    vs_ = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-    scalars = torch.cat([torch.from_numpy(O.FusedAdamW(1e-4).host_scalars(
-        0)).cuda(), torch.ones(1, device="cuda")])
-    n = sum(p.numel() for p in params)
+    # timed over the `small` tree in both dtypes, every leaf once as a
+    # training step does: K4 through its per-leaf API (one launch a leaf),
+    # the plain version, and torch.optim.AdamW(fused=True). On the f32
+    # tree that call computes K4's function (f32 p, g, m and v read, p, m
+    # and v written: 28 B/element); on the bf16 tree it keeps bf16
+    # moments (14 B/element, against K4's 22), so it computes another
+    # function and is printed as such, never as K4's yardstick
+    timing = {}
+    for dtype, bpe, lib_bpe in ((torch.float32, 28, 28),
+                                (torch.bfloat16, 22, 14)):
+        cfg = T.PRESETS["small"].scaled(dtype=dtype)
+        params = tree_leaves(T.init_params(torch.Generator().manual_seed(3),
+                                             cfg, device="cuda"))
+        grads = [torch.randn_like(p) * 1e-3 for p in params]
+        ms_ = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        vs_ = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        scalars = torch.cat([torch.from_numpy(O.FusedAdamW(
+            1e-4).host_scalars(0)).cuda(), torch.ones(1, device="cuda")])
+        n = sum(p.numel() for p in params)
 
-    def kernel():
-        for p, gr, m, v in zip(params, grads, ms_, vs_):
-            O.adamw_update(p, gr, m, v, scalars)
+        def per_leaf():
+            for p, gr, m, v in zip(params, grads, ms_, vs_):
+                O.adamw_update(p, gr, m, v, scalars)
 
-    def plain():
-        for p, gr, m, v in zip(params, grads, ms_, vs_):
-            O._plain_leaf_update(p, gr, m, v, scalars)
+        def plain():
+            for p, gr, m, v in zip(params, grads, ms_, vs_):
+                O._plain_leaf_update(p, gr, m, v, scalars)
 
-    ms = time_ms(kernel)
-    plain_ms = time_ms(plain, iters=5)
-    lib_params = [p.clone().requires_grad_() for p in params]
-    for p, gr in zip(lib_params, grads):
-        p.grad = gr.clone()
-    lib = torch.optim.AdamW(lib_params, lr=1e-4, weight_decay=0.01,
-                            fused=True)
-    lib_ms = time_ms(lib.step)
-    nbytes = 22 * n          # p, g bf16 and m, v f32 read; p, m, v written
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[7] K4 over the small bf16 tree ({n / 1e6:.2f} M params, "
-          f"{len(params)} leaves): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.optim.AdamW(fused=True) {lib_ms:.4f} ms, bound "
-          f"{bound:.4f} ms by bytes ({nbytes / 1e9:.3f} GB); kernel at "
-          f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
-    report["adamw_timing"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=bound, bytes=nbytes, params=n)
+        t = dict(per_leaf=time_ms(per_leaf), plain=time_ms(plain, iters=5))
+        lib_params = [p.clone().requires_grad_() for p in params]
+        for p, gr in zip(lib_params, grads):
+            p.grad = gr.clone()
+        lib = torch.optim.AdamW(lib_params, lr=1e-4, weight_decay=0.01,
+                                fused=True)
+        t["library"] = time_ms(lib.step)
+        lib_moments = lib.state[lib_params[0]]["exp_avg"].dtype
+        del lib, lib_params
+        nbytes = bpe * n
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        gbs = {k: (lib_bpe if k == "library" else bpe) * n / ms / 1e6
+               for k, ms in t.items()}
+        same = ("the same function" if lib_bpe == bpe else
+                f"{str(lib_moments)[6:]} moments, {lib_bpe} B/element: not "
+                f"the same function")
+        print(f"[7] K4 over the small {str(dtype)[6:]} tree ({n / 1e6:.2f} M "
+              f"params, {len(params)} leaves, {bpe} B/element, bound "
+              f"{bound:.4f} ms by bytes, {nbytes / 1e9:.3f} GB): "
+              + ", ".join(f"{k} {ms:.4f} ms ({gbs[k]:.0f} GB/s)"
+                          for k, ms in t.items() if k != "library")
+              + f"; torch.optim.AdamW(fused=True) {t['library']:.4f} ms "
+              f"({gbs['library']:.0f} GB/s; {same})", flush=True)
+        timing[str(dtype)] = dict(times=t, gb_per_s=gbs, bound_ms=bound,
+                                  bytes=nbytes, params=n, leaves=len(params),
+                                  library_moments=str(lib_moments))
+        del params, grads, ms_, vs_
+    report["adamw_timing"] = timing
+    # the kernels line: the f32 tree, where one PyTorch call computes the
+    # same function; the bf16 tree (the main path's) beside it
+    f32, bf16 = timing[str(torch.float32)], timing[str(torch.bfloat16)]
     return dict(name="adamw", route="cuda",
                 source="tony_tpu_torch/csrc/adamw.cu",
                 replaces="tony_tpu/ops/optim.py:40", launches=None,
-                max_abs_err=worst[str(torch.bfloat16)][2], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-                library_ms=lib_ms)
+                max_abs_err=worst[str(torch.bfloat16)][2],
+                ms=f32["times"]["per_leaf"], plain_ms=f32["times"]["plain"],
+                bound_ms=f32["bound_ms"], bound_by="bytes",
+                library_ms=f32["times"]["library"],
+                timed_on="small tree, f32 p/g/m/v (28 B/element); "
+                         "library_ms is torch.optim.AdamW(fused=True) on it",
+                bf16_tree=dict(ms=bf16["times"]["per_leaf"],
+                               plain_ms=bf16["times"]["plain"],
+                               bound_ms=bf16["bound_ms"],
+                               library_bf16_moments_ms=bf16["times"][
+                                   "library"]))
 
 
 def _copy_tree(tree, device):
@@ -1130,7 +1217,7 @@ def phase_train(report, card):
              f"K2 {L * steps}, K3 0, K5 {(4 * L + 1) * steps} (2 per block "
              f"forward and remat recompute, and the final norm)")
     train_counts = c
-    phase_train_profile(report, cfg, state)
+    fused_dev = phase_train_profile(report, cfg, state)
 
     zero_counts()
     _, fl, _, _ = _train_run(cfg, state["params"], 3, fused=True)
@@ -1144,20 +1231,40 @@ def phase_train(report, card):
              f"{n_leaves} leaves, or a loss is not finite")
     train_counts["k4"] = c["k4"]
 
+    # the two-pass backward (K3a + K3b) with the partials budget at 0:
+    # timed steps (median of the last 5) and 3 profiled ones, each beside
+    # the fused run's
+    two_steps = 8
     budget = A._FUSED_PARTIALS_BYTES
     A._FUSED_PARTIALS_BYTES = 0
     try:
         zero_counts()
-        _, tl, _, _ = _train_run(cfg, state["params"], 3)
+        _, tl, two_walls, _ = _train_run(cfg, state["params"], two_steps,
+                                         timed=True)
         c = counts()
+        two_variants = _check_tc_variants("bf16 two-pass training")
+        two_dev = phase_train_profile(report, cfg, state, two_pass=True)
     finally:
         A._FUSED_PARTIALS_BYTES = budget
-    k3b_variants = _check_tc_variants("bf16 two-pass training")["k3b"]
-    print(f"[9] 3 steps with the partials budget at 0: launches {c}, K3b by "
-          f"variant {k3b_variants}, losses {[round(x, 4) for x in tl]}",
+    two_ms = statistics.median(two_walls[-5:]) * 1e3
+    print(f"[9] {two_steps} steps with the partials budget at 0 (two-pass "
+          f"backward): step {two_ms:.2f} ms (median of the last 5) against "
+          f"{step_ms:.2f} ms fused; device {_ms(two_dev)} per step against "
+          f"{_ms(fused_dev)} fused (3 profiled steps each); launches {c}, "
+          f"K3a and K3b by variant {two_variants['k3a']}, "
+          f"{two_variants['k3b']}; losses {[round(x, 4) for x in tl]}",
           flush=True)
-    if c["k3a"] != 3 * L or c["k3b"] != 3 * L or c["k2"] != 0:
-        fail(f"two-pass run: launches {c}, want K3a = K3b = {3 * L}, K2 0")
+    report["train_two_pass"] = dict(step_ms=two_ms, walls=two_walls,
+                                    device_ms_per_step=two_dev,
+                                    fused_step_ms=step_ms,
+                                    fused_device_ms_per_step=fused_dev,
+                                    launches=c, variants=two_variants,
+                                    losses=tl)
+    if not all(abs(x) < float("inf") for x in tl):
+        fail("a two-pass training loss is not finite")
+    if c["k3a"] != two_steps * L or c["k3b"] != two_steps * L or c["k2"]:
+        fail(f"two-pass run: launches {c}, want K3a = K3b = "
+             f"{two_steps * L}, K2 0")
     train_counts["k3a"], train_counts["k3b"] = c["k3a"], c["k3b"]
 
     # checkpoint at step 2, resume, and compare the third step's loss with
@@ -1185,8 +1292,10 @@ def phase_train(report, card):
     return train_counts
 
 
-def phase_train_profile(report, cfg, state):
-    """Device busy share of 3 profiled training steps."""
+def phase_train_profile(report, cfg, state, two_pass=False):
+    """Device busy share of 3 profiled training steps (with the two-pass
+    backward when the caller set the partials budget to 0); returns the
+    device milliseconds per step, None if the profiler recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     params = state["params"]
@@ -1199,16 +1308,19 @@ def phase_train_profile(report, cfg, state):
     dev, _ = _device_times(prof)
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    what = "two-pass " if two_pass else ""
     if total == 0:
-        print("[9b] device busy share: not measured (the profiler recorded "
-              "no device time)", flush=True)
+        print(f"[9b] {what}device busy share: not measured (the profiler "
+              f"recorded no device time)", flush=True)
     else:
-        print(f"[9b] 3 profiled training steps: device busy "
+        print(f"[9b] 3 profiled {what}training steps: device busy "
               f"{total / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall (share "
               f"{total / wall_us:.3f}); top: "
               + "; ".join(f"{n[:48]} {us / 1e3:.1f} ms" for n, us in top),
               flush=True)
-    report["train_profile"] = dict(wall_us=wall_us, device_us=total, top=top)
+    key = "train_profile_two_pass" if two_pass else "train_profile"
+    report[key] = dict(wall_us=wall_us, device_us=total, top=top)
+    return total / 3 / 1e3 if total else None
 
 
 # norm kind -> (name, the TPU kernel it replaces, f32 operations per

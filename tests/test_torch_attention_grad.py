@@ -126,6 +126,45 @@ def test_bf16_plain_backward_matches_jax_flash_interpret(case):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("case", ["causal", "noncausal", "gqa", "window24"])
+def test_bf16_plain_backward_matches_jax_two_pass_interpret(monkeypatch,
+                                                            case):
+    """The bf16 plain backward against ``jax.grad`` of the JAX two-pass
+    backward (``_dq_kernel`` then ``_dkv_kernel``, Pallas interpret
+    mode): the function the port's K3a and K3b compute. A partials
+    budget of 0 forces the JAX package onto that route, and its fused
+    backward is replaced by one that raises, so the comparison cannot
+    take it. Both round ds to bf16 before the dQ product (the reference's
+    ``ds.astype(k.dtype)``); held to 2% of the largest entry, as the fused
+    comparison above."""
+    import tony_tpu.ops.attention as jax_attention
+
+    def no_fused(*args, **kwargs):
+        raise AssertionError("the JAX backward took the fused route")
+
+    monkeypatch.setattr(jax_attention, "_FUSED_PARTIALS_BYTES", 0)
+    monkeypatch.setattr(jax_attention, "_flash_backward_fused", no_fused)
+    b, s, h, kv, d, causal, window, block = CASES[case]
+    q, k, v, wo, _ = _inputs(b, s, h, kv, d, seed=17)
+    ts = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+          for x in (q, k, v)]
+    o = A.flash_attention(*ts, causal=causal, window=window)
+    got = torch.autograd.grad((o.float() * torch.from_numpy(wo)).sum(), ts)
+
+    def loss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal, window=window, block_q=block,
+                      block_k=block)
+        return jnp.sum(o.astype(jnp.float32) * wo)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w,
+                                   atol=0.02 * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+
+
 def test_plain_backward_rounds_p_and_ds_to_the_input_dtype():
     """In bf16 the plain backward's dV is the product of the bf16-rounded
     p with do (as the kernels and the JAX backward form it), not of the

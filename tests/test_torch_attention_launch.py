@@ -56,12 +56,11 @@ def _qkv(dtype, b=1, s=17, h=4, kv=2, d=64):
 def test_kernel_variant_follows_the_dtype():
     assert A.kernel_variant(torch.bfloat16) == "tensor_core"
     assert A.kernel_variant(torch.float32) == "fp32_pipe"
-    for fn in (A.flash_forward, A.flash_backward_fused, A.flash_backward_dkv):
+    # every wrapper, K3a included, runs its tensor-core kernel in bf16
+    for fn in (A.flash_forward, A.flash_backward_fused, A.flash_backward_dq,
+               A.flash_backward_dkv):
         assert A.kernel_variant(torch.bfloat16, fn) == "tensor_core"
         assert A.kernel_variant(torch.float32, fn) == "fp32_pipe"
-    # K3a keeps its FP32-pipe kernel in both dtypes
-    for dtype in (torch.bfloat16, torch.float32):
-        assert A.kernel_variant(dtype, A.flash_backward_dq) == "fp32_pipe"
     with pytest.raises(TypeError):
         A.kernel_variant(torch.float16)
 

@@ -26,9 +26,9 @@
 //     tile (from the diagonal on, and with a window up to the last q row
 //     inside it). dK and dV accumulate in f32 registers and are written
 //     once.
-//   - q-major (K3a): one block per (batch, head, 64-row q tile), walking
-//     the kv tiles the tile can attend (as the forward does); dQ
-//     accumulates in f32 registers and is written once. Deterministic.
+//   - q-major (K3a): one block per (batch * head, q tile), walking the
+//     kv tiles the tile can attend (as the forward does); dQ accumulates
+//     in f32 registers and is written once. No atomics: deterministic.
 //   - K2's dQ crosses blocks: each (q tile, kv tile) pair adds its f32
 //     contribution with atomics into a zeroed f32 [B, Sq, H, D] buffer
 //     that the caller casts to q's dtype. Atomics make the summation order
@@ -68,7 +68,33 @@
 // wgmma, TMA and warp specialisation (a later redesign), which would need
 // P and dS staged in shared memory in the orientation each product reads.
 //
-// f32 (every pass) and bf16 K3a: FP32-pipe kernels of 256 threads. Each
+// bf16 q-major pass (K3a): flash_bwd_dq_tc_kernel, the FlashAttention-2
+// dQ pass on mma.sync; the skeleton of the forward's tensor-core kernel
+// (flash_fwd.cu) without the online softmax, since lse is known. Warps
+// of 16 q rows: 8 and a 128-row q tile capped at 128 registers at
+// D <= 64, 4 at D = 128 (tc_dq_warps). Q and dO arrive once by cp.async
+// into XOR-swizzled shared memory and their A fragments stay in
+// registers; K/V tiles of 64 rows stream through a 2-stage cp.async
+// ring, tiles above the diagonal or older than the window skipped, and
+// under causal masking q tiles launch longest first. Per kv tile, in
+// passes of 16 kv columns: S = Q K^T and dP = dO V^T (ldmatrix of K and
+// V), P = exp2(c S - lse2) with c = scale log2(e), masked only on diagonal,
+// window and edge tiles; dS = P (dP - delta), rounded to bf16 straight
+// from its C fragments into A fragments (tc::c_to_a) as the reference
+// rounds ds; dQ += dS K (ldmatrix.trans of K). A warp whose 16 rows
+// attend nothing of a tile skips it. dQ (times scale) leaves through
+// shared memory as 16-byte rows.
+// What bounds it: 3 products of 2 D FLOP per attended pair on the bf16
+// tensor cores. As in the forward, each warp re-reads the whole K and V
+// tiles from shared memory (K twice: as B of S and, transposed, of dQ),
+// about 250 bytes of ldmatrix per mma, and its chain of ldmatrix, mma,
+// exp2 and mma has little independent work, so the design keeps 16 warps
+// per SM in flight at D <= 64 (A/B runs on the card chose 8 warps, the
+// 128-register cap and 16-column passes over 4 warps, uncapped or
+// capped, and over passes of 32 columns). No atomics, and a fixed order
+// of sums: dQ is bitwise the same from run to run.
+//
+// f32 (every pass): FP32-pipe kernels of 256 threads. Each
 // thread owns a 4-row x 4-column patch of the 64 x 64 score tile (the
 // forward's layout) and 4 rows x D/16 columns of each [64, D]
 // accumulator. p and ds go through shared memory between the score step
@@ -90,20 +116,14 @@ constexpr int BK = 64;        // kv rows per tile
 constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the FP32-pipe kernels' element conversions (they run in f32 only)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Stage a [64, D] tile of rows r0.. of a [*, row_stride] tensor into
@@ -843,6 +863,231 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core q-major kernel (K3a)
+// ---------------------------------------------------------------------------
+
+// Warps of a K3a block, each owning 16 rows of the q tile (so the tile has
+// 16 NW rows). At D <= 64, 8 warps held to 128 registers a thread (two
+// blocks, 16 warps, per SM): the 128-row q tile halves the K/V tile
+// loads per q row, and the cap doubles the warps an SM keeps in flight
+// to hide each warp's ldmatrix -> mma -> exp2 -> mma chain. At D = 128
+// the Q and dO fragments and the dQ accumulator alone take 128
+// registers a thread: 4 warps.
+template <int D>
+__host__ __device__ constexpr int tc_dq_warps() {
+  return D <= 64 ? 8 : 4;
+}
+
+constexpr int TC_DQ_NC = 16;  // kv columns of S and dP per pass
+
+template <int D>
+constexpr size_t tc_dq_smem_bytes() {
+  // the Q and dO tiles [16 NW][D] and two stages of the K and V tiles
+  // [64][D], bf16
+  return sizeof(__nv_bfloat16) * (2 * 16 * tc_dq_warps<D>() + 4 * BK) * D;
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * tc_dq_warps<D>(), D <= 64 ? 2 : 1)
+    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int Sq, int Sk,
+                           int H, int KV, float scale, int causal,
+                           int window) {
+  using tc::bf16;
+  constexpr int NW = tc_dq_warps<D>();
+  constexpr int NTH = 32 * NW;       // threads
+  constexpr int BQT = 16 * NW;       // q rows of the block
+  constexpr int KT = D / 16;         // k16 steps over the head dim
+  constexpr int NT = D / 8;          // n8 tiles of dQ
+  constexpr int NC = TC_DQ_NC;       // kv columns per pass
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQT][D]
+  bf16* dos = qs + BQT * D;                       // [BQT][D]
+  bf16* ks = dos + BQT * D;                       // [2][BK][D]
+  bf16* vs = ks + 2 * BK * D;                     // [2][BK][D]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int kvh = h / (H / KV);
+  // longest first under causal masking: the last q tile attends most
+  const int qt =
+      causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int q0 = qt * BQT;
+
+  const long q_row = (long)H * D, kv_row = (long)KV * D;
+  const long q_off = (long)b * Sq * q_row + (long)h * D;
+  const bf16* kb = k + (long)b * Sk * kv_row + (long)kvh * D;
+  const bf16* vb = v + (long)b * Sk * kv_row + (long)kvh * D;
+
+  // kv tiles that can hold an attended pair for this q tile
+  int k_lo = 0, k_hi = Sk;
+  if (causal) {
+    k_hi = min(Sk, q0 + BQT);
+    if (window > 0) k_lo = max(0, q0 - window + 1);
+  }
+  k_lo = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+  tc::load_tile_async<D, BQT, NTH>(qs, q + q_off, q0, Sq, q_row);
+  tc::load_tile_async<D, BQT, NTH>(dos, dout + q_off, q0, Sq, q_row);
+  if (n_tiles > 0) {
+    tc::load_tile_async<D, BK, NTH>(ks, kb, k_lo, Sk, kv_row);
+    tc::load_tile_async<D, BK, NTH>(vs, vb, k_lo, Sk, kv_row);
+  }
+  tc::cp_async_commit();
+
+  const float c = scale * LOG2E;
+  const int m0 = warp * 16;  // this warp's rows of the q tile
+  const int qr0 = q0 + m0 + g, qr1 = qr0 + 8;
+  // rows g and g + 8: base-2 lse and delta. A row past Sq reads 0s; its
+  // dO is 0, so its dS is 0 and its dQ is never stored.
+  const float* lse_h = lse + (long)bh * Sq;
+  const float* del_h = delta + (long)bh * Sq;
+  const float lse2[2] = {qr0 < Sq ? lse_h[qr0] * LOG2E : 0.f,
+                         qr1 < Sq ? lse_h[qr1] * LOG2E : 0.f};
+  const float dl[2] = {qr0 < Sq ? del_h[qr0] : 0.f,
+                       qr1 < Sq ? del_h[qr1] : 0.f};
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[KT][4], df[KT][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_lo + it * BK;
+    const int st = it & 1;
+    __syncthreads();  // every warp is done with stage st ^ 1
+    if (it + 1 < n_tiles) {
+      tc::load_tile_async<D, BK, NTH>(ks + (st ^ 1) * BK * D, kb, k0 + BK,
+                                      Sk, kv_row);
+      tc::load_tile_async<D, BK, NTH>(vs + (st ^ 1) * BK * D, vb, k0 + BK,
+                                      Sk, kv_row);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + st * BK * D;
+    const bf16* vt = vs + st * BK * D;
+    if (it == 0) {
+      // the Q and dO A fragments of this warp's rows, held for every tile
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        tc::ldsm_a<D>(qf[kk], qs, m0, kk * 16);
+        tc::ldsm_a<D>(df[kk], dos, m0, kk * 16);
+      }
+    }
+    // this warp's 16 rows attend nothing of the tile (all before its
+    // first row, or older than its last row's window): nothing to add
+    if (causal && (k0 > q0 + m0 + 15 ||
+                   (window > 0 && q0 + m0 - (k0 + BK - 1) >= window)))
+      continue;
+    // masked only where a pair of the tile can fall outside
+    const bool masked =
+        (k0 + BK > Sk) ||
+        (causal && (k0 + BK - 1 > q0 ||
+                    (window > 0 && q0 + BQT - 1 - k0 >= window)));
+
+#pragma unroll
+    for (int c0 = 0; c0 < BK; c0 += NC) {
+      // S = Q K^T and dP = dO V^T over the pass's NC kv columns
+      float s[NC / 8][4], dp[NC / 8][4];
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int np = 0; np < NC / 16; ++np) {
+          uint32_t bk4[4], bv4[4];
+          tc::ldsm_b<D>(bk4, kt, c0 + np * 16, kk * 16);
+          tc::ldsm_b<D>(bv4, vt, c0 + np * 16, kk * 16);
+          tc::mma(s[2 * np], qf[kk], bk4[0], bk4[1]);
+          tc::mma(s[2 * np + 1], qf[kk], bk4[2], bk4[3]);
+          tc::mma(dp[2 * np], df[kk], bv4[0], bv4[1]);
+          tc::mma(dp[2 * np + 1], df[kk], bv4[2], bv4[3]);
+        }
+      // P = exp2(c S - lse2), 0 where a pair is masked; dS = P (dP - delta)
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          bool ok = true;
+          if (masked) {
+            const int kp = k0 + c0 + j * 8 + 2 * t + (e & 1);
+            const int qp = r ? qr1 : qr0;
+            ok = kp < Sk;
+            if (causal) {
+              ok = ok && kp <= qp;
+              if (window > 0) ok = ok && (qp - kp < window);
+            }
+          }
+          const float p =
+              ok ? tc::fast_exp2(fmaf(s[j][e], c, -lse2[r])) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dl[r]);
+        }
+      // dQ += dS K: dS rounds to bf16 straight from its C fragments into
+      // A fragments; K as [kv][d] is read by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NC / 16; ++kk) {
+        uint32_t da[4];
+        tc::c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bf[4];
+          tc::ldsm_b_t<D>(bf, kt, np * 16, c0 + kk * 16);
+          tc::mma(acc[2 * np], da, bf[0], bf[1]);
+          tc::mma(acc[2 * np + 1], da, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  // every copy into the Q tile has landed (when no kv tile ran); then
+  // dQ (times scale) leaves through this warp's own rows of it, which no
+  // other warp reads, as 16-byte rows
+  __syncthreads();
+  tc::store_c_tile<D>(qs, m0, acc, scale, scale);
+  __syncwarp();
+  tc::store_rows<D>(dq + q_off, qs, m0, q0, Sq, q_row);
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  constexpr size_t smem = tc_dq_smem_bytes<D>();
+  constexpr int NW = tc_dq_warps<D>();
+  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.Sq + 16 * NW - 1) / (16 * NW));
+  kernel<<<grid, 32 * NW, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dq), a.Sq, a.Sk, a.H, a.KV, a.scale,
+      a.causal, a.window);
+  return cudaGetLastError();
+}
+
 enum Pass { FUSED, DQ, DKV };
 
 template <typename T, int D>
@@ -855,9 +1100,17 @@ cudaError_t launch_pass(Pass pass, const Args& a) {
 int run(Pass pass, int dtype, int D, const Args& a) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.KV <= 0 || a.H % a.KV != 0)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && pass == DQ) {
+    // bf16 K3a: the tensor-core q-major kernel, grid (B * H, q tiles)
+    if ((a.Sq + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
+    if (D == 32) return (int)launch_dq_tc<32>(a);
+    if (D == 64) return (int)launch_dq_tc<64>(a);
+    if (D == 128) return (int)launch_dq_tc<128>(a);
+    return (int)cudaErrorInvalidValue;
+  }
   // bf16 kv-major passes (K2, K3b): the tensor-core kernel, grid
   // (B * KV, kv tiles)
-  if (dtype == 1 && pass != DQ) {
+  if (dtype == 1) {
     if ((a.Sk + BK - 1) / BK > 65535) return (int)cudaErrorInvalidValue;
     const bool fused = pass == FUSED;
     if (D == 32)
@@ -871,15 +1124,11 @@ int run(Pass pass, int dtype, int D, const Args& a) {
                          : launch_kv_tc<128, false>(a));
     return (int)cudaErrorInvalidValue;
   }
-  // f32 (every pass) and bf16 K3a: the FP32-pipe kernels, grid
-  // (tiles, B * heads)
-  if (a.B * a.H > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32) return (int)launch_pass<float, 32>(pass, a);
-  if (dtype == 0 && D == 64) return (int)launch_pass<float, 64>(pass, a);
-  if (dtype == 0 && D == 128) return (int)launch_pass<float, 128>(pass, a);
-  if (dtype == 1 && D == 32) return (int)launch_dq<__nv_bfloat16, 32>(a);
-  if (dtype == 1 && D == 64) return (int)launch_dq<__nv_bfloat16, 64>(a);
-  if (dtype == 1 && D == 128) return (int)launch_dq<__nv_bfloat16, 128>(a);
+  // f32, every pass: the FP32-pipe kernels, grid (tiles, B * heads)
+  if (dtype != 0 || a.B * a.H > 65535) return (int)cudaErrorInvalidValue;
+  if (D == 32) return (int)launch_pass<float, 32>(pass, a);
+  if (D == 64) return (int)launch_pass<float, 64>(pass, a);
+  if (D == 128) return (int)launch_pass<float, 128>(pass, a);
   return (int)cudaErrorInvalidValue;
 }
 

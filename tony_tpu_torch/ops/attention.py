@@ -71,21 +71,20 @@ def _check_kv_heads(h: int, hk: int) -> None:
         raise ValueError(f"kv heads ({hk}) must divide query heads ({h})")
 
 
-#: the kernel a dtype runs in K1, K2 and K3b: bf16 the tensor-core kernels
-#: (mma.sync), f32 the FP32-pipe kernels (full f32, no TF32). K3a runs
-#: its FP32-pipe kernel in both dtypes.
+#: the kernel a dtype runs in every attention wrapper (K1, K2, K3a, K3b):
+#: bf16 the tensor-core kernels (mma.sync), f32 the FP32-pipe kernels
+#: (full f32, no TF32).
 VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "fp32_pipe"}
 
 
 def kernel_variant(dtype, wrapper=None) -> str:
     """``"tensor_core"`` or ``"fp32_pipe"``: the kernel that ``wrapper``
     (one of the four kernel wrappers; K1 by default) launches for inputs
-    of ``dtype``, as the C entry points dispatch."""
+    of ``dtype``, as the C entry points dispatch. Every wrapper follows
+    the dtype alone."""
     if dtype not in VARIANTS:
         raise TypeError(f"the attention kernels take float32 or bfloat16, "
                         f"got {dtype}")
-    if wrapper is flash_backward_dq:
-        return "fp32_pipe"
     return VARIANTS[dtype]
 
 
@@ -220,9 +219,10 @@ def flash_backward_fused(q, k, v, o, lse, do, dlse=None, *, causal: bool,
 def flash_backward_dq(q, k, v, o, lse, do, dlse=None, *, causal: bool,
                       scale: float, window: int | None):
     """K3a: the q-major dQ pass of the two-pass backward on CUDA tensors
-    → dq in the input dtype (f32 accumulation, deterministic; the
-    FP32-pipe kernel in both dtypes). ``flash_backward_dq.launches``
-    counts launches."""
+    → dq in the input dtype (f32 accumulation, no atomics: deterministic;
+    bf16 the tensor-core kernel, f32 the FP32-pipe one).
+    ``flash_backward_dq.launches`` counts launches (and
+    ``variant_launches`` by variant)."""
     _check_cuda_qkv("flash_backward_dq", q, k, v, o, do)
     return _launch_dq(_bwd_inputs(q, k, v, o, lse, do, dlse), causal=causal,
                       scale=scale, window=window)
