@@ -91,6 +91,19 @@ result:
    and K2 n_layers times (on their tensor-core kernels), K6 2 x n_layers
    + 2, K3 and K5 never; step
    time, tokens/s, MFU, peak memory, data wait; 3 profiled steps;
+13. the mesh path (dp/fsdp/tp) on NCCL at world 1: the runtime booted
+   from the jax arm's environment (a free local port, mesh spec
+   ``{"fsdp": -1}`` then ``{"dp": -1}``); ``small`` bf16 16 x 1024
+   trained 20 steps through train_lm's sharded functions (params laid
+   out by ``logical_axes``, the sharded step, global batches): K1, K2
+   and K5 launched per step as on the unsharded path (phase 9), all on
+   the tensor-core kernels, the first 5 losses within 1e-3 relative of
+   phase 9's (same seeds), step time and device time per step beside
+   phase 9's; a sharded checkpoint at step 10 restored into a fresh
+   state reaching steps 11-12's losses within 1e-3; then (13c) K1, K2
+   and K3a on each tp rank's head slice, tp in {2, 4}, GQA [16, 1024, 8,
+   64] with KV in {8, 2, 1} and BERT's [16, 512, 12, 64], against the
+   slice of the full call (bitwise where the arithmetic is the same);
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -1114,25 +1127,30 @@ class _TimedData:
 
 def _train_run(cfg, params, steps, *, fused=False, batch=16, seq=1024,
                depth=2, seed=0, checkpoint=None, start=0, state=None,
-               timed=False):
+               timed=False, mesh=None):
     """``steps`` train steps (from ``start``) through train_lm's code path:
     its source, prefetcher, ``default_optimizer`` (one schedule of 100
     warmup steps for every run, so a resumed run sees the same lr) and
-    ``run_training``; returns (state, losses, step wall seconds, data
-    waits)."""
+    ``run_training``; with a ``mesh``, its sharded path (params laid out
+    by ``logical_axes``, the sharded step, global batches assembled from
+    this process's shard); returns (state, losses, step wall seconds,
+    data waits)."""
     import torch
     from tony_tpu_torch import train_lm
     from tony_tpu_torch.models import train as TR
     from tony_tpu_torch.models import transformer as T
     from tony_tpu_torch.models.loop import run_training
     opt = TR.default_optimizer(lr=3e-4, total_steps=1000, fused=fused)
-    step_fn = TR.make_train_step(lambda p, b: T.lm_loss(p, b, cfg), opt)
+    step_fn = TR.make_train_step(lambda p, b: T.lm_loss(p, b, cfg, mesh),
+                                 opt, mesh)
     if state is None:
-        state = TR.init_state(params, opt)
+        state = TR.init_state(params, opt, mesh, T.logical_axes(cfg))
     source = train_lm.synthetic_source(seed, batch, seq, cfg.vocab_size)
     for _ in range(start):
         next(source)
-    data = _TimedData(train_lm.make_data(source, "cuda", depth))
+    sharding = (None if mesh is None else
+                TR.batch_sharding(mesh, logical=("batch", "seq")))
+    data = _TimedData(train_lm.make_data(source, "cuda", depth, sharding))
     losses, walls = [], []
 
     def timed_step(st, b):
@@ -1292,33 +1310,242 @@ def phase_train(report, card):
     return train_counts
 
 
-def phase_train_profile(report, cfg, state, two_pass=False):
+def phase_mesh(report, card):
+    """[13] The mesh path on NCCL at world 1: the runtime booted from the
+    jax arm's environment (fsdp, then dp), `small` bf16 16x1024 trained 20
+    steps through train_lm's sharded functions against phase 9's
+    unsharded run, a sharded checkpoint at step 10 restored into a fresh
+    state, and the tp-local kernel calls (phase 13c)."""
+    import socket
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.models import train as TR
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.models.checkpoint import CheckpointManager
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    from tony_tpu_torch.parallel import mesh_shape
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      TONY_JAX_PROCESS_ID="0", TONY_JAX_NUM_PROCESSES="1")
+    meshes = []
+    for axes in ({"fsdp": -1}, {"dp": -1}):
+        os.environ["TONY_MESH_SPEC"] = json.dumps({"axes": axes})
+        info = rt.initialize()
+        meshes.append(rt.mesh())
+    shapes = [mesh_shape(m) for m in meshes]
+    print(f"[13] runtime from the jax arm's env (127.0.0.1:{port}, process "
+          f"{info.process_id} of {info.num_processes}): backend "
+          f"{dist.get_backend()}, meshes {shapes} on {card}", flush=True)
+    if dist.get_backend() != "nccl" or shapes != [{"fsdp": 1}, {"dp": 1}]:
+        fail(f"runtime: backend {dist.get_backend()}, meshes {shapes}")
+    mesh = meshes[0]
+
+    steps, batch, seq = 20, 16, 1024
+    cfg, params = train_lm.build("small", "cuda")
+    L = cfg.n_layers
+    A.reset_launches()
+    N.rms_norm_forward.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, save_interval_steps=10)
+        t0 = time.perf_counter()
+        state, losses, walls, waits = _train_run(
+            cfg, params, steps, timed=True, mesh=mesh, checkpoint=mgr)
+        wall = time.perf_counter() - t0
+        c = dict(k1=A.flash_forward.launches,
+                 k2=A.flash_backward_fused.launches,
+                 k3a=A.flash_backward_dq.launches,
+                 k3b=A.flash_backward_dkv.launches,
+                 k5=N.rms_norm_forward.launches)
+        variants = _check_tc_variants("bf16 mesh-path training")
+        saved = mgr.all_steps()
+        # restore step 10 into a fresh state of other weights, then steps
+        # 11 and 12 against the uninterrupted run's
+        opt = TR.default_optimizer(lr=3e-4, total_steps=1000)
+        fresh = TR.init_state(
+            T.init_params(torch.Generator().manual_seed(9), cfg, "cuda"),
+            opt, mesh, T.logical_axes(cfg))
+        restored = mgr.restore(template=fresh, step=10)
+        if restored["step"] != 10 or restored["opt_state"]["count"] != 10:
+            fail(f"sharded restore gave step {restored['step']}, count "
+                 f"{restored['opt_state']['count']}, not 10")
+        _, after, _, _ = _train_run(cfg, None, 2, start=10, state=restored,
+                                    mesh=mesh)
+    step_ms = statistics.median(walls[-10:]) * 1e3
+    mesh_dev = phase_train_profile(report, cfg, state, mesh=mesh)
+    ref = report["train"]["losses"][:5]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:5], ref)]
+    plain_ms = report["train"]["step_ms"]
+    plain_dev = report["train_profile"]["device_us"] / 3 / 1e3 or None
+    print(f"[13] small bf16 on the mesh path ({shapes[0]}, NCCL) on {card}: "
+          f"{steps} steps of {batch}x{seq} in {wall:.2f}s; step "
+          f"{step_ms:.2f} ms (median of the last 10) against {plain_ms:.2f} "
+          f"ms unsharded (phase 9); device {_ms(mesh_dev)} per step against "
+          f"{_ms(plain_dev)} unsharded (3 profiled steps each); data wait "
+          f"median {statistics.median(waits) * 1e3:.3f} ms; launches {c}; "
+          f"K1 and K2 by variant {variants['k1']}, {variants['k2']}",
+          flush=True)
+    print(f"[13] first 5 losses {[round(x, 6) for x in losses[:5]]} against "
+          f"the unsharded run's {[round(x, 6) for x in ref]}: relative "
+          f"differences {[f'{r:.2e}' for r in rel]} (limit 1e-3: K2 adds dQ "
+          f"with f32 atomics, so two runs differ in rounding; step 0, before "
+          f"any backward, {'bitwise equal' if losses[0] == ref[0] else 'not bitwise equal'})",
+          flush=True)
+    crel = [abs(a - b) / abs(b) for a, b in zip(after, losses[10:12])]
+    print(f"[13] sharded checkpoint: saved steps {saved}; restored step 10 "
+          f"into a fresh state; steps 11-12 losses "
+          f"{[round(x, 6) for x in after]} against {[round(x, 6) for x in losses[10:12]]} "
+          f"uninterrupted (relative {[f'{r:.2e}' for r in crel]}, limit "
+          f"1e-3)", flush=True)
+    report["mesh"] = dict(shapes=shapes, step_ms=step_ms, walls=walls,
+                          device_ms_per_step=mesh_dev,
+                          plain_step_ms=plain_ms,
+                          plain_device_ms_per_step=plain_dev,
+                          losses=losses, unsharded_losses=ref,
+                          rel_diff=rel, launches=c, variants=variants,
+                          saved_steps=saved, resumed=after, resume_rel=crel)
+    if not all(abs(x) < float("inf") for x in losses):
+        fail("a mesh-path training loss is not finite")
+    want = dict(k1=2 * L * steps, k2=L * steps, k3a=0, k3b=0,
+                k5=(4 * L + 1) * steps)
+    if c != want:
+        fail(f"mesh-path launch counts {c} != {want} (the unsharded "
+             f"path's per step)")
+    if not max(rel) <= 1e-3:
+        fail("the mesh path's first 5 losses differ from the unsharded "
+             "run's")
+    if saved != [1, 10, 20] or not max(crel) <= 1e-3:
+        fail("the sharded checkpoint did not resume to the uninterrupted "
+             "losses")
+    phase_tp_local(report)
+    rt.shutdown()
+    return c
+
+
+def phase_tp_local(report):
+    """[13c] K1 and K2 (and K3a) on each tp rank's head slice, on the
+    card with no collectives, against the slice of the full call: GQA
+    [16, 1024, 8, 64] causal with KV in {8, 2, 1} and BERT's [16, 512,
+    12, 64] non-causal, tp in {2, 4}; each rank takes its query heads and
+    the kv heads ``tp_kv_heads`` gives it. K1's o and lse must be bitwise
+    equal. The backward outputs are held within one bf16 ulp of the full
+    call's (plus 1e-5 of the largest entry, for f32 summation order), and
+    whether they are bitwise equal is reported: K3a's dQ and K2's dK/dV
+    of the kv heads a rank owns whole run the same arithmetic (delta, a
+    plain torch reduction, is recomputed on the slice); K2's dQ adds with
+    f32 atomics in no fixed order. Where tp > KV ranks share a kv head,
+    their dK/dV partials, each rounded to bf16, are summed: held within
+    one bf16 ulp of every rounded term."""
+    import torch
+    from tony_tpu_torch.ops import attention as A
+    cases = [(16, 1024, 8, kv, True) for kv in (8, 2, 1)] + \
+        [(16, 512, 12, 12, False)]
+    rows = []
+    for b, s, h, kv, causal in cases:
+        q, k, v = _qkv(b, s, h, kv, 64, torch.bfloat16, seed=77 + kv + s)
+        g = torch.Generator(device="cuda").manual_seed(5 + kv)
+        do = torch.randn(q.shape, device="cuda", generator=g).to(q.dtype)
+        kw = dict(causal=causal, scale=64 ** -0.5, window=None)
+        o, lse = A.flash_forward(q, k, v, **kw)
+        dq2, dk, dv = A.flash_backward_fused(q, k, v, o, lse, do, **kw)
+        dq3 = A.flash_backward_dq(q, k, v, o, lse, do, **kw)
+        for tp in (2, 4):
+            hl = h // tp
+            sums = [torch.zeros(dk.shape, dtype=torch.float32,
+                                device="cuda") for _ in range(4)]
+            fwd_bitwise, bwd_bitwise, ulps = True, True, 0.0
+            for r in range(tp):
+                lo, hi = A.tp_kv_heads(h, kv, r, tp)
+                sl = slice(r * hl, (r + 1) * hl)
+                args = [t.contiguous() for t in (
+                    q[:, :, sl], k[:, :, lo:hi], v[:, :, lo:hi])]
+                o_r, lse_r = A.flash_forward(*args, **kw)
+                dor = do[:, :, sl].contiguous()
+                dq2_r, dk_r, dv_r = A.flash_backward_fused(
+                    *args, o_r, lse_r, dor, **kw)
+                dq3_r = A.flash_backward_dq(*args, o_r, lse_r, dor, **kw)
+                fwd_bitwise &= torch.equal(o_r, o[:, :, sl]) and \
+                    torch.equal(lse_r, lse[:, sl])
+                pairs = [(dq2_r, dq2[:, :, sl]), (dq3_r, dq3[:, :, sl])]
+                bwd_bitwise &= torch.equal(dq3_r, dq3[:, :, sl])
+                if kv % tp == 0:      # this rank owns kv heads lo:hi whole
+                    pairs += [(dk_r, dk[:, :, lo:hi]),
+                              (dv_r, dv[:, :, lo:hi])]
+                    bwd_bitwise &= torch.equal(dk_r, dk[:, :, lo:hi]) and \
+                        torch.equal(dv_r, dv[:, :, lo:hi])
+                for got, want in pairs:
+                    ulps = max(ulps, _ulps(got, want, 7,
+                                           1e-5 * want.abs().max().item()))
+                for acc, t in zip(sums, (dk_r, dv_r, dk_r.abs(),
+                                         dv_r.abs())):
+                    acc[:, :, lo:hi] += t.float()
+            # the ranks' summed dK/dV: one bf16 ulp (2^-8 relative at
+            # worst) of every rounded term, and 1e-5 of the largest entry
+            ratio = 0.0
+            for got, full, terms in ((sums[0], dk, sums[2]),
+                                     (sums[1], dv, sums[3])):
+                lim = 2.0 ** -8 * (terms + full.float().abs()) \
+                    + 1e-5 * full.float().abs().max()
+                ratio = max(ratio, ((got - full.float()).abs()
+                                    / lim).max().item())
+            ok = fwd_bitwise and ulps <= 1.0 and ratio <= 1.0
+            rows.append(dict(shape=[b, s, h, 64], kv=kv, tp=tp,
+                             causal=causal, fwd_bitwise=fwd_bitwise,
+                             bwd_bitwise=bwd_bitwise, bwd_ulps=ulps,
+                             kv_sum_ratio=ratio, ok=ok))
+            owned = ", K2 dK/dV" if kv % tp == 0 else ""
+            print(f"[13c] tp={tp} [{b}, {s}, {h}, 64] KV={kv} "
+                  f"{'causal' if causal else 'non-causal'}: o, lse bitwise "
+                  f"{fwd_bitwise}; K3a dQ{owned} bitwise {bwd_bitwise}; "
+                  f"backward within {ulps:.3f} ulp (limit 1); summed dK/dV "
+                  f"at {ratio:.3f} of their limit", flush=True)
+            if not ok:
+                fail(f"tp-local kernel calls disagree with the full call's "
+                     f"slice: {rows[-1]}")
+    report["tp_local"] = rows
+
+
+def phase_train_profile(report, cfg, state, two_pass=False, mesh=None):
     """Device busy share of 3 profiled training steps (with the two-pass
-    backward when the caller set the partials budget to 0); returns the
-    device milliseconds per step, None if the profiler recorded none."""
+    backward when the caller set the partials budget to 0; on the sharded
+    path with a ``mesh``, continuing ``state``); returns the device
+    milliseconds per step, None if the profiler recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    params = state["params"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _train_run(cfg, params, 3, seed=1)
+        if mesh is None:
+            _train_run(cfg, state["params"], 3, seed=1)
+        else:
+            _train_run(cfg, None, 3, seed=1, state=state, mesh=mesh)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev, _ = _device_times(prof)
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    what = "two-pass " if two_pass else ""
+    what = ("two-pass " if two_pass else "") + ("mesh-path " if mesh
+                                                else "")
+    tag = "[13b]" if mesh is not None else "[9b]"
     if total == 0:
-        print(f"[9b] {what}device busy share: not measured (the profiler "
+        print(f"{tag} {what}device busy share: not measured (the profiler "
               f"recorded no device time)", flush=True)
     else:
-        print(f"[9b] 3 profiled {what}training steps: device busy "
+        print(f"{tag} 3 profiled {what}training steps: device busy "
               f"{total / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall (share "
               f"{total / wall_us:.3f}); top: "
               + "; ".join(f"{n[:48]} {us / 1e3:.1f} ms" for n, us in top),
               flush=True)
-    key = "train_profile_two_pass" if two_pass else "train_profile"
+    key = ("train_profile_mesh" if mesh is not None else
+           "train_profile_two_pass" if two_pass else "train_profile")
     report[key] = dict(wall_us=wall_us, device_us=total, top=top)
     return total / 3 / 1e3 if total else None
 
@@ -1690,17 +1917,19 @@ def main() -> int:
     serve_k1, serve_k5 = phase_serve(report, card)
     counts = phase_train(report, card)
     bert = phase_bert(report, card)
+    mesh = phase_mesh(report, card)
     # launches on the main paths, each counted from 0 over its own run:
-    # K1 over the serve (phase 5), the LM training run (phase 9) and the
-    # BERT run (phase 12); K2 over both training runs; K3a/K3b over the
-    # run with the budget at 0; K4 over the run with the fused optimizer;
-    # K5 over the serve and the LM training run; K6 over the BERT run
-    k1["launches"] = serve_k1 + counts["k1"] + bert["k1"]
-    bwd["fused"]["launches"] = counts["k2"] + bert["k2"]
+    # K1 over the serve (phase 5), the LM training run (phase 9), the
+    # BERT run (phase 12) and the mesh-path run (phase 13); K2 over the
+    # three training runs; K3a/K3b over the run with the budget at 0; K4
+    # over the run with the fused optimizer; K5 over the serve and the
+    # two LM training runs; K6 over the BERT run
+    k1["launches"] = serve_k1 + counts["k1"] + bert["k1"] + mesh["k1"]
+    bwd["fused"]["launches"] = counts["k2"] + bert["k2"] + mesh["k2"]
     bwd["dq"]["launches"] = counts["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"]
     k4["launches"] = counts["k4"]
-    norms["rms"]["launches"] = serve_k5 + counts["k5"]
+    norms["rms"]["launches"] = serve_k5 + counts["k5"] + mesh["k5"]
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -211,11 +211,13 @@ def test_synthetic_mlm_batches_equal_the_examples():
 def test_unported_sharding_arguments_raise(jax_params):
     params = params_from_numpy(jax_params, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        TB.forward(params, toks, TCFG, mesh=object())
-    with pytest.raises(NotImplementedError):
-        TB.mlm_loss(params, {"tokens": toks, "targets": toks}, TCFG,
-                    rules=object())
+    # dp, fsdp and tp are ported; cp, pp and ep still raise
+    for axis in ("cp", "pp", "ep"):
+        with pytest.raises(NotImplementedError):
+            TB.forward(params, toks, TCFG, mesh={"fsdp": 1, axis: 2})
+        with pytest.raises(NotImplementedError):
+            TB.mlm_loss(params, {"tokens": toks, "targets": toks}, TCFG,
+                        mesh={axis: 2})
 
 
 def test_pretrain_bert_cli_on_the_cpu(capsys):

@@ -12,6 +12,13 @@ reads a half-copied batch — and marks the tensors as used by its stream
 so the allocator does not hand their memory back to the side stream
 early. On the CPU the batch is handed over as tensors, unchanged.
 
+With a ``sharding`` (the train step's batch layout,
+``train.batch_sharding``) the producer also assembles each process's
+LOCAL batch into the global batch — DTensors over the mesh, from the
+local shards, with no communication (``train.global_batch``, the port's
+``make_array_from_process_local_data``) — on the mesh's device, so the
+assembly overlaps the step too.
+
 The contract is the JAX package's: ``close()`` stops the producer,
 drains the queue and joins the thread; a producer error re-raises in the
 consumer with its traceback; an epochal source is called as
@@ -68,17 +75,41 @@ def _to_device(batch: Any, device: torch.device):
     return tree_map(one, batch)
 
 
-def _assemble(batch: Any, device: torch.device, stream):
-    """The producer's copy: on the card, queued on its side ``stream``
-    with an event recorded after it; returns (batch, event), the event
-    None on the CPU."""
+def _mesh_device(sharding, device) -> torch.device:
+    """Where a batch lands: the mesh's device with a sharding (this
+    process's card under NCCL), else :func:`resolve_device`."""
+    if sharding is None:
+        return resolve_device(device)
+    if sharding.mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(sharding.mesh.device_type)
+
+
+def _globalize(batch: Any, sharding):
+    if sharding is None:
+        return batch
+    from tony_tpu_torch.models.train import global_batch
+    return global_batch(sharding, batch)
+
+
+def _assemble(batch: Any, device: torch.device, stream, sharding=None):
+    """The producer's copy (and, with a ``sharding``, the global batch's
+    assembly): on the card, queued on its side ``stream`` with an event
+    recorded after it; returns (batch, event), the event None on the
+    CPU."""
     if stream is None:
-        return _to_device(batch, device), None
+        return _globalize(_to_device(batch, device), sharding), None
     with torch.cuda.stream(stream):
-        out = _to_device(batch, device)
+        out = _globalize(_to_device(batch, device), sharding)
         event = torch.cuda.Event()
         event.record(stream)
     return out, event
+
+
+def _local_leaves(batch) -> list:
+    """The batch's tensors; a DTensor's local shard."""
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in tree_leaves(batch)]
 
 
 def _hand_over(item):
@@ -86,7 +117,7 @@ def _hand_over(item):
     memory from here on."""
     batch, event = item
     if event is not None:
-        leaves = tree_leaves(batch)
+        leaves = _local_leaves(batch)
         cur = torch.cuda.current_stream(leaves[0].device)
         cur.wait_event(event)
         for t in leaves:
@@ -113,17 +144,19 @@ def _iterate(source, epochs: int | None) -> Iterator[Any]:
                 f"— nothing to train on")
 
 
-def synchronous_batches(source, device=None,
-                        epochs: int | None = None) -> Iterator[Any]:
-    """The prefetcher's stream without the producer thread: conversion
-    and the host-to-card copy inline on the caller's stream (the
-    ``--prefetch_depth 0`` contrast arm)."""
-    dev = resolve_device(device)
+def synchronous_batches(source, device=None, epochs: int | None = None,
+                        sharding=None) -> Iterator[Any]:
+    """The prefetcher's stream without the producer thread: conversion,
+    the host-to-card copy and (with a ``sharding``) the global batch's
+    assembly inline on the caller's stream (the ``--prefetch_depth 0``
+    contrast arm)."""
+    dev = _mesh_device(sharding, device)
     for host_batch in _iterate(source, epochs):
-        yield _to_device(host_batch, dev)
+        yield _globalize(_to_device(host_batch, dev), sharding)
 
 
-def _producer(source, epochs, device, q, stop, error_box) -> None:
+def _producer(source, epochs, device, sharding, q, stop,
+              error_box) -> None:
     """Producer body (module-level: it must not reference the prefetcher,
     which would pin it against its finalizer)."""
     spec = None
@@ -133,7 +166,7 @@ def _producer(source, epochs, device, q, stop, error_box) -> None:
         for host_batch in _iterate(source, epochs):
             if stop.is_set():
                 return
-            item = _assemble(host_batch, device, stream)
+            item = _assemble(host_batch, device, stream, sharding)
             got = _tree_spec(item[0])
             if spec is None:
                 spec = got
@@ -176,9 +209,11 @@ class DevicePrefetcher:
     ``source`` is a plain iterable of host batches (one pass) or a
     callable ``epoch -> iterable`` (``epochs`` bounds the count, None
     cycles forever). ``device`` is where batches land: the card unless
-    the caller passes ``"cpu"``. Each queue slot holds one batch of
-    device memory, so 2 (one consumed, one in flight) is right unless
-    decode cost varies a lot.
+    the caller passes ``"cpu"``. With a ``sharding`` each host batch is
+    this process's local shard, the batches are the global DTensors of
+    that layout, and they land on the mesh's device. Each queue slot
+    holds one batch of device memory, so 2 (one consumed, one in
+    flight) is right unless decode cost varies a lot.
 
     Usage::
 
@@ -188,16 +223,16 @@ class DevicePrefetcher:
 
     def __init__(self, source: Iterable | Callable[[int], Iterable],
                  device=None, depth: int = 2,
-                 epochs: int | None = None) -> None:
-        self.device = resolve_device(device)
+                 epochs: int | None = None, sharding=None) -> None:
+        self.device = _mesh_device(sharding, device)
         self._q: queue.Queue | None = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._error_box: list = []
         self._done = False
         self._thread = threading.Thread(
             target=_producer,
-            args=(source, epochs, self.device, self._q, self._stop,
-                  self._error_box),
+            args=(source, epochs, self.device, sharding, self._q,
+                  self._stop, self._error_box),
             name=f"tony-datafeed-device-{next(_THREAD_SEQ)}", daemon=True)
         self._thread.start()
         self._finalizer = weakref.finalize(

@@ -16,8 +16,14 @@ plain versions. GELU is the tanh approximation, ``jax.nn.gelu``'s
 default. The tied head multiplies in f32 with f32 accumulation (both
 sides cast to f32, TF32 off), the port's form of the JAX einsum's
 ``preferred_element_type=f32``, as the LM's ``lm_head_logits`` does.
-No remat: the JAX BERT has none. Sharding (``mesh``/``rules``) comes
-with the dp/fsdp/tp slice and raises ``NotImplementedError`` here.
+No remat: the JAX BERT has none.
+
+With a ``mesh`` (dp, fsdp, tp; params laid out by :func:`logical_axes`)
+each rank runs its local shard, as the LM does
+(:mod:`tony_tpu_torch.parallel.spmd`): the batch over the data axes,
+heads and the MLP hidden over tp, the tied head and the MLM bias split
+by vocab, the loss combined across the vocab split without gathering
+the logits. cp, pp and ep raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models.train import masked_cross_entropy
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.norms import layer_norm
+from tony_tpu_torch.parallel import spmd
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +111,32 @@ def init_params(gen: torch.Generator, cfg: BertConfig, device=None) -> dict:
     }
 
 
-def _check_unsharded(mesh, rules) -> None:
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("sharded BERT (mesh / rules) is not "
-                                  "ported yet")
+def logical_axes(cfg: BertConfig) -> dict:
+    """Logical-axis tree matching :func:`init_params` (the JAX
+    package's)."""
+    def ln(lead):
+        return {"scale": lead + ("norm",), "bias": lead + ("norm",)}
+    return {
+        "tok_embed": ("vocab", "embed"),
+        "pos_embed": (None, "embed"),
+        "type_embed": (None, "embed"),
+        "embed_ln": ln(()),
+        "blocks": {
+            "wq": ("stage", "embed", "heads", "kv"),
+            "wk": ("stage", "embed", "heads", "kv"),
+            "wv": ("stage", "embed", "heads", "kv"),
+            "wo": ("stage", "heads", "kv", "embed"),
+            "attn_ln": ln(("stage",)),
+            "w_in": ("stage", "embed", "mlp"),
+            "b_in": ("stage", "mlp"),
+            "w_out": ("stage", "mlp", "embed"),
+            "b_out": ("stage", "embed"),
+            "mlp_ln": ln(("stage",)),
+        },
+        "mlm_dense": ("embed", "embed"),
+        "mlm_ln": ln(()),
+        "mlm_bias": ("vocab",),
+    }
 
 
 def _layers(blocks: dict):
@@ -125,47 +155,81 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _block(x, p):
-    """One post-LN encoder block on ``[B, S, D]``."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+def _block(x, p, lay=None):
+    """One post-LN encoder block on ``[B, S, D]`` (this rank's heads and
+    MLP slice under tp; the row-parallel outputs sum over the ranks
+    before their bias)."""
+    h = spmd.copy_to_model(x, lay)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     o = flash_attention(q, k, v, causal=False)
-    attn = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    attn = spmd.reduce_from_model(torch.einsum("bshk,hkd->bsd", o, p["wo"]),
+                                  lay)
     x = layer_norm(x + attn, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
-    inner = _gelu(torch.einsum("bsd,df->bsf", x, p["w_in"]) + p["b_in"])
-    mlp = torch.einsum("bsf,fd->bsd", inner, p["w_out"]) + p["b_out"]
+    h = spmd.copy_to_model(x, lay)
+    inner = _gelu(torch.einsum("bsd,df->bsf", h, p["w_in"]) + p["b_in"])
+    mlp = spmd.reduce_from_model(
+        torch.einsum("bsf,fd->bsd", inner, p["w_out"]), lay) + p["b_out"]
     return layer_norm(x + mlp, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
-            type_ids: torch.Tensor | None = None, mesh=None,
-            rules=None) -> torch.Tensor:
-    """tokens ``[B, S]`` int → MLM logits ``[B, S, V]`` (f32).
-    Differentiable in the params; callers that only infer wrap it in
-    ``torch.no_grad()``."""
-    _check_unsharded(mesh, rules)
+def _forward_local(params: dict, tokens: torch.Tensor, cfg: BertConfig,
+                   type_ids=None, lay=None) -> torch.Tensor:
+    """The forward on this rank's params and batch (the whole tree and
+    batch without a mesh) → this rank's f32 logits."""
     s = tokens.shape[1]
-    x = params["tok_embed"][tokens.long()]
+    x = spmd.embed_lookup(params["tok_embed"], tokens, lay, cfg.vocab_size)
     x = x + params["pos_embed"][None, :s]
     if type_ids is not None:
         x = x + params["type_embed"][type_ids.long()]
     x = layer_norm(x, params["embed_ln"]["scale"],
                    params["embed_ln"]["bias"]).to(cfg.dtype)
     for p in _layers(params["blocks"]):
-        x = _block(x, p)
+        x = _block(x, p, lay)
     h = _gelu(torch.einsum("bsd,de->bse", x, params["mlm_dense"]))
     h = layer_norm(h, params["mlm_ln"]["scale"], params["mlm_ln"]["bias"])
+    h = spmd.copy_to_model(h, lay)
     # weight-tied output projection, f32 products with f32 accumulation
     logits = torch.einsum("bsd,vd->bsv", h.float(),
                           params["tok_embed"].float())
     return logits + params["mlm_bias"]
 
 
+def _local_inputs(params, batch: dict, mesh, rules):
+    """(local params, local batch, layout) of a sharded step."""
+    lay = spmd.Layout(mesh, rules)
+    local = {k: (lay.local(v) if v is not None else None)
+             for k, v in batch.items()}
+    return lay.local_params(params), local, lay
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
+            type_ids: torch.Tensor | None = None, mesh=None,
+            rules=DEFAULT_RULES) -> torch.Tensor:
+    """tokens ``[B, S]`` int → MLM logits ``[B, S, V]`` (f32).
+    Differentiable in the params; callers that only infer wrap it in
+    ``torch.no_grad()``. With a ``mesh`` the params are DTensors laid
+    out by :func:`logical_axes`, the inputs the global batch, and the
+    logits a DTensor split by ``("batch", "seq", "vocab")``."""
+    if mesh is None:
+        return _forward_local(params, tokens, cfg, type_ids)
+    params, b, lay = _local_inputs(
+        params, {"tokens": tokens, "type_ids": type_ids}, mesh, rules)
+    logits = _forward_local(params, b["tokens"], cfg, b["type_ids"], lay)
+    return lay.wrap(logits, ("batch", "seq", "vocab"))
+
+
 def mlm_loss(params: dict, batch: dict, cfg: BertConfig, mesh=None,
-             rules=None) -> torch.Tensor:
+             rules=DEFAULT_RULES) -> torch.Tensor:
     """batch: ``{"tokens" [B, S], "targets" [B, S]}`` (-1 = unmasked,
-    ignored), optional ``"type_ids"``."""
-    logits = forward(params, batch["tokens"], cfg, batch.get("type_ids"),
-                     mesh, rules)
-    return masked_cross_entropy(logits, batch["targets"])
+    ignored), optional ``"type_ids"``. With a ``mesh``, the mean over the
+    global batch, the same plain 0-d tensor on every rank."""
+    if mesh is None:
+        logits = _forward_local(params, batch["tokens"], cfg,
+                                batch.get("type_ids"))
+        return masked_cross_entropy(logits, batch["targets"])
+    params, b, lay = _local_inputs(params, batch, mesh, rules)
+    logits = _forward_local(params, b["tokens"], cfg, b.get("type_ids"),
+                            lay)
+    return spmd.cross_entropy(logits, b["targets"], lay, cfg.vocab_size)

@@ -1,11 +1,23 @@
 """Checkpoint and resume of the train state, retry-aware.
 
 Port of ``tony_tpu/models/checkpoint.py`` for local directories. A
-checkpoint is one ``torch.save`` file per step, ``step_<N>.pt``, written
-to a temporary name in the same directory and moved into place with
-``os.replace``: a reader sees a whole checkpoint or none. Tensors are
-restored onto the devices of a template state (the freshly initialized
-one), as the JAX manager restores arrays onto their saved sharding.
+checkpoint of an unsharded state is one ``torch.save`` file per step,
+``step_<N>.pt``, written to a temporary name in the same directory and
+moved into place with ``os.replace``: a reader sees a whole checkpoint or
+none. Tensors are restored onto the devices of a template state (the
+freshly initialized one), as the JAX manager restores arrays onto their
+saved sharding.
+
+A sharded state (DTensor params and moments over a mesh) is saved and
+restored collectively on every rank through
+``torch.distributed.checkpoint``: each rank writes its shards into
+``step_<N>.tmp/``, and once all have, rank 0 renames it ``step_<N>/`` —
+the commit, atomic as the file's. A restore loads into the template's
+DTensors, so the state lands on the template's placements (whatever the
+saving job's were). In a job of several processes rank 0 alone lists the
+directory, and every rank reads its answer (:meth:`latest_step`), so a
+retry resumes every rank at the same step; save, restore and
+``latest_step`` are then collective calls, as the JAX package's are.
 
 Saves are synchronous: ``wait_until_finished`` has nothing to wait for
 (the JAX package's orbax saves run in the background). Remote URLs
@@ -22,23 +34,42 @@ from __future__ import annotations
 import logging
 import os
 import re
+import shutil
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+
+from tony_tpu_torch import tree_leaves
+from tony_tpu_torch.constants import ATTEMPT_NUMBER
 
 log = logging.getLogger(__name__)
 
-#: the environment variable the coordinator sets on retries (a copy of
-#: ``tony_tpu.constants.ATTEMPT_NUMBER``)
-ATTEMPT_NUMBER = "ATTEMPT_NUMBER"
-
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+_DIR = re.compile(r"^step_(\d+)$")
 
 
 def attempt_number() -> int:
     """Which coordinator attempt this process belongs to (0 = first
     run)."""
     return int(os.environ.get(ATTEMPT_NUMBER, "0"))
+
+
+def _is_sharded(tree) -> bool:
+    return any(hasattr(t, "placements") for t in tree_leaves(tree))
+
+
+def _multi_process() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _is_rank0() -> bool:
+    return not _multi_process() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if _multi_process():
+        dist.barrier()
 
 
 def _to_template(x, t):
@@ -68,13 +99,33 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{int(step)}.pt")
 
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{int(step)}")
+
     def all_steps(self) -> list[int]:
-        return sorted(int(m.group(1)) for m in
-                      map(_NAME.match, os.listdir(self.directory)) if m)
+        """Committed steps in this process's view of the directory:
+        ``step_<N>.pt`` files and ``step_<N>/`` directories."""
+        steps = []
+        for name in os.listdir(self.directory):
+            m = _NAME.match(name) or _DIR.match(name)
+            if m:
+                steps.append(int(m.group(1)))
+        return sorted(steps)
 
     def latest_step(self) -> int | None:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The latest committed step; in a job of several processes,
+        rank 0's answer on every rank (a collective call)."""
+        steps = self.all_steps() if _is_rank0() else []
+        latest = [steps[-1] if steps else None]
+        if _multi_process():
+            dist.broadcast_object_list(latest, src=0)
+        return latest[0]
+
+    def _remove(self, step: int) -> None:
+        if os.path.isdir(self._dir(step)):
+            shutil.rmtree(self._dir(step))
+        else:
+            os.remove(self._path(step))
 
     def save(self, step: int, state: Any, force: bool = False) -> bool:
         """Save if ``force``, or if ``step`` is past the latest saved step
@@ -86,14 +137,38 @@ class CheckpointManager:
                 return False
             if latest is not None and step % self.save_interval_steps:
                 return False
+        if _is_sharded(state):
+            self._save_sharded(step, state)
+            return True
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(state, tmp)
         os.replace(tmp, path)          # atomic: never half a checkpoint
         log.info("checkpoint saved at step %d → %s", step, self.directory)
         for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+            self._remove(old)
         return True
+
+    def _save_sharded(self, step: int, state: Any) -> None:
+        """Every rank writes its shards into ``step_<N>.tmp/``; after a
+        barrier rank 0 commits it with one rename and prunes."""
+        import torch.distributed.checkpoint as dcp
+        final = self._dir(step)
+        tmp = final + ".tmp"
+        if _is_rank0() and os.path.exists(tmp):
+            shutil.rmtree(tmp)         # a save that died before commit
+        _barrier()
+        dcp.save(state, checkpoint_id=tmp)
+        _barrier()
+        if _is_rank0():
+            if os.path.exists(final):  # a forced save of the same step
+                shutil.rmtree(final)
+            os.replace(tmp, final)     # atomic: never half a checkpoint
+            for old in self.all_steps()[:-self.max_to_keep]:
+                self._remove(old)
+            log.info("sharded checkpoint saved at step %d → %s", step,
+                     self.directory)
+        _barrier()
 
     def restore(self, template: Any | None = None,
                 step: int | None = None) -> Any:
@@ -102,9 +177,21 @@ class CheckpointManager:
         step = self.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        if os.path.isdir(self._dir(step)):
+            return self._restore_sharded(template, step)
         state = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
         return state if template is None else _to_template(state, template)
+
+    def _restore_sharded(self, template: Any, step: int) -> Any:
+        """Load ``step_<N>/`` into ``template`` in place, collectively:
+        each rank reads the shards its DTensors' placements ask for."""
+        import torch.distributed.checkpoint as dcp
+        if template is None:
+            raise ValueError("a sharded checkpoint restores into a template "
+                             "state (the freshly initialized one)")
+        dcp.load(template, checkpoint_id=self._dir(step))
+        return template
 
     def restore_or_init(self, init_fn: Callable[[], Any]) -> Any:
         """Restore the latest checkpoint if one exists, else build fresh

@@ -287,7 +287,7 @@ def _prompt_forward(params, tokens, cfg, bufs):
     for li in range(cfg.n_layers):
         p = T.layer_params(params, li)
         q, k, v = T._project_qkv(x, p, rope)
-        o = T._attention(q, k, v, None, window=cfg.attn_window or None)
+        o = T._attention(q, k, v, window=cfg.attn_window or None)
         x = T._finish_block(x, o, p)
         _write_kv_chunk(bufs["k"], k, li, 0)
         _write_kv_chunk(bufs["v"], v, li, 0)

@@ -1,12 +1,20 @@
-"""The train step for one device: loss → gradients → optimizer update.
+"""The train step: loss → gradients → optimizer update, on one device or
+sharded over a mesh.
 
-Port of ``tony_tpu/models/train.py`` without the mesh (dp/fsdp/tp come
-with a later slice). The train state is a plain dict ``{"params",
-"opt_state", "step"}``; ``step`` and the optimizer's count are host
-integers, advanced when a step is launched, so nothing on the step path
-reads the card. PyTorch runs eagerly: no compile, no donation. Instead the
-optimizers update params and moments in place, which is what donation
-buys the JAX package, and the step returns the same dicts.
+Port of ``tony_tpu/models/train.py``. The train state is a plain dict
+``{"params", "opt_state", "step"}``; ``step`` and the optimizer's count
+are host integers, advanced when a step is launched, so nothing on the
+step path reads the card. PyTorch runs eagerly: no compile, no donation.
+Instead the optimizers update params and moments in place, which is what
+donation buys the JAX package, and the step returns the same dicts.
+
+With a mesh (dp, fsdp, tp) the params and moments are DTensors laid out
+by the logical-axis rules (:func:`init_state`), each process feeds its
+local shard of the batch (:func:`global_batch`, :func:`batch_sharding`,
+:func:`data_parallel_rank`), and the loss function runs each rank's
+local shard (:mod:`tony_tpu_torch.parallel.spmd`); the gradients come
+back on the params' placements and the global-norm clip sees every
+shard. The fused optimizer (K4) refuses a mesh, as in the JAX package.
 
 Two optimizers come from :func:`default_optimizer`, as in the JAX package:
 
@@ -30,6 +38,10 @@ import torch
 
 from tony_tpu_torch import tree_leaves, tree_map
 from tony_tpu_torch.ops.optim import FusedAdamW, _global_norm
+from tony_tpu_torch.parallel.mesh import mesh_shape
+from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
+                                              Sharding, logical_sharding,
+                                              shard_pytree)
 from tony_tpu_torch.runtime import metrics as metrics_mod
 
 TrainState = dict
@@ -90,7 +102,9 @@ class ClippedAdamW:
     params updated as ``p + u``. The global norm is taken in f32 (optax
     sums squares in the grads' dtype; the two agree in f32). Params and
     moments are updated in place; :meth:`apply` returns ``(params,
-    state, gnorm)`` like ``FusedAdamW.fused_apply``."""
+    state, gnorm)`` like ``FusedAdamW.fused_apply``. DTensor leaves
+    (sharded params, with grads and moments on the same placements) are
+    updated shard by shard; the norm is the whole tree's."""
 
     def __init__(self, learning_rate: float | Callable[[int], float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -115,9 +129,8 @@ class ClippedAdamW:
         leaves_g = tree_leaves(grads)
         gnorm = _global_norm(leaves_g)
         trigger = gnorm < self.clip_norm
-        for p, g, m, v in zip(tree_leaves(params), leaves_g,
-                              tree_leaves(state["mu"]),
-                              tree_leaves(state["nu"])):
+        for p, g, m, v in zip(*(map(_local, tree_leaves(t)) for t in (
+                params, grads, state["mu"], state["nu"]))):
             g = torch.where(trigger, g, g / gnorm.to(g.dtype)
                             * self.clip_norm)
             m.copy_((1 - self.b1) * g + self.b1 * m)
@@ -128,6 +141,11 @@ class ClippedAdamW:
         new_state = {"count": count + 1, "mu": state["mu"],
                      "nu": state["nu"]}
         return params, new_state, gnorm
+
+
+def _local(t):
+    """A DTensor's local shard (the same storage), a tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
@@ -143,14 +161,20 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
     return ClippedAdamW(sched, weight_decay=weight_decay, clip_norm=1.0)
 
 
-def init_state(params, optimizer) -> TrainState:
-    """The train state ``{"params", "opt_state", "step"}``."""
+def init_state(params, optimizer, mesh=None, axes=None,
+               rules: Rules = DEFAULT_RULES) -> TrainState:
+    """The train state ``{"params", "opt_state", "step"}``; given a
+    ``mesh`` and the params' logical ``axes``, the params are laid out
+    on it first (:func:`~tony_tpu_torch.parallel.sharding.shard_pytree`)
+    and the moments follow their placements."""
+    if mesh is not None and axes is not None:
+        params = shard_pytree(params, axes, mesh, rules)
     return {"params": params, "opt_state": optimizer.init(params),
             "step": 0}
 
 
 def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
-                    optimizer) -> Callable:
+                    optimizer, mesh=None) -> Callable:
     """``step(state, batch) -> (state, {"loss", "grad_norm", "step"})``.
 
     ``loss_fn(params, batch) -> scalar``. The gradient is taken with
@@ -158,8 +182,15 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     loss does not read); an optimizer with
     ``fused_apply`` (K4) updates the params inside it, the other through
     its ``apply``. ``loss`` and ``grad_norm`` stay device tensors (reading
-    them is the caller's choice)."""
+    them is the caller's choice). With a ``mesh`` the params are
+    DTensors and ``loss_fn`` runs the sharded model (it takes the mesh
+    itself); each gradient comes back on its leaf's placements (the
+    backward of the step's gather), and the fused optimizer raises here,
+    where the step is built."""
     fused = hasattr(optimizer, "fused_apply")
+    if fused and mesh is not None:
+        raise ValueError("fused optimizers are single-device only: use "
+                         "default_optimizer(fused=False) with a mesh")
 
     def step(state: TrainState, batch: Any):
         params = state["params"]
@@ -218,8 +249,46 @@ def _instrument_step(step_fn: Callable) -> Callable:
     return instrumented
 
 
-def make_eval_step(loss_fn: Callable[[Any, Any], torch.Tensor]) -> Callable:
-    """``eval_step(params, batch) -> loss`` with no gradient recorded."""
+def batch_sharding(mesh, rules: Rules = DEFAULT_RULES,
+                   logical: tuple = ("batch",)) -> Sharding:
+    """The layout of input batches: the batch dimension over dp/fsdp, the
+    rest replicated (callers append dimensions, e.g. ``("batch",
+    "seq")`` for token arrays)."""
+    return logical_sharding(logical, mesh, rules)
+
+
+def data_parallel_rank(mesh, axes: tuple[str, ...] = ("dp", "fsdp")) -> int:
+    """This process's rank along the data-parallel mesh axes, from its
+    mesh coordinates (not its task index): the value to seed per-process
+    data with. Processes at the same dp/fsdp coordinate (pure tp meshes,
+    where the batch is replicated across processes) get the same rank
+    and must feed identical data."""
+    shape = mesh_shape(mesh)
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    rank = 0
+    for ax in axes:
+        if ax in shape:
+            rank = rank * shape[ax] + int(coord[ax])
+    return rank
+
+
+def global_batch(sharding: Sharding, local_tree: Any) -> Any:
+    """Each process's LOCAL batch shard as the global DTensors of
+    ``sharding``: the global batch is the concatenation of the shards in
+    data-parallel rank order (:func:`data_parallel_rank`), and processes
+    that share a data rank must pass the same shard. Leaves are tensors
+    already on the mesh's device; the spec covers the leading dims."""
+    from torch.distributed.tensor import DTensor
+    placements = sharding.placements
+    return tree_map(lambda x: DTensor.from_local(
+        x, sharding.mesh, placements, run_check=False), local_tree)
+
+
+def make_eval_step(loss_fn: Callable[[Any, Any], torch.Tensor],
+                   mesh=None) -> Callable:
+    """``eval_step(params, batch) -> loss`` with no gradient recorded.
+    ``mesh`` is accepted for the JAX package's signature: the sharded
+    loss function takes the mesh itself, and the step adds nothing."""
 
     @torch.no_grad()
     def eval_step(params, batch):

@@ -18,9 +18,18 @@ SwiGLU MLP are plain torch with the JAX package's f32 points: RoPE in
 f32 math, the lm_head accumulated in f32 and stored in
 ``cfg.logits_storage_dtype``.
 
+With a ``mesh`` (dp, fsdp, tp; :func:`logical_axes` and the rule table
+lay the params out as DTensors), :func:`forward` and :func:`lm_loss` run
+each rank's local shard (:mod:`tony_tpu_torch.parallel.spmd`): the batch
+split over the data axes, heads, the MLP hidden and the vocab split over
+tp with Megatron-style collectives, the kernels launched on local
+tensors. Under GQA with tp the K/V projections are replicated, as in the
+JAX package; each rank cuts K and V to the kv heads its query heads read
+(:func:`~tony_tpu_torch.ops.attention.tp_kv_heads`).
+
 Not ported yet (they raise ``NotImplementedError``): MoE layers,
-pipeline (pp) and context (cp) parallelism, and the remat policies
-``"dots"`` and ``"attn"``.
+pipeline (pp), context (cp) and expert (ep) parallelism, and the remat
+policies ``"dots"`` and ``"attn"``.
 """
 
 from __future__ import annotations
@@ -34,8 +43,10 @@ import torch.utils.checkpoint
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models.train import masked_cross_entropy
-from tony_tpu_torch.ops.attention import flash_attention
+from tony_tpu_torch.ops.attention import flash_attention, tp_kv_heads
 from tony_tpu_torch.ops.norms import rms_norm
+from tony_tpu_torch.parallel import spmd
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +186,30 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
                                                         d)}
 
 
+def logical_axes(cfg: TransformerConfig) -> dict:
+    """Logical-axis tree matching :func:`init_params` (the JAX package's:
+    leading ``"stage"`` on the stacked leaves). Under GQA the K/V
+    projections replicate over tp instead of claiming ``"heads"``."""
+    _check_dense(cfg)
+    kv_head_axis = "heads" if cfg.kv_heads == cfg.n_heads else None
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("stage", "norm"),
+            "wq": ("stage", "embed", "heads", "kv"),
+            "wk": ("stage", "embed", kv_head_axis, "kv"),
+            "wv": ("stage", "embed", kv_head_axis, "kv"),
+            "wo": ("stage", "heads", "kv", "embed"),
+            "mlp_norm": ("stage", "norm"),
+            "w_gate": ("stage", "embed", "mlp"),
+            "w_up": ("stage", "embed", "mlp"),
+            "w_down": ("stage", "mlp", "embed"),
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def layer_params(params: dict, li: int) -> dict:
     """Layer ``li``'s slice of the stacked block params (views)."""
     return {n: a[li] for n, a in params["blocks"].items()}
@@ -214,56 +249,70 @@ def expand_kv(q, k, v):
     return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
 
 
-def _attention(q, k, v, mesh=None, cp_strategy: str = "ring",
+def _attention(q, k, v, cp_strategy: str = "ring",
                window: int | None = None):
     """Causal GQA attention, differentiable: the CUDA flash kernels for
     CUDA tensors, their plain versions for CPU tensors."""
     if cp_strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown cp_strategy {cp_strategy!r}; "
                          f"expected 'ring' or 'ulysses'")
-    if mesh is not None:
-        raise NotImplementedError("context parallelism is not ported yet")
     return flash_attention(q, k, v, causal=True, window=window)
 
 
-def _mlp(h, p):
-    """Dense SwiGLU feed-forward on ``[B, S, D]``."""
+def _mlp(h, p, lay=None):
+    """Dense SwiGLU feed-forward on ``[B, S, D]``; under tp the hidden is
+    this rank's slice and the output sums over the ranks."""
     gate = torch.einsum("bsd,df->bsf", h, p["w_gate"])
     up = torch.einsum("bsd,df->bsf", h, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
+    out = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
+    return spmd.reduce_from_model(out, lay)
 
 
-def _project_qkv(x, p, rope):
+def _project_qkv(x, p, rope, lay=None):
     """A block's attention inputs: RMSNorm, the Q/K/V projections and
     RoPE on q and k. x: ``[B, S, D]``; returns q ``[B, S, H, hd]`` and
-    k, v ``[B, S, KV, hd]``."""
+    k, v ``[B, S, KV, hd]`` (this rank's heads under tp)."""
     cos, sin = rope
-    h = rms_norm(x, p["attn_norm"])
+    h = spmd.copy_to_model(rms_norm(x, p["attn_norm"]), lay)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_block(x, o, p):
+def _local_kv(k, v, cfg: TransformerConfig, lay):
+    """Under tp with replicated (GQA) K/V: the kv heads this rank's query
+    heads read."""
+    if lay is None or lay.model_size == 1 or cfg.kv_heads == cfg.n_heads:
+        return k, v
+    lo, hi = tp_kv_heads(cfg.n_heads, cfg.kv_heads, lay.model_rank,
+                         lay.model_size)
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def _finish_block(x, o, p, lay=None):
     """The rest of a block after attention: the output projection and
     the residual, then RMSNorm, the MLP and its residual."""
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    h = rms_norm(x, p["mlp_norm"])
-    return x + _mlp(h, p)
+    x = x + spmd.reduce_from_model(
+        torch.einsum("bshk,hkd->bsd", o, p["wo"]), lay)
+    h = spmd.copy_to_model(rms_norm(x, p["mlp_norm"]), lay)
+    return x + _mlp(h, p, lay)
 
 
-def _block(x, p, cfg: TransformerConfig, rope=None):
+def _block(x, p, cfg: TransformerConfig, rope=None, lay=None):
     """One decoder block. x: ``[B, S, D]``; p: this layer's params
-    (unstacked); ``rope``: precomputed (cos, sin) tables."""
+    (unstacked; this rank's shards); ``rope``: precomputed (cos, sin)
+    tables; ``lay``: the :class:`~tony_tpu_torch.parallel.spmd.Layout`
+    of a sharded step, or None."""
     _check_dense(cfg)
     b, s, _ = x.shape
     if rope is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
         rope = rope_tables(positions, cfg.head_dim)
-    q, k, v = _project_qkv(x, p, rope)
-    o = _attention(q, k, v, None, cfg.cp_strategy, cfg.attn_window or None)
-    return _finish_block(x, o, p)
+    q, k, v = _project_qkv(x, p, rope, lay)
+    k, v = _local_kv(k, v, cfg, lay)
+    o = _attention(q, k, v, cfg.cp_strategy, cfg.attn_window or None)
+    return _finish_block(x, o, p, lay)
 
 
 def lm_head_logits(x, w, cfg: TransformerConfig):
@@ -272,25 +321,21 @@ def lm_head_logits(x, w, cfg: TransformerConfig):
     return (x.float() @ w.float()).to(cfg.logits_storage_dtype)
 
 
-def _lm_head(params: dict, x, cfg: TransformerConfig):
-    """final_norm + lm_head on block output ``[B, S, D]`` → logits."""
-    x = rms_norm(x, params["final_norm"])
+def _lm_head(params: dict, x, cfg: TransformerConfig, lay=None):
+    """final_norm + lm_head on block output ``[B, S, D]`` → logits (this
+    rank's vocab slice under tp)."""
+    x = spmd.copy_to_model(rms_norm(x, params["final_norm"]), lay)
     return lm_head_logits(x, params["lm_head"], cfg)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            mesh=None) -> tuple:
-    """tokens ``[B, S]`` int → (logits ``[B, S, V]`` in
-    ``cfg.logits_storage_dtype``, aux_loss scalar — 0 for dense
-    models). Differentiable in the params; callers that only infer wrap it
-    in ``torch.no_grad()``. With ``cfg.remat``, when a gradient of the
-    block params is recorded, each block is checkpointed (recomputed in
-    the backward)."""
-    if mesh is not None:
-        raise NotImplementedError("pipeline / context parallelism is not "
-                                  "ported yet")
+def _forward_local(params: dict, tokens: torch.Tensor,
+                   cfg: TransformerConfig, lay=None) -> tuple:
+    """The forward on local tensors: ``params`` and ``tokens`` are this
+    rank's (the whole tree and batch without a mesh); returns this
+    rank's logits and the aux loss."""
     _check_dense(cfg)
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = spmd.embed_lookup(params["embed"], tokens, lay,
+                          cfg.vocab_size).to(cfg.dtype)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     rope = rope_tables(positions, cfg.head_dim)   # hoisted out of the loop
@@ -307,11 +352,41 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         p = dict(zip(names, vals))
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _block, x, p, cfg, rope, use_reentrant=False)
+                _block, x, p, cfg, rope, lay, use_reentrant=False)
         else:
-            x = _block(x, p, cfg, rope=rope)
+            x = _block(x, p, cfg, rope=rope, lay=lay)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return _lm_head(params, x, cfg), aux
+    return _lm_head(params, x, cfg, lay), aux
+
+
+def _local_step_inputs(params: dict, tokens, cfg: TransformerConfig,
+                       mesh, rules) -> tuple:
+    """(local params, local tokens, layout) of a sharded step: the
+    params gathered over the data axes (GQA's replicated K/V projections
+    marked partial over tp), the batch cut to this rank."""
+    lay = spmd.Layout(mesh, rules)
+    partial = (frozenset({("blocks", "wk"), ("blocks", "wv")})
+               if cfg.kv_heads != cfg.n_heads else frozenset())
+    return lay.local_params(params, partial), lay.local(tokens), lay
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None, rules=DEFAULT_RULES) -> tuple:
+    """tokens ``[B, S]`` int → (logits ``[B, S, V]`` in
+    ``cfg.logits_storage_dtype``, aux_loss scalar — 0 for dense
+    models). Differentiable in the params; callers that only infer wrap it
+    in ``torch.no_grad()``. With ``cfg.remat``, when a gradient of the
+    block params is recorded, each block is checkpointed (recomputed in
+    the backward). With a ``mesh`` the params are DTensors laid out by
+    :func:`logical_axes`, ``tokens`` is the global batch (a DTensor, or
+    a tensor every rank passes whole) and the logits come back as a
+    DTensor split by ``("batch", "seq", "vocab")``."""
+    if mesh is None:
+        return _forward_local(params, tokens, cfg)
+    params, tokens, lay = _local_step_inputs(params, tokens, cfg, mesh,
+                                             rules)
+    logits, aux = _forward_local(params, tokens, cfg, lay)
+    return lay.wrap(logits, ("batch", "seq", "vocab")), aux
 
 
 def train_flops_per_token(cfg: TransformerConfig, seq: int) -> float:
@@ -339,12 +414,21 @@ def train_flops_per_token(cfg: TransformerConfig, seq: int) -> float:
 
 
 def lm_loss(params: dict, batch: dict, cfg: TransformerConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, rules=DEFAULT_RULES) -> torch.Tensor:
     """Next-token cross-entropy. batch: ``{"tokens": [B, S]}`` (shifted
-    inside) or ``{"inputs", "targets"}``; targets == -1 are ignored."""
+    inside) or ``{"inputs", "targets"}``; targets == -1 are ignored. With
+    a ``mesh``, the mean over the global batch, the same plain 0-d tensor
+    on every rank."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    logits, aux = forward(params, inputs, cfg, mesh)
-    return masked_cross_entropy(logits, targets) + cfg.moe_aux_weight * aux
+    if mesh is None:
+        logits, aux = _forward_local(params, inputs, cfg)
+        return masked_cross_entropy(logits, targets) \
+            + cfg.moe_aux_weight * aux
+    params, inputs, lay = _local_step_inputs(params, inputs, cfg, mesh,
+                                             rules)
+    logits, aux = _forward_local(params, inputs, cfg, lay)
+    return spmd.cross_entropy(logits, lay.local(targets), lay,
+                              cfg.vocab_size) + cfg.moe_aux_weight * aux

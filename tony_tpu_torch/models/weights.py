@@ -55,10 +55,17 @@ def params_to_numpy(params, bf16_dtype=None):
     """torch tree → numpy tree (host copies, bit-exact). bfloat16 leaves
     come back as ``uint16`` arrays of their bits, or viewed as
     ``bf16_dtype`` when the caller passes one (e.g.
-    ``ml_dtypes.bfloat16``), which restores the JAX package's dtype."""
+    ``ml_dtypes.bfloat16``), which restores the JAX package's dtype. A
+    sharded (DTensor) leaf is gathered to its full array first — a
+    collective call on every rank of its mesh — so a sharded tree and
+    the unsharded one give the same arrays and the same digest."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v, bf16_dtype) for k, v in params.items()}
-    t = params.detach().cpu()
+    if hasattr(params, "full_tensor"):
+        params = params.full_tensor()
+    # a copy even of a CPU tensor: the optimizers update params in place,
+    # and a numpy view would follow them
+    t = params.detach().cpu().clone()
     if t.dtype == torch.bfloat16:
         bits = t.view(torch.int16).numpy().view(np.uint16)
         return bits if bf16_dtype is None else bits.view(bf16_dtype)

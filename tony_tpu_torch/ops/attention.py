@@ -265,6 +265,24 @@ def _launch_dkv(inputs, *, causal, scale, window):
 reset_launches()
 
 
+def tp_kv_heads(n_heads: int, kv_heads: int, rank: int,
+                size: int) -> tuple[int, int]:
+    """The kv heads ``[lo, hi)`` that rank ``rank`` of a ``size``-way
+    head split needs when it holds query heads ``[rank·H/size,
+    (rank+1)·H/size)`` and every kv head (GQA under tp replicates K/V):
+    global query head ``g`` reads kv head ``g // (H/KV)``. Cut to that
+    range, the kernels' own rule (local query head ``i`` reads local kv
+    head ``i // (H_local/KV_local)``) gives the same pairs. It holds when
+    ``size`` divides KV or KV divides ``size``; other splits raise."""
+    if n_heads % size or (kv_heads % size and size % kv_heads):
+        raise ValueError(f"{n_heads} query / {kv_heads} kv heads do not "
+                         f"split over {size} ranks")
+    _check_kv_heads(n_heads, kv_heads)
+    h_local, group = n_heads // size, n_heads // kv_heads
+    lo = rank * h_local // group
+    return lo, max(lo + 1, (rank + 1) * h_local // group)
+
+
 def fused_dq_bytes(q_shape) -> int:
     """Bytes of the f32 ``[B, S, H, D]`` dQ buffer K2 adds into: the
     memory the fused route costs beyond the two-pass one. It takes the

@@ -98,9 +98,28 @@ adamw_update.launches = 0
 
 def _global_norm(leaves) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in f32, as a 0-d tensor on
-    the leaves' device."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+    the leaves' device. A DTensor leaf counts every shard once: its local
+    sum of squares is summed over the mesh dimensions it is sharded on
+    (one all-reduce per dimension and distinct layout), so every rank
+    gets the norm of the whole tree, as the JAX package's norm of a
+    sharded tree is."""
+    import torch.distributed as dist
+    total = None
+    by_layout: dict = {}
+    for x in leaves:
+        if hasattr(x, "placements"):
+            key = (x.device_mesh, tuple(i for i, p in enumerate(x.placements)
+                                        if p.is_shard()))
+            sq = torch.sum(torch.square(x.to_local().float()))
+            by_layout[key] = by_layout.get(key, 0) + sq
+        else:
+            sq = torch.sum(torch.square(x.float()))
+            total = sq if total is None else total + sq
+    for (mesh, dims), sq in by_layout.items():
+        for i in dims:
+            dist.all_reduce(sq, group=mesh.get_group(i))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def _check_no_aliasing(*trees) -> None:

@@ -1,20 +1,23 @@
-"""BERT MLM pretraining on one device — the port's counterpart of
-``examples/bert/pretrain_bert.py``.
+"""BERT MLM pretraining, sharded over every process of the job — the
+port's counterpart of ``examples/bert/pretrain_bert.py``.
 
     python -m tony_tpu_torch.pretrain_bert --config base --steps 100 \\
         --batch_size 16 --seq_len 512
 
-Random weights from seed 0 and synthetic masked tokens (15% of positions
-masked, seeded ``1000 + TASK_INDEX`` as the JAX script seeds them)
-through a ``DevicePrefetcher``, the train step of
-:func:`~tony_tpu_torch.models.train.make_train_step` with
+As the JAX script does: the process group from the executor's
+environment (``runtime.initialize``), the mesh (``runtime.mesh``;
+``tony.application.mesh``, e.g. ``dp=-1``; a lone process gets a world-1
+mesh), the params laid out by ``bert.logical_axes`` and the sharded
+train step. Random weights from seed 0; synthetic masked tokens (15% of
+positions masked), ``--batch_size`` rows per process seeded ``1000 +
+data_parallel_rank(mesh)`` (the JAX script seeds by task index, the same
+number on dp/fsdp meshes; the data rank keeps tp ranks' shards equal),
+assembled into the global batch by a ``DevicePrefetcher``;
 ``default_optimizer`` and :func:`~tony_tpu_torch.models.loop.run_training`.
-bf16 on the card, f32 on the CPU (``--device cpu``); with no card and no
-``--device cpu`` it raises. Prints the JAX script's lines: ``step {i} mlm
-loss {l} tok/s {r}`` every 20 steps and ``done: final loss {l}``.
-
-Multi-process data parallelism (the JAX script's ``rt.initialize()``,
-mesh and sharded params) comes with the dp/fsdp/tp slice.
+bf16 on the card, f32 on the CPU (``--device cpu``, gloo); with no card
+and no ``--device cpu`` it raises. Prints the JAX script's lines:
+``[job:index] N global devices mesh={…}``, ``step {i} mlm loss {l} tok/s
+{r}`` (global tokens) every 20 steps and ``done: final loss {l}``.
 """
 
 from __future__ import annotations
@@ -22,19 +25,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
-import os
 import sys
 import time
 
 import numpy as np
 import torch
 
+import tony_tpu_torch.runtime as rt
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.io.prefetch import DevicePrefetcher
 from tony_tpu_torch.models import bert as B
 from tony_tpu_torch.models.loop import run_training
-from tony_tpu_torch.models.train import (default_optimizer, init_state,
+from tony_tpu_torch.models.train import (batch_sharding, data_parallel_rank,
+                                         default_optimizer, init_state,
                                          make_train_step)
+from tony_tpu_torch.parallel import mesh_shape, shard_pytree
 
 CONFIGS = {"base": B.BERT_BASE, "tiny": B.BERT_TINY}
 MASK_FRACTION = 0.15
@@ -58,11 +63,6 @@ def synthetic_mlm_batches(seed, batch, seq, cfg):
         }
 
 
-def task_index() -> int:
-    """This process's task index in its job (0 when run alone)."""
-    return int(os.environ.get("TASK_INDEX", "0"))
-
-
 def build(config: str, device=None):
     """(cfg, params) for ``config`` on ``device``: bf16 on the card, f32
     on the CPU, random weights from seed 0."""
@@ -73,10 +73,12 @@ def build(config: str, device=None):
                               device=dev)
 
 
-def make_step(cfg, lr: float, steps: int):
-    """(optimizer, train step) as the JAX script builds them."""
+def make_step(cfg, lr: float, steps: int, mesh=None):
+    """(optimizer, train step) as the JAX script builds them, sharded
+    over ``mesh`` when one is given."""
     opt = default_optimizer(lr=lr, total_steps=steps)
-    return opt, make_train_step(lambda p, b: B.mlm_loss(p, b, cfg), opt)
+    return opt, make_train_step(lambda p, b: B.mlm_loss(p, b, cfg, mesh),
+                                opt, mesh)
 
 
 def main(argv=None) -> int:
@@ -91,19 +93,26 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     dev = resolve_device(args.device)
+    info = rt.initialize(dev)
+    mesh = rt.mesh(device=dev)
+    print(f"[{info.job_name}:{info.task_index}] {mesh.size()} global "
+          f"devices mesh={mesh_shape(mesh)}", flush=True)
     cfg, params = build(args.config, dev)
     seq = min(args.seq_len, cfg.max_seq)
-    print(f"task={task_index()} device={dev} config={args.config} "
-          f"dtype={cfg.dtype}", flush=True)
-    opt, step = make_step(cfg, args.lr, args.steps)
+    print(f"device={dev} config={args.config} dtype={cfg.dtype}", flush=True)
+    params = shard_pytree(params, B.logical_axes(cfg), mesh)
+    opt, step = make_step(cfg, args.lr, args.steps, mesh)
     state = init_state(params, opt)
     data = DevicePrefetcher(
-        synthetic_mlm_batches(1000 + task_index(), args.batch_size, seq,
-                              cfg), device=dev)
+        synthetic_mlm_batches(1000 + data_parallel_rank(mesh),
+                              args.batch_size, seq, cfg),
+        sharding=batch_sharding(mesh, logical=("batch", "seq")))
     t0 = time.perf_counter()
 
     def log_fn(i, metrics, batch):
-        tok_s = args.batch_size * seq * (i + 1) / (time.perf_counter() - t0)
+        # global tokens: the assembled batch's leading dim is global
+        tok_s = (batch["tokens"].shape[0] * seq * (i + 1)
+                 / (time.perf_counter() - t0))
         print(f"step {i} mlm loss {float(metrics['loss']):.4f} "
               f"tok/s {tok_s:,.0f}", flush=True)
 
@@ -115,4 +124,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        rt.shutdown()
+    sys.exit(rc)

@@ -1,18 +1,25 @@
-"""Train the flagship decoder LM on one device — the port's counterpart of
-``examples/lm/train_lm.py``.
+"""Train the flagship decoder LM, sharded over every process of the job —
+the port's counterpart of ``examples/lm/train_lm.py``.
 
     python -m tony_tpu_torch.train_lm --preset small --steps 100 \\
         --batch_size 16 --seq_len 1024 [--ckpt_dir DIR --ckpt_every N]
 
-Random weights from seed 0 and synthetic tokens (seeded by the attempt
-number, as the JAX script seeds them) through a ``DevicePrefetcher``
-(``--prefetch_depth 0``: the synchronous feed), the train step of
-:func:`~tony_tpu_torch.models.train.make_train_step` with
-``default_optimizer`` and :func:`~tony_tpu_torch.models.loop.run_training`.
-bf16 on the card, f32 on the CPU (``--device cpu``); with no card and no
-``--device cpu`` it raises. With ``--ckpt_dir`` holding a checkpoint the
-run resumes from it. Prints the JAX script's lines: ``step {s} loss {l}
-tok/s {r}`` every 20 steps and ``done: final loss {l}``.
+Under the orchestrator (``tony_tpu.client.cli submit --executes 'python
+-m tony_tpu_torch.train_lm ...'``, mesh from ``tony.application.mesh``)
+it boots the process group from the executor's environment
+(``runtime.initialize``), builds the mesh (``runtime.mesh``; a lone
+process gets a world-1 mesh, the same code path), lays the params out by
+``transformer.logical_axes`` and trains with the sharded step. Random
+weights from seed 0; synthetic tokens, ``--batch_size`` rows per process,
+seeded by ``data_parallel_rank(mesh) + 1000 * attempt_number()`` as the
+JAX script seeds them, assembled into the global batch by a
+``DevicePrefetcher`` (``--prefetch_depth 0``: the synchronous feed).
+bf16 on the card, f32 on the CPU (``--device cpu``, gloo); with no card
+and no ``--device cpu`` it raises. With ``--ckpt_dir`` holding a
+checkpoint the run resumes from it (sharded, collectively). Prints the
+JAX script's lines: ``[job:index] attempt=… mesh={…} devices=N``, ``step
+{s} loss {l} tok/s {r}`` (global tokens) every 20 steps and ``done:
+final loss {l}``.
 
 Options of later slices (``--data_files``, ``--elastic_data``,
 ``--cp_strategy``, ``--num_experts``, ``--pp_schedule``) are not ported.
@@ -28,13 +35,16 @@ import time
 import numpy as np
 import torch
 
+import tony_tpu_torch.runtime as rt
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.io.prefetch import DevicePrefetcher, synchronous_batches
 from tony_tpu_torch.models import transformer as T
 from tony_tpu_torch.models.checkpoint import CheckpointManager, attempt_number
 from tony_tpu_torch.models.loop import GangLostError, run_training
-from tony_tpu_torch.models.train import (default_optimizer, init_state,
+from tony_tpu_torch.models.train import (batch_sharding, data_parallel_rank,
+                                         default_optimizer, init_state,
                                          make_train_step)
+from tony_tpu_torch.parallel import mesh_shape, shard_pytree
 
 
 def synthetic_source(seed: int, batch: int, seq: int, vocab: int):
@@ -58,12 +68,14 @@ def build(preset: str, device=None, attn_window: int = 0):
     return cfg, params
 
 
-def make_data(source, device, prefetch_depth: int):
+def make_data(source, device, prefetch_depth: int, sharding=None):
     """The batch iterator: a ``DevicePrefetcher`` of ``prefetch_depth``,
-    or the synchronous feed when it is 0."""
+    or the synchronous feed when it is 0; with a ``sharding``, of global
+    batches assembled from this process's shards."""
     if prefetch_depth > 0:
-        return DevicePrefetcher(source, device=device, depth=prefetch_depth)
-    return synchronous_batches(source, device=device)
+        return DevicePrefetcher(source, device=device, depth=prefetch_depth,
+                                sharding=sharding)
+    return synchronous_batches(source, device=device, sharding=sharding)
 
 
 def main(argv=None) -> int:
@@ -86,11 +98,16 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     dev = resolve_device(args.device)
+    info = rt.initialize(dev)
+    mesh = rt.mesh(device=dev)
+    print(f"[{info.job_name}:{info.task_index}] attempt={info.attempt} "
+          f"mesh={mesh_shape(mesh)} devices={mesh.size()}", flush=True)
     cfg, params = build(args.preset, dev, args.attn_window)
-    print(f"attempt={attempt_number()} device={dev} preset={args.preset} "
-          f"dtype={cfg.dtype}", flush=True)
+    print(f"device={dev} preset={args.preset} dtype={cfg.dtype}", flush=True)
+    params = shard_pytree(params, T.logical_axes(cfg), mesh)
     opt = default_optimizer(lr=args.lr, total_steps=args.steps)
-    step_fn = make_train_step(lambda p, b: T.lm_loss(p, b, cfg), opt)
+    step_fn = make_train_step(lambda p, b: T.lm_loss(p, b, cfg, mesh), opt,
+                              mesh)
 
     mgr = (CheckpointManager(args.ckpt_dir,
                              save_interval_steps=args.ckpt_every)
@@ -99,13 +116,18 @@ def main(argv=None) -> int:
              if mgr else init_state(params, opt))
     start_step = int(state["step"])
 
-    source = synthetic_source(1000 * attempt_number(), args.batch_size,
+    # seeded by the data-parallel rank, not the task index: processes
+    # that share a batch shard (pure tp) must feed identical data
+    source = synthetic_source(data_parallel_rank(mesh)
+                              + 1000 * attempt_number(), args.batch_size,
                               args.seq_len, cfg.vocab_size)
-    data = make_data(source, dev, args.prefetch_depth)
+    data = make_data(source, dev, args.prefetch_depth,
+                     batch_sharding(mesh, logical=("batch", "seq")))
     t0 = time.perf_counter()
 
     def log_fn(step, metrics, batch):
         loss = float(metrics["loss"])
+        # global tokens: the assembled batch's leading dim is global
         tok_s = (batch["inputs"].shape[0] * args.seq_len
                  * (step - start_step + 1) / (time.perf_counter() - t0))
         print(f"step {step} loss {loss:.4f} tok/s {tok_s:,.0f}", flush=True)
@@ -125,4 +147,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        rt.shutdown()
+    sys.exit(rc)
