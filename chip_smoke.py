@@ -104,6 +104,28 @@ result:
    and K3a on each tp rank's head slice, tp in {2, 4}, GQA [16, 1024, 8,
    64] with KV in {8, 2, 1} and BERT's [16, 512, 12, 64], against the
    slice of the full call (bitwise where the arithmetic is the same);
+14. the serving host: the threefry stream on the card against the CPU
+   (bits and uniforms of [8, 32000] bitwise, Gumbel noise within 2 ulp);
+   then phase 5's ``small`` bf16 and 24 requests behind the port's
+   ``ServingServer`` on 127.0.0.1:0, driven over the socket by the
+   port's ``StreamingClient`` (8 slots, max_len 1024, chunk 8): greedy
+   tokens equal to phase 5's; the slice's main path, sampled (T 0.8,
+   top-k 50, top-p 0.95, seed 0) with the classes in rotation, K1 and K5
+   counted from 0 over it, its tokens equal to the in-process batcher's
+   and through 4 slots; 8 batch requests preempted by two waves of 4
+   interactive ones, so that streams are preempted twice, in bf16 and in
+   f32 (each preempted stream equal to the run without preemption up to
+   its first preemption and to a replay of each resume: ``prompt +
+   tokens`` at the stream offset; each resumed row's logits within twice
+   the measured re-prefill-vs-decode spread of the decode path's at the
+   same step; equal to the end in f32, where a first difference is
+   allowed only at a decision margin within 1e-4 of a logit; reported in
+   bf16, where the re-prefilled history runs other arithmetic);
+   BUSY past a queue depth of 4 with every request served
+   under retries; a dropped connection's requests cancelled and their
+   slots readmitted; tokens/s, TTFT and ITL p50/p99 per class from the
+   client's frame arrival times, the busy share, and device launches,
+   device time and wall per greedy and per sampled decode step;
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -593,7 +615,8 @@ def phase_serve(report, card):
         fail(f"K5 launches {k5} != (2 x {cfg.n_layers} + 1) x {forwards} "
              f"model forwards")
     phase_profile(report, batcher, prompts[:8], budgets[:8])
-    return launches, k5
+    return dict(k1=launches, k5=k5, cfg=cfg, params=params,
+                prompts=prompts, budgets=budgets, outputs=outs)
 
 
 def _device_times(prof):
@@ -1896,6 +1919,584 @@ def phase_bert(report, card):
     return c
 
 
+#: phase 14's sampling settings (the slice's sampled client)
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95, seed=0)
+
+
+def _stream_bits_on_card(report):
+    """[14a] the threefry stream on the card against the CPU for 8 keys
+    drawing [8, 32000]: bits and uniforms bitwise, Gumbel noise within 2
+    f32 ulp."""
+    import torch
+    from tony_tpu_torch.ops import prng
+    keys = prng.split(prng.PRNGKey(0), 8)
+    shape = (32000,)
+    bits_c, bits_g = (prng.random_bits(keys, shape),
+                      prng.random_bits(keys.cuda(), shape).cpu())
+    u_c, u_g = prng.uniform(keys, shape), prng.uniform(keys.cuda(),
+                                                       shape).cpu()
+    g_c, g_g = prng.gumbel(keys, shape), prng.gumbel(keys.cuda(),
+                                                     shape).cpu()
+    bits_eq = torch.equal(bits_c, bits_g)
+    u_eq = torch.equal(u_c.view(torch.int32), u_g.view(torch.int32))
+    g_ulps = _ulps(g_g, g_c, 23)
+    g_equal = int((g_c.view(torch.int32) == g_g.view(torch.int32)).sum())
+    print(f"[14a] threefry [8, 32000] on the card vs the CPU: bits "
+          f"{'bitwise equal' if bits_eq else 'DIFFER'}, uniform "
+          f"{'bitwise equal' if u_eq else 'DIFFERS'}, Gumbel within "
+          f"{g_ulps:.2f} ulp ({g_equal}/{g_c.numel()} bitwise)", flush=True)
+    report["serving_host"]["stream_bits"] = dict(
+        bits_equal=bits_eq, uniform_equal=u_eq, gumbel_max_ulps=g_ulps,
+        gumbel_bitwise=g_equal)
+    if not (bits_eq and u_eq):
+        fail("threefry bits or uniforms differ between the card and the CPU")
+    if not g_ulps <= 2.0:
+        fail(f"Gumbel noise {g_ulps:.2f} ulp from the CPU's (limit 2)")
+
+
+def _decision_margin(params, cfg, prompt, toks, j, a, b, stream):
+    """How close the choice between tokens ``a`` and ``b`` was at
+    generated step ``j`` of a sampled request: the smallest change of each
+    logit (in logit units) that could swap it, from the logits of prompt
+    + toks[:j] by a full forward, the filters and the request's Gumbel
+    noise at stream position j. A token the filters drop must first rise
+    past the smallest kept logit."""
+    import torch
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.ops import prng
+    logits, _ = T.forward(params, torch.tensor([list(prompt) + toks[:j]],
+                                               device="cuda"), cfg)
+    lg = logits[0, -1].float()
+    t = SAMPLING["temperature"]
+    kept = torch.isfinite(D._filter_logits(lg[None], t, SAMPLING["top_k"],
+                                           SAMPLING["top_p"])[0])
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(SAMPLING["seed"]), stream),
+                       j)
+    score = prng.gumbel(key.cuda(), (cfg.vocab_size,)) + lg / t
+    delta = (score[a] - score[b]).abs().item() * t / 2
+    cut = lg[kept].min().item()
+    for x in (a, b):
+        if not kept[x]:
+            delta = max(delta, (cut - lg[x].item()) / 2)
+    return delta
+
+
+def _replays(params, cfg, resumes) -> dict:
+    """Replay resumed requests: each (prompt, tokens, k, budget, stream)
+    submits prompt + tokens[:k] with its stream pinned at offset k to a
+    fresh 8-slot sampled engine — what a preemption's reincarnation runs
+    (rows do not affect each other). A stream resumed more than once
+    replays each resume on an engine of its own round, since an engine
+    admits one request per stream. Returns {index: tokens after k}."""
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    rounds: dict = {}
+    seen: dict = {}
+    for i, r in enumerate(resumes):
+        n = seen[r[4]] = seen.get(r[4], -1) + 1
+        rounds.setdefault(n, []).append(i)
+    out: dict = {}
+    for idx in rounds.values():
+        b = S.ContinuousBatcher(params, cfg, batch=8, max_len=1024, chunk=8,
+                                **SAMPLING)
+        eng = S.ServeEngine(
+            b, on_delta=lambda r, t: out.setdefault(r, []).extend(t),
+            on_retired=lambda r, why, n, final: out.setdefault(
+                r, []).extend(final), registry=MetricsRegistry())
+        for i in idx:
+            prompt, toks, k, budget, stream = resumes[i]
+            eng.submit(i, list(prompt) + toks[:k], budget - k,
+                       rng=(stream, k))
+        eng.drain()
+        eng.run()
+    return out
+
+
+def _check_preempted(what, got, want, points, params, cfg, prompts,
+                     budgets, exact_limit=None):
+    """Streams never preempted must give ``want``'s tokens (the run
+    without preemption) exactly: the same arithmetic. A preempted stream
+    must give them up to its first preemption, and after each preemption
+    at ``k`` emitted tokens, exactly the tokens of :func:`_replay` from
+    k. Whether it also equals ``want`` after k is reported, not
+    required, in bf16: the re-prefilled history runs other arithmetic
+    than decoding did. With ``exact_limit`` (f32) it is required too,
+    but for a first difference at a decision margin within the limit.
+    ``points``: (stream, emitted) of each preemption. Returns (preempted
+    streams, how many equal ``want``, [(stream, first differing step, its
+    decision margin)])."""
+    by: dict = {}
+    for stream, k in points:
+        by.setdefault(stream, set()).add(k)
+    bad = [i for i in range(len(want)) if i not in by and got[i] != want[i]]
+    if bad:
+        fail(f"{what}: requests {bad} were not preempted and differ")
+    resumes, spans = [], []
+    for s, ks in sorted(by.items()):
+        ks = sorted(ks)
+        if got[s][:ks[0]] != want[s][:ks[0]]:
+            fail(f"{what}: stream {s} differs before its preemption")
+        for i, k in enumerate(ks):
+            end = ks[i + 1] if i + 1 < len(ks) else len(got[s])
+            resumes.append((prompts[s], got[s], k, budgets[s], s))
+            spans.append((s, k, end))
+    replayed = _replays(params, cfg, resumes)
+    for i, (s, k, end) in enumerate(spans):
+        if replayed[i][:end - k] != got[s][k:end]:
+            fail(f"{what}: stream {s} resumed at token {k} differs from "
+                 f"its replay")
+    same, diffs = 0, []
+    for s in sorted(by):
+        if got[s] == want[s]:
+            same += 1
+        else:
+            j = next(i for i, (x, y) in enumerate(zip(got[s], want[s]))
+                     if x != y)
+            m = _decision_margin(params, cfg, prompts[s], want[s], j,
+                                 got[s][j], want[s][j], s)
+            diffs.append((s, j, round(m, 6)))
+            if exact_limit is not None and not m <= exact_limit:
+                fail(f"{what}: preempted stream {s} first differs from the "
+                     f"run without preemption at token {j}, decision "
+                     f"margin {m:.3e} (limit {exact_limit})")
+    return sorted(by), same, diffs
+
+
+def _serve_over_wire(batcher, prompts, budgets, classes=None, retries=0,
+                     registry=None, **server_kw):
+    """Serve the requests through a fresh ServingServer on 127.0.0.1:0,
+    driven by the port's StreamingClient over the socket, one class per
+    request (None: classless). Returns a dict: the WorkloadStreams, the
+    wall, the server's stats at the end, the BUSY frames the client saw
+    and the engine's preemptions (stream, tokens emitted)."""
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serve_lm import WorkloadStreams
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.server import ServingServer
+
+    class CountingClient(StreamingClient):
+        busy = 0
+
+        def _retry_busy(self, rid, hint_ms):    # reader thread only
+            self.busy += 1
+            return super()._retry_busy(rid, hint_ms)
+
+    server = ServingServer(batcher, port=0,
+                           registry=registry or MetricsRegistry(),
+                           **server_kw)
+    points = _record_preemptions(server.engine)
+    port = server.start()
+    try:
+        with CountingClient("127.0.0.1", port) as c:
+            run = WorkloadStreams(c)
+            for i, (p, n) in enumerate(zip(prompts, budgets)):
+                run.submit([p], [n], classes[i] if classes else None,
+                           retries)
+            wall = run.wait()
+            stats = c.stats()
+            busy = c.busy
+    finally:
+        server.stop(drain=True)
+    return dict(run=run, wall=wall, stats=stats, busy=busy, points=points)
+
+
+def _record_preemptions(engine) -> list:
+    """(stream, tokens emitted) of every preemption ``engine`` makes, as
+    it happens."""
+    points = []
+    preempt = engine._preempt_locked
+
+    def recording():
+        out = preempt()
+        points.extend((r.stream, r.emitted) for r in out)
+        return out
+
+    engine._preempt_locked = recording
+    return points
+
+
+def _record_resume_logits(batcher) -> dict:
+    """{(stream, k): f32 host logits} that ``batcher``'s admissions seed
+    each RESUMED row with (a stream re-admitted at offset k after a
+    preemption): what the reincarnation samples its first token from."""
+    got: dict = {}
+    admit = batcher._admit_batch
+
+    def recording(pairs, prompts):
+        resumed = [(row, s, batcher._stream_skip[s]) for row, s in pairs
+                   if s in batcher._stream_skip]
+        admit(pairs, prompts)
+        for row, s, k in resumed:
+            got[(s, k)] = batcher.logits[row].float().cpu()
+
+    batcher._admit_batch = recording
+    return got
+
+
+def _decode_logits(params, cfg, prompt, toks):
+    """f32 logits [len(toks), V] of every generated step of a request
+    whose tokens were ``toks``, on the decode path: a prefill of the
+    prompt (step 0), then one decode step per token fed back."""
+    import torch
+    from tony_tpu_torch.models import decode as D
+    lg, cache = D.prefill(params, torch.tensor([list(prompt)],
+                                               device="cuda"),
+                          cfg, len(prompt) + len(toks))
+    out = [lg[0].float()]
+    for t in toks[:-1]:
+        lg, cache = D.decode_step(
+            params, torch.tensor([t], device="cuda"), cache,
+            cache["length"], cfg)
+        out.append(lg[0].float())
+    return torch.stack(out)
+
+
+def _prefill_logits(params, cfg, prompt, toks):
+    """f32 logits [len(toks), V] of every generated step j from a
+    re-prefill of prompt + toks[:j] through ``prefill_rows`` (what a
+    resume at j runs), 16 contexts a forward."""
+    import numpy as np
+    import torch
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import serve as S
+    out = []
+    for lo in range(0, len(toks), 16):
+        ctx = [list(prompt) + toks[:j]
+               for j in range(lo, min(lo + 16, len(toks)))]
+        width = S.bucket_for(max(len(c) for c in ctx), 1024)
+        pad = np.zeros((len(ctx), width), np.int64)
+        for i, c in enumerate(ctx):
+            pad[i, :len(c)] = c
+        lg, _ = D.prefill_rows(
+            params, torch.from_numpy(pad).cuda(),
+            torch.tensor([len(c) for c in ctx], device="cuda"), cfg)
+        out.append(lg.float())
+    return torch.cat(out)
+
+
+def _resume_logits_check(what, params, cfg, prompts, got, resumed):
+    """Hold every resumed row's logits — the ones its first token after
+    the preemption was drawn from — against the decode path's logits at
+    the same step and context: the stream's own tokens ``got`` fed back
+    one decode step at a time, as a run without preemption computes them
+    (up to a stream's first departure these are the unpreempted run's
+    logits; after it, a later resume's context is the stream's own). The
+    tolerance comes from this run: twice the largest distance between a
+    re-prefill and the decode path at any step of the same streams (the
+    arithmetic a correct resume changes). It must lie below the smallest
+    distance between a re-prefill one token short and the decode path
+    (what a resume with a wrong context gives), or the check could not
+    see a fault; both readings are printed. Returns the readings."""
+    import torch
+    streams = sorted({s for s, _ in resumed})
+    spread, short, res, scale = [], [], {}, 0.0
+    for s in streams:
+        dec = _decode_logits(params, cfg, prompts[s], got[s])
+        pre = _prefill_logits(params, cfg, prompts[s], got[s])
+        d = (pre - dec).abs().amax(dim=-1)
+        spread.append(d[1:])
+        short.append((pre[:-1] - dec[1:]).abs().amax(dim=-1))
+        scale = max(scale, dec.abs().max().item())
+        for (s_, k), lg in resumed.items():
+            if s_ == s:
+                res[(s, k)] = (lg.cuda() - dec[k]).abs().max().item()
+    spread, short = torch.cat(spread), torch.cat(short)
+    limit = 2 * spread.max().item()
+    blind = short.min().item()
+    worst = max(res.values())
+    print(f"[14d] {what}: resumed logits vs the decode path's at each "
+          f"resume point, same context (max |diff| over the vocabulary) "
+          f"{ {k: round(v, 6) for k, v in sorted(res.items())} }; "
+          f"re-prefill vs decode at every step of those streams: median "
+          f"{spread.median().item():.6f}, max {spread.max().item():.6f} "
+          f"-> limit {limit:.6f}; a context one token short: min "
+          f"{blind:.6f}; largest |logit| {scale:.4f}", flush=True)
+    if not limit < blind:
+        fail(f"{what}: resume-logits limit {limit:.6f} is not below the "
+             f"one-token-short reading {blind:.6f}: the check is blind")
+    if not worst <= limit:
+        fail(f"{what}: resumed logits {worst:.6f} from the decode path's "
+             f"(limit {limit:.6f}, twice the re-prefill spread)")
+    return dict(resume_diff={f"{s}@{k}": v for (s, k), v in res.items()},
+                spread_median=spread.median().item(),
+                spread_max=spread.max().item(), limit=limit,
+                one_short_min=blind, logit_max=scale)
+
+
+def _preemption_run(label, params, cfg, prompts, exact_limit):
+    """[14d] 8 batch requests fill the 8 slots of a sampled server; 4
+    interactive ones arrive and evict batch rows; once those 4 are done
+    and every evicted stream has resumed and emitted again, 4 more
+    interactive ones arrive and evict again — the resumed rows, which lag
+    the others, so streams are preempted twice. Every stream is held
+    against the same 16 requests served without preemption
+    (:func:`_check_preempted`), and every resumed row's logits against
+    the unpreempted run's (:func:`_resume_logits_check`)."""
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serve_lm import WorkloadStreams
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.server import ServingServer
+    budgets = [96] * 8 + [16] * 8
+
+    def batcher():
+        return S.ContinuousBatcher(params, cfg, batch=8, max_len=1024,
+                                   chunk=8, **SAMPLING)
+
+    server = ServingServer(batcher(), port=0, registry=MetricsRegistry())
+    points = _record_preemptions(server.engine)
+    resumed = _record_resume_logits(server.engine.b)
+    eng = server.engine
+
+    def resumed_and_emitting(first):
+        with eng._lock:
+            live = {r.stream: r.emitted for r in eng._reqs.values()
+                    if not r.done and r in eng._occupant}
+        return all(live.get(s, -1) > k for s, k in first)
+
+    port = server.start()
+    try:
+        with StreamingClient("127.0.0.1", port) as c:
+            run = WorkloadStreams(c)
+            run.submit(prompts[:8], budgets[:8], "batch")
+            deadline = time.time() + 120
+            while None in run.ttft[:8] and time.time() < deadline:
+                time.sleep(0.002)
+            run.submit(prompts[8:12], budgets[8:12], "interactive")
+            while (None in run.outputs[8:12]
+                   or not resumed_and_emitting(list(points))) \
+                    and time.time() < deadline:
+                time.sleep(0.002)
+            first = len(points)
+            run.submit(prompts[12:], budgets[12:], "interactive")
+            run.wait()
+            stats = c.stats()
+    finally:
+        server.stop(drain=True)
+    twice = sorted({s for s, _ in points
+                    if sum(1 for x, _ in points if x == s) > 1})
+    if not first or not twice:
+        fail(f"phase 14 ({label}): {first} preemptions by the first "
+             f"interactive wave, streams preempted twice {twice}: the "
+             f"run must preempt a stream twice")
+    ref = batcher().serve(prompts, budgets)
+    vic, same, diffs = _check_preempted(
+        f"preemption ({label})", run.outputs, ref, points, params, cfg,
+        prompts, budgets, exact_limit)
+    if set(resumed) != set(points):
+        fail(f"phase 14 ({label}): resumed admissions {sorted(resumed)} "
+             f"!= preemptions {sorted(points)}")
+    print(f"[14d] preemption, {label}: {stats['preemptions']} batch rows "
+          f"evicted by two waves of 4 interactive requests ((stream, "
+          f"tokens) {sorted(points)}; preempted twice: streams {twice}); "
+          f"the other {16 - len(vic)} streams equal the run without "
+          f"preemption; each preempted stream equals it up to its first "
+          f"preemption and its replay from each; {same}/{len(vic)} equal "
+          f"it to the end, first differences (stream, step, decision "
+          f"margin in logits) {diffs}", flush=True)
+    logit = _resume_logits_check(f"preemption ({label})", params, cfg,
+                                 prompts, run.outputs, resumed)
+    return dict(preemptions=stats["preemptions"], points=sorted(points),
+                twice=twice, equal=same, diffs=diffs, logits=logit)
+
+
+def _per_step(batcher, prompts, budgets) -> dict:
+    """Device launches, device ms and wall ms per decode step of an
+    in-process serve under torch.profiler — admission included, as phase
+    5b counts — and the top device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batcher.serve(prompts, budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, launches = _device_times(prof)
+    steps = batcher.steps_executed
+    return dict(launches=launches / steps,
+                device_ms=sum(dev.values()) / 1e3 / steps,
+                wall_ms=wall * 1e3 / steps, steps=steps,
+                top=sorted(dev.items(), key=lambda kv: -kv[1])[:4])
+
+
+def phase_serving_host(report, card, serve):
+    """[14] the serving host on the card: ``small`` bf16 behind the
+    port's ServingServer on 127.0.0.1:0, driven by the port's
+    StreamingClient over the socket, 8 slots, max_len 1024, chunk 8,
+    phase 5's 24 requests."""
+    import torch
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serve_lm import WorkloadStreams
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.server import ServingServer
+    report["serving_host"] = rep = {}
+    _stream_bits_on_card(report)
+    cfg, params = serve["cfg"], serve["params"]
+    prompts, budgets = serve["prompts"], serve["budgets"]
+    n = len(prompts)
+
+    def batcher(slots=8, **kw):
+        return S.ContinuousBatcher(params, cfg, batch=slots, max_len=1024,
+                                   chunk=8, **kw)
+
+    # 14b greedy over the wire, equal to phase 5's in-process serve
+    res = _serve_over_wire(batcher(), prompts, budgets)
+    run, wall = res["run"], res["wall"]
+    if run.outputs != serve["outputs"]:
+        bad = [i for i in range(n) if run.outputs[i] != serve["outputs"][i]]
+        fail(f"greedy over the wire differs from phase 5's serve in "
+             f"requests {bad}")
+    g_tok = sum(budgets)
+    g_lat = run.latency_ms()
+    print(f"[14b] greedy over the wire: {n}/{n} requests equal phase 5's "
+          f"tokens; {g_tok} tokens in {wall:.3f}s ({g_tok / wall:.1f} "
+          f"tokens/s); " + _lat_text(g_lat), flush=True)
+    rep["greedy"] = dict(wall_s=wall, tokens=g_tok, tokens_per_s=g_tok / wall,
+                         latency_ms=g_lat)
+
+    # 14c the slice's main path: sampled, classes interactive / standard /
+    # batch in rotation; the kernel counts are zeroed just before
+    sampled = batcher(**SAMPLING)
+    classes = [S.QOS_CLASSES[i % 3] for i in range(n)]
+    A.reset_launches()
+    N.rms_norm_forward.launches = 0
+    S.CALL_COUNTS.clear()
+    res = _serve_over_wire(sampled, prompts, budgets, classes)
+    run, wall, stats = res["run"], res["wall"], res["stats"]
+    k1 = A.flash_forward.launches
+    k5 = N.rms_norm_forward.launches
+    variants = _check_tc_variants("the sampled serve over the wire")["k1"]
+    admits = sum(c for (name, _), c in S.CALL_COUNTS.items()
+                 if name == "admit_rows")
+    forwards = sum(c * (shape[1] if name == "step_rows" else 1)
+                   for (name, shape), c in S.CALL_COUNTS.items()
+                   if name in ("admit_rows", "admit_row", "step_rows"))
+    if admits == 0 or k1 != cfg.n_layers * admits:
+        fail(f"phase 14: K1 launches {k1} != {cfg.n_layers} x {admits} "
+             f"admit_rows calls")
+    if k5 != (2 * cfg.n_layers + 1) * forwards:
+        fail(f"phase 14: K5 launches {k5} != (2 x {cfg.n_layers} + 1) x "
+             f"{forwards} model forwards")
+    s_tok = sum(len(o) for o in run.outputs if o)
+    if [len(o or []) for o in run.outputs] != budgets:
+        fail("a sampled request over the wire did not get its budget")
+    if not all(0 <= t < cfg.vocab_size for o in run.outputs for t in o):
+        fail("a sampled token is outside the vocabulary")
+    want8 = batcher(**SAMPLING).serve(prompts, budgets)
+    vic, same_v, diffs_v = _check_preempted(
+        "sampled over the wire", run.outputs, want8, res["points"], params,
+        cfg, prompts, budgets)
+    want4 = batcher(slots=4, **SAMPLING).serve(prompts, budgets)
+    if want4 != want8:
+        bad = [i for i in range(n) if want4[i] != want8[i]]
+        fail(f"sampled through 4 slots differs from 8 slots in requests "
+             f"{bad}")
+    lat = {c: run.latency_ms(c) for c in S.QOS_CLASSES}
+    print(f"[14c] sampled (T 0.8, top-k 50, top-p 0.95, seed 0) over the "
+          f"wire, classes in rotation: the {n - len(vic)} unpreempted "
+          f"requests equal the in-process serve; {stats['preemptions']} "
+          f"preemptions (streams {vic}, each equal to its replay, "
+          f"{same_v} to the in-process serve, first differences "
+          f"{diffs_v}); {s_tok} tokens in {wall:.3f}s ({s_tok / wall:.1f} "
+          f"tokens/s); through 4 slots {n}/{n} equal; K1 launches {k1} "
+          f"over {admits} admit_rows calls ({variants['tensor_core']} tensor-core), K5 "
+          f"{k5} over {forwards} model forwards", flush=True)
+    for c in S.QOS_CLASSES:
+        print(f"[14c]   {c}: " + _lat_text(lat[c]), flush=True)
+    rep["sampled"] = dict(wall_s=wall, tokens=s_tok,
+                          tokens_per_s=s_tok / wall, latency_ms=lat,
+                          preemptions=stats["preemptions"],
+                          preempted=vic, preempted_equal=same_v,
+                          preempted_diffs=diffs_v,
+                          k1_launches=k1, k5_launches=k5,
+                          admit_rows_calls=admits, forwards=forwards)
+
+    # 14d preemption, in bf16 and in f32 (the same weights, widened)
+    from tony_tpu_torch import tree_map
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), params)
+    for label, p_, c_, limit in (("bf16", params, cfg, None),
+                                 ("f32", params32, cfg32, 1e-4)):
+        rep[f"preemption_{label}"] = _preemption_run(
+            label, p_, c_, prompts[:16], limit)
+    del params32
+
+    # 14e BUSY: max_queue_depth 4, 16 submissions, retried until served
+    busy_p, busy_b = prompts[:16], [16] * 16
+    res = _serve_over_wire(batcher(**SAMPLING), busy_p, busy_b,
+                           retries=50, max_queue_depth=4, busy_retry_ms=50)
+    run, stats, busy = res["run"], res["stats"], res["busy"]
+    done = sum(1 for o, nb in zip(run.outputs, busy_b)
+               if o is not None and len(o) == nb)
+    share = busy / (len(busy_p) + busy)
+    print(f"[14e] BUSY: 16 submissions at max_queue_depth 4: {busy} BUSY "
+          f"frames (busy share {share:.3f} of ADMIT frames), server shed "
+          f"{stats['shed']}, {done}/16 completed under retries", flush=True)
+    rep["busy"] = dict(busy_frames=busy, busy_share=share,
+                       shed=stats["shed"], completed=done)
+    if busy < 1 or done != 16:
+        fail(f"phase 14 BUSY: {busy} BUSY frames, {done}/16 completed")
+
+    # 14f disconnect: a client drops 8 streams mid-flight; their slots
+    # readmit a second client's requests, which equal phase 5's
+    reg = MetricsRegistry()
+    server = ServingServer(batcher(), port=0, registry=reg)
+    port = server.start()
+    try:
+        c1 = StreamingClient("127.0.0.1", port)
+        doomed = WorkloadStreams(c1)
+        doomed.submit(prompts[:8], [400] * 8)
+        deadline = time.time() + 120
+        while None in doomed.ttft and time.time() < deadline:
+            time.sleep(0.002)
+        c1.close()
+        with StreamingClient("127.0.0.1", port) as c2:
+            run = WorkloadStreams(c2)
+            run.submit(prompts[8:16], budgets[8:16])
+            run.wait()
+            stats = c2.stats()
+    finally:
+        server.stop(drain=True)
+    cancelled = reg.counter("tony_serve_requests_cancelled_total").value
+    print(f"[14f] disconnect: 8 streams dropped mid-flight, {cancelled:.0f} "
+          f"cancelled by the server; the next client's 8 requests equal "
+          f"phase 5's: {run.outputs == serve['outputs'][8:16]}; active "
+          f"after {stats['active']}", flush=True)
+    rep["disconnect"] = dict(cancelled=cancelled, active=stats["active"])
+    if (cancelled != 8 or stats["active"]
+            or run.outputs != serve["outputs"][8:16]):
+        fail("phase 14: a dropped connection did not cancel its 8 "
+             "requests, or the readmitted slots served wrong tokens")
+
+    # 14g per decode step, greedy and sampled (in-process, 8 requests,
+    # admission included, as phase 5b)
+    per = {"greedy": _per_step(batcher(), prompts[:8], budgets[:8]),
+           "sampled": _per_step(batcher(**SAMPLING), prompts[:8],
+                                budgets[:8])}
+    for mode, r in per.items():
+        print(f"[14g] {mode}, per decode step over {r['steps']} (admission "
+              f"included): {r['launches']:.1f} device launches, device "
+              f"{r['device_ms']:.3f} ms, wall {r['wall_ms']:.3f} ms; top: "
+              + "; ".join(f"{n[:40]} {us / 1e3 / r['steps']:.3f} ms"
+                          for n, us in r["top"]), flush=True)
+    print(f"[14g] tokens/s over the wire: greedy "
+          f"{rep['greedy']['tokens_per_s']:.1f}, sampled "
+          f"{rep['sampled']['tokens_per_s']:.1f} on {card}", flush=True)
+    rep["per_step"] = per
+    return k1, k5
+
+
+def _lat_text(lat) -> str:
+    return (f"TTFT p50 {lat['ttft_p50']:.1f} ms p99 {lat['ttft_p99']:.1f} "
+            f"ms, ITL p50 {lat['itl_p50']:.2f} ms p99 {lat['itl_p99']:.2f} "
+            f"ms ({lat['n']} requests)")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tony_tpu_torch")):
         fail("run chip_smoke.py from the repository root (tony_tpu_torch/ "
@@ -1914,22 +2515,26 @@ def main() -> int:
     phase_parity(report)
     phase_train_parity(report)
     phase_bert_parity(report)
-    serve_k1, serve_k5 = phase_serve(report, card)
+    serve = phase_serve(report, card)
     counts = phase_train(report, card)
     bert = phase_bert(report, card)
     mesh = phase_mesh(report, card)
+    host_k1, host_k5 = phase_serving_host(report, card, serve)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
-    # BERT run (phase 12) and the mesh-path run (phase 13); K2 over the
-    # three training runs; K3a/K3b over the run with the budget at 0; K4
-    # over the run with the fused optimizer; K5 over the serve and the
-    # two LM training runs; K6 over the BERT run
-    k1["launches"] = serve_k1 + counts["k1"] + bert["k1"] + mesh["k1"]
+    # BERT run (phase 12), the mesh-path run (phase 13) and the sampled
+    # serve over the wire (phase 14); K2 over the three training runs;
+    # K3a/K3b over the run with the budget at 0; K4 over the run with the
+    # fused optimizer; K5 over the two serves and the two LM training
+    # runs; K6 over the BERT run
+    k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
+                      + host_k1)
     bwd["fused"]["launches"] = counts["k2"] + bert["k2"] + mesh["k2"]
     bwd["dq"]["launches"] = counts["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"]
     k4["launches"] = counts["k4"]
-    norms["rms"]["launches"] = serve_k5 + counts["k5"] + mesh["k5"]
+    norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
+                                + host_k5)
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -140,6 +140,7 @@ def test_unported_cache_kinds_raise():
     cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32)
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
+    from tony_tpu_torch.models import serve as TS
     with pytest.raises(NotImplementedError):
-        TD.generate(params, torch.zeros(1, 3, dtype=torch.long), cfg, 2,
-                    temperature=0.7)
+        TS.ContinuousBatcher(params, cfg, batch=1, max_len=8,
+                             shared_prefix=[1, 2])

@@ -42,7 +42,10 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
     rep = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("models.serve", "ops.attention", "ops.optim",
                 "models.train", "models.loop", "models.checkpoint",
-                "io.prefetch", "train_lm"):
+                "io.prefetch", "train_lm", "ops.prng", "serve_lm",
+                "runtime.tracing", "runtime.metrics", "serving.protocol",
+                "serving.client", "serving.server", "serving.weightstore",
+                "conf.keys"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -91,6 +94,19 @@ def test_serve_lm_without_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--preset", "tiny", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--preset", "tiny", "--listen", "127.0.0.1:0"])
+
+
+@pytest.mark.parametrize("flag", [["--draft_preset", "tiny"],
+                                  ["--route", "h:1"], ["--disaggregate"],
+                                  ["--shared_prefix_file", "p.txt"],
+                                  ["--kv_cache_dtype", "int8"]])
+def test_serve_lm_refuses_unported_features(flag, capsys):
+    from tony_tpu_torch import serve_lm
+    with pytest.raises(SystemExit):
+        serve_lm.main(["--device", "cpu"] + flag)
+    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_serve_lm_runs_on_the_cpu_when_asked(capsys):

@@ -6,7 +6,11 @@ mixed-length requests with mixed budgets through 3 slots: the port's
 the same ``steps_executed``, pipelined and sequential alike. The same
 holds on the blockwise cache walk (``max_len`` 512, 8 requests of 5 to
 400 tokens through 3 slots), where the batcher's host mirror of the
-frontiers is also held equal to the device's at every issue.
+frontiers is also held equal to the device's at every issue. Sampled
+serving (temperature 0.8, top-k 50, top-p 0.95, seed 0) gives the JAX
+batcher's tokens exactly too, pipelined and sequential, and the same
+tokens through any slot count, since each request samples its own
+stream.
 """
 
 import jax
@@ -62,6 +66,46 @@ def test_serve_token_identical_to_jax(params, jax_serve, pipeline):
     assert out == want
     assert b.steps_executed == steps
     assert [len(o) for o in out] == BUDGETS
+
+
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95, seed=0)
+
+
+@pytest.fixture(scope="module")
+def jax_serve_sampled(params):
+    jp, _ = params
+    out = {}
+    for pipe in (True, False):
+        b = JS.ContinuousBatcher(jp, JCFG, batch=3, max_len=48, chunk=4,
+                                 pipeline=pipe, **SAMPLING)
+        out[pipe] = (b.serve(PROMPTS, BUDGETS), b.steps_executed)
+    return out
+
+
+@pytest.mark.parametrize("pipeline", [True, False],
+                         ids=["pipelined", "sequential"])
+def test_sampled_serve_token_identical_to_jax(params, jax_serve_sampled,
+                                              pipeline):
+    _, tp = params
+    b = TS.ContinuousBatcher(tp, TCFG, batch=3, max_len=48, chunk=4,
+                             pipeline=pipeline, **SAMPLING)
+    out = b.serve(PROMPTS, BUDGETS)
+    want, steps = jax_serve_sampled[pipeline]
+    assert out == want
+    assert b.steps_executed == steps
+    greedy = TS.ContinuousBatcher(tp, TCFG, batch=3, max_len=48,
+                                  chunk=4).serve(PROMPTS, BUDGETS)
+    assert out != greedy
+
+
+@pytest.mark.parametrize("slots,chunk", [(1, 3), (5, 2)])
+def test_sampled_tokens_independent_of_slots(params, jax_serve_sampled,
+                                             slots, chunk):
+    """A request's samples depend on its own stream alone."""
+    _, tp = params
+    b = TS.ContinuousBatcher(tp, TCFG, batch=slots, max_len=48,
+                             chunk=chunk, **SAMPLING)
+    assert b.serve(PROMPTS, BUDGETS) == jax_serve_sampled[True][0]
 
 
 # Blockwise arm (max_len 512 = two 256-position cache blocks): mixed

@@ -1,7 +1,10 @@
 """Autoregressive decoding with a KV cache for the flagship transformer.
 
-Port of ``tony_tpu/models/decode.py`` for the linear, model-dtype cache
-and greedy decoding. The layouts are the JAX package's: the cache is a
+Port of ``tony_tpu/models/decode.py`` for the linear, model-dtype cache,
+greedy decoding and sampling (top-k → temperature → nucleus, drawn from
+the JAX package's threefry streams through
+:mod:`tony_tpu_torch.ops.prng`, so a seed gives JAX's tokens). The
+layouts are the JAX package's: the cache is a
 ``[L, B, max_len, KV, hd]`` buffer pair, prefill runs the whole prompt
 through the model (attention through the CUDA flash kernel on the card)
 and writes its K/V, and each decode step attends its query positions
@@ -20,8 +23,7 @@ traced it on the device, the port takes it from the caller's host-side
 bookkeeping (``pos_range``) so a serving step never waits on the card.
 
 Not ported yet (they raise ``NotImplementedError``): int8 KV caches and
-int8 weights, rolling caches, MoE, sampling, speculative decoding and
-beam search.
+int8 weights, rolling caches, MoE, speculative decoding and beam search.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import transformer as T
+from tony_tpu_torch.ops import prng
 from tony_tpu_torch.ops.norms import rms_norm
 
 
@@ -355,18 +358,64 @@ def greedy_tokens(logits) -> tuple[torch.Tensor, torch.Tensor]:
     return token, logp
 
 
+def _filter_logits(logits, temperature: float, top_k: int,
+                   top_p: float):
+    """The sampling filter stack on ``[..., V]`` f32 logits, as the JAX
+    package's: top-k mask (the k-th largest value is the cutoff; ties at
+    it are kept) → temperature → top-p nucleus mask (keep the positions
+    whose PRECEDING mass in the descending order is < ``top_p`` — the
+    crossing token stays — and every logit tied with the last kept one).
+    0 disables a filter. Returns unnormalized logits whose softmax is the
+    sampling distribution; ``temperature`` must be > 0."""
+    if top_k > 0:
+        cutoff = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < cutoff, -torch.inf)
+    scaled = logits / temperature
+    if 0.0 < top_p < 1.0:
+        desc = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        last = ((cum - probs) < top_p).sum(dim=-1, keepdim=True) - 1
+        cut = torch.gather(desc, -1, last)
+        scaled = scaled.masked_fill(scaled < cut, -torch.inf)
+    return scaled
+
+
+def _sample(logits, rng, temperature: float, top_k: int,
+            top_p: float = 0.0):
+    """logits ``[B, V]`` → (token ``[B]``, logprob ``[B]``), math in f32.
+    Greedy at ``temperature == 0`` (``rng`` unused), else one categorical
+    draw over the whole ``[B, V]`` from the single key ``rng``, as
+    ``jax.random.categorical(rng, filtered)``. The logprob is the MODEL's
+    log p(token), from the raw logits before any filter or temperature."""
+    lf = logits.float()
+    if temperature == 0.0:
+        return greedy_tokens(lf)
+    token = prng.categorical(rng, _filter_logits(lf, temperature, top_k,
+                                                 top_p))
+    logp = torch.log_softmax(lf, dim=-1).gather(-1, token[:, None])[:, 0]
+    return token, logp
+
+
 @torch.no_grad()
 def generate(params: dict, prompt, cfg: T.TransformerConfig,
-             max_new_tokens: int, temperature: float = 0.0) -> GenerateOutput:
-    """Prefill + greedy decode. prompt: ``[B, S]``. Sampling
-    (``temperature > 0``) is not ported yet."""
-    if temperature != 0.0:
-        raise NotImplementedError("sampled decoding is not ported yet")
+             max_new_tokens: int, rng=None, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 0.0) -> GenerateOutput:
+    """Prefill + decode. prompt: ``[B, S]``. Greedy at ``temperature ==
+    0``; otherwise step ``i`` samples with key ``split(rng,
+    max_new_tokens)[i]`` through :func:`_sample`'s filters — the JAX
+    package's stream, so the same ``rng`` (a
+    :func:`~tony_tpu_torch.ops.prng.PRNGKey`) gives the same tokens."""
+    if temperature != 0.0 and rng is None:
+        raise ValueError("sampling (temperature > 0) needs an rng key")
     b, s = prompt.shape
     logits, cache = prefill(params, prompt, cfg, s + max_new_tokens)
+    keys = (prng.split(torch.as_tensor(rng).to(prompt.device),
+                       max_new_tokens) if temperature != 0.0 else None)
     toks, logps = [], []
-    for _ in range(max_new_tokens):
-        token, logp = greedy_tokens(logits)
+    for i in range(max_new_tokens):
+        token, logp = _sample(logits, None if keys is None else keys[i],
+                              temperature, top_k, top_p)
         logits, cache = decode_step(params, token, cache, cache["length"],
                                     cfg)
         toks.append(token)

@@ -2,11 +2,14 @@
 
 A copy of the registry half of ``tony_tpu/runtime/metrics.py`` —
 :class:`MetricsRegistry` with its counters, gauges and fixed-bucket
-histograms, :class:`NullRegistry`, the process default, and
-:func:`observe_phase_times` — so the port keeps the JAX package's series
-names without importing it. The wire validation, snapshot table and
-Prometheus rendering stay in the JAX package until the port's servers
-need them.
+histograms, :class:`NullRegistry`, the process default and
+:func:`observe_phase_times` — so the port keeps the JAX package's series names without
+importing it. The serving engine registers the JAX engine's series here
+(``tony_serve_*``: admissions, retirements, cancels, tokens, queue
+depth, TTFT and inter-token histograms, preemptions, BUSY sheds,
+prefill tokens), the per-class ones with a ``class`` label beside the
+aggregates. The wire validation, snapshot table, quantiles and
+Prometheus rendering stay in the JAX package.
 """
 
 from __future__ import annotations
@@ -235,6 +238,13 @@ _default = MetricsRegistry()
 def get_default() -> MetricsRegistry:
     """The process-wide registry every producer observes into."""
     return _default
+
+
+def set_default(registry: MetricsRegistry) -> MetricsRegistry:
+    """Swap the process-wide registry (tests); returns the previous."""
+    global _default
+    prev, _default = _default, registry
+    return prev
 
 
 def observe_phase_times(phase_times, registry: MetricsRegistry | None = None,
