@@ -126,6 +126,25 @@ result:
    slots readmitted; tokens/s, TTFT and ITL p50/p99 per class from the
    client's frame arrival times, the busy share, and device launches,
    device time and wall per greedy and per sampled decode step;
+15. the decode variants behind ``serve_lm``: K1 against its plain
+   version at the draft's D = 32 and at window 256 with S not a multiple
+   of 64, K5 at d 128 and 512; an int8 cache slot's bytes against bf16's
+   ((1 + 4/hd)/2) and the int8 tree's matmul weight bytes (about half);
+   then phase 5's model and 24 requests (8 slots, 1024 positions) with
+   (a) int8 weights, (b) an int8 KV cache, (c) window 256 over a rolling
+   cache of 384 rows, (d) a ``tiny`` draft (vocab 32000, seed 1)
+   proposing 4 tokens a round, greedy, and (e) sampled at T 0.8, top-k
+   50, top-p 0.95: each served in process with K1 and K5 counted from 0
+   (both models' admissions, every round's forwards), its tokens/s and,
+   per decode step or round, device launches, device ms and wall ms
+   beside phase 5's plain serve, tokens per round and the acceptance
+   rate for (d) and (e); the greedy variants' streams against
+   ``generate`` per request (the quantized model, the int8 cache, the
+   linear windowed cache, the target) on 8 requests, in f32 token for
+   token but for a first difference at a near-tie of the logits (1e-4;
+   1e-2 for the int8 cache), in bf16 reported; and each variant once
+   through ``serve_lm --listen`` and ``serve_lm --connect`` as two
+   processes, every stream equal to the in-process serve's;
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -616,7 +635,8 @@ def phase_serve(report, card):
              f"model forwards")
     phase_profile(report, batcher, prompts[:8], budgets[:8])
     return dict(k1=launches, k5=k5, cfg=cfg, params=params,
-                prompts=prompts, budgets=budgets, outputs=outs)
+                prompts=prompts, budgets=budgets, outputs=outs,
+                preset="small")
 
 
 def _device_times(prof):
@@ -2302,9 +2322,10 @@ def _preemption_run(label, params, cfg, prompts, exact_limit):
 
 
 def _per_step(batcher, prompts, budgets) -> dict:
-    """Device launches, device ms and wall ms per decode step of an
-    in-process serve under torch.profiler — admission included, as phase
-    5b counts — and the top device time by kernel name."""
+    """Device launches, device ms and wall ms per decode step (per round
+    of a speculative batcher) of an in-process serve under torch.profiler
+    — admission included, as phase 5b counts — and the top device time by
+    kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2314,7 +2335,7 @@ def _per_step(batcher, prompts, budgets) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev, launches = _device_times(prof)
-    steps = batcher.steps_executed
+    steps = batcher.rounds_executed or batcher.steps_executed
     return dict(launches=launches / steps,
                 device_ms=sum(dev.values()) / 1e3 / steps,
                 wall_ms=wall * 1e3 / steps, steps=steps,
@@ -2491,6 +2512,420 @@ def phase_serving_host(report, card, serve):
     return k1, k5
 
 
+# phase 15: the decode variants behind serve_lm ---------------------------
+
+#: (label, serve_lm flags) of each variant, built from phase 5's weights
+VARIANTS = (
+    ("int8 weights", ["--quantize_weights"]),
+    ("int8 KV cache", ["--kv_cache_dtype", "int8"]),
+    ("rolling cache", ["--attn_window", "256", "--kv_cache_capacity",
+                       "384"]),
+    ("speculative greedy", ["--draft_preset", "tiny", "--num_speculative",
+                            "4"]),
+    ("speculative sampled", ["--draft_preset", "tiny", "--num_speculative",
+                             "4", "--temperature", "0.8", "--top_k", "50",
+                             "--top_p", "0.95"]),
+)
+
+
+def _flag(flags, name, default):
+    return flags[flags.index(name) + 1] if name in flags else default
+
+
+def _variant_parts(flags, cfg, params):
+    """(cfg, params, (draft cfg, draft params) or None, sampling, k) of a
+    variant, as serve_lm builds them from its flags on top of ``cfg`` and
+    ``params`` (phase 5's seed-0 weights)."""
+    from tony_tpu_torch import serve_lm
+    from tony_tpu_torch.models.quantize import quantize_weights_int8
+    cfg = cfg.scaled(
+        kv_cache_dtype=_flag(flags, "--kv_cache_dtype", "model"),
+        attn_window=int(_flag(flags, "--attn_window", 0)),
+        kv_cache_capacity=int(_flag(flags, "--kv_cache_capacity", 0)))
+    quant = "--quantize_weights" in flags
+    if quant:
+        params = quantize_weights_int8(params)
+    draft = None
+    if "--draft_preset" in flags:
+        draft = serve_lm.build_draft(_flag(flags, "--draft_preset", ""),
+                                     cfg, "cuda", quant)
+    samp = dict(temperature=float(_flag(flags, "--temperature", 0.0)),
+                top_k=int(_flag(flags, "--top_k", 0)),
+                top_p=float(_flag(flags, "--top_p", 0.0)), seed=0)
+    return cfg, params, draft, samp, int(_flag(flags, "--num_speculative", 4))
+
+
+def _variant_batcher(parts, slots=8, greedy=False):
+    """The variant's batcher with serve_lm's defaults (chunk 8, or 4
+    rounds a sync with a draft), 1024 positions a slot."""
+    from tony_tpu_torch.models import serve as S
+    cfg, params, draft, samp, k = parts
+    if greedy:
+        samp = dict(samp, temperature=0.0)
+    if draft is not None:
+        return S.SpeculativeContinuousBatcher(
+            params, cfg, draft[1], draft[0], batch=slots, max_len=1024,
+            num_speculative=k, **samp)
+    return S.ContinuousBatcher(params, cfg, batch=slots, max_len=1024,
+                               **samp)
+
+
+def _serve_counting(batcher, prompts, budgets):
+    """Serve through a ServeEngine that also records, for every row whose
+    request was live when a chunk was issued, the commit count of each
+    round of that chunk (speculative batchers). Returns (outputs, wall
+    seconds, counts)."""
+    import torch
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    counts, last = [], {}
+    fetch = batcher._fetch
+
+    def fetch_keeping(handle):
+        if hasattr(batcher, "k"):
+            last["packed"] = handle.cpu().numpy()
+        return fetch(handle)
+
+    class Engine(S.ServeEngine):
+        def _consume(self, host_toks, snap):
+            if "packed" in last:
+                for row, req in enumerate(snap):
+                    if req is not None and not req.done:
+                        counts.extend(int(c) for c in
+                                      last["packed"][:, row, 0])
+            return super()._consume(host_toks, snap)
+
+    batcher._fetch = fetch_keeping
+    outputs = [[] for _ in prompts]
+    eng = Engine(batcher,
+                 on_delta=lambda r, t: outputs[r].extend(t),
+                 on_retired=lambda r, why, n, final: outputs[r].extend(final),
+                 registry=MetricsRegistry())
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        eng.submit(i, p, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.drain()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batcher._fetch = fetch
+    return outputs, wall, counts
+
+
+def _expected_launches(cfg, draft_cfg, k):
+    """(K1, K5, admission calls) the serve's device programs in
+    CALL_COUNTS should have launched: K1 once a layer of each admission
+    forward (both models' on the speculative path); K5 2 x layers + 1 a
+    model forward, 2 x draft layers for the draft's head-free K/V write
+    of each round."""
+    from tony_tpu_torch.models import serve as S
+    L, Ld = cfg.n_layers, (draft_cfg.n_layers if draft_cfg else 0)
+    k1 = k5 = admits = 0
+    for (name, shape), c in S.CALL_COUNTS.items():
+        if name in ("admit_rows", "admit_row", "admit_row_ring"):
+            k1, k5, admits = k1 + L * c, k5 + (2 * L + 1) * c, admits + c
+        elif name == "step_rows":
+            k5 += (2 * L + 1) * shape[1] * c
+        elif name in ("spec_admit_rows", "spec_admit_row"):
+            k1 += (L + Ld) * c
+            k5 += (2 * L + 2 * Ld + 2) * c
+            admits += c
+        elif name == "spec_step_rows":
+            k5 += shape[1] * (k * (2 * Ld + 1) + 2 * Ld + 2 * L + 1) * c
+    return k1, k5, admits
+
+
+def _hold_vs_generate(label, parts, ref_cfg, prompts, budgets, limit):
+    """Serve ``prompts`` greedily through an 8-slot batcher of the
+    variant and each request alone through ``generate`` of ``ref_cfg``
+    (the variant's model; the linear windowed cache for a ring, the
+    target for a speculative batcher). A stream that differs must first
+    differ where the two tokens' logits on ``generate``'s decode path
+    lie within ``limit`` of each other (None: report only). Returns
+    (equal streams, [(request, first differing step, logit gap)])."""
+    import torch
+    from tony_tpu_torch.models import decode as D
+    params = parts[1]
+    outs = _variant_batcher(parts, greedy=True).serve(prompts, budgets)
+    equal, diffs = 0, []
+    for i, (p, n, out) in enumerate(zip(prompts, budgets, outs)):
+        solo = D.generate(params, torch.tensor([p], device="cuda"), ref_cfg,
+                          n).tokens[0, len(p):].tolist()
+        if out == solo:
+            equal += 1
+            continue
+        j = next(t for t, (a, b) in enumerate(zip(out, solo)) if a != b)
+        lg = _decode_logits(params, ref_cfg, p, solo[:j + 1])[j]
+        gap = (lg[solo[j]] - lg[out[j]]).abs().item()
+        diffs.append((i, j, round(gap, 7)))
+        if limit is not None and not gap <= limit:
+            fail(f"phase 15, {label}: request {i} first differs from "
+                 f"generate at token {j} where the logits are {gap:.3e} "
+                 f"apart (limit {limit:g})")
+    return equal, diffs
+
+
+def _serve_lm_over_wire(flags, tag, preset):
+    """``serve_lm --listen`` (small, 8 slots, 1024 positions a slot, the
+    variant's flags) and ``serve_lm --connect`` with phase 5's workload
+    (24 requests, prompts of 64-480 tokens, budgets 16-64), as two
+    processes; returns (every request's streamed tokens, the replica's
+    mode word, the client's wall seconds)."""
+    import re
+    import signal
+    env = dict(os.environ, PYTHONPATH=HERE)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"phase15_{tag}.json")
+    cmd = [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset",
+           preset]
+    srv = subprocess.Popen(cmd + ["--slots", "8", "--prompt_len", "960",
+                                  "--max_new_tokens", "64", *flags,
+                                  "--listen", "127.0.0.1:0"],
+                           cwd=HERE, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    try:
+        mode = port = None
+        while port is None:
+            line = srv.stdout.readline()
+            if not line:
+                fail(f"phase 15: serve_lm {' '.join(flags)} --listen exited "
+                     f"before serving")
+            m = re.search(r"serving \S+ \((.*)\) on 127\.0\.0\.1:(\d+)",
+                          line)
+            if m:
+                mode, port = m.group(1), m.group(2)
+        t0 = time.perf_counter()
+        cli = subprocess.run(cmd + ["--requests", "24", "--prompt_len",
+                                    "480", "--min_prompt_len", "64",
+                                    "--max_new_tokens", "64", "--connect",
+                                    f"127.0.0.1:{port}", "--outputs", path],
+                             cwd=HERE, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if cli.returncode != 0:
+            fail(f"phase 15: serve_lm --connect failed: "
+                 f"{(cli.stdout + cli.stderr)[-2000:]}")
+    finally:
+        srv.send_signal(signal.SIGTERM)
+        try:
+            srv.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.communicate()
+    with open(path) as f:
+        return json.load(f), mode, wall
+
+
+def _variant_kernels(report):
+    """[15 kernels] K1 and K5 against their plain versions at phase 15's shapes:
+    K1 at the draft's D = 32 ([8, S_b, 4, 32] bf16 causal for each
+    admission bucket) and at the rolling cache's window 256 with S not a
+    multiple of 64 ([1, S, 8, 64]); K5 over the draft's d = 128 and the
+    target's d = 512 at the rows of a decode step (8), a verify chunk
+    (8 x 5) and a bucketed admission (8 x 512)."""
+    import torch
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    lo, ll = _k1_limits()[torch.bfloat16]
+    worst = [0.0, 0.0, ""]
+    cases = ([(8, s, 4, 4, 32, None) for s in (64, 128, 256, 512)]
+             + [(1, s, 8, 8, 64, 256) for s in (300, 417, 480)])
+    for b, s, h, kv, d, window in cases:
+        q, k, v = _qkv(b, s, h, kv, d, torch.bfloat16, seed=1500 + s + d)
+        o, lse = A.flash_attention_with_lse(q, k, v, causal=True,
+                                            window=window)
+        ro, rlse = A._dense_with_lse(q.float(), k.float(), v.float(),
+                                     causal=True, scale=None, window=window)
+        eo = (o.float() - ro).abs().max().item()
+        el = (lse - rlse).abs().max().item()
+        if eo > worst[0] or el > worst[1]:
+            worst = [max(eo, worst[0]), max(el, worst[1]),
+                     f"[{b}, {s}, {h}, {d}] window={window}"]
+        if not (eo <= lo and el <= ll):
+            fail(f"K1 disagrees with its plain version at [{b}, {s}, {h}, "
+                 f"{d}] window={window}: |o| {eo:.3e}, |lse| {el:.3e}")
+    k5 = 0.0
+    for d, rows in ((128, 8), (128, 40), (128, 4096), (512, 8), (512, 40)):
+        x, (w,) = _norm_inputs("rms", rows, d, torch.bfloat16, 1600 + rows)
+        err = _ulps(N.rms_norm_forward(x, w), N.rms_norm_reference(x, w), 7,
+                    atol=1e-5)
+        k5 = max(k5, err)
+        if not err <= 1.0:
+            fail(f"K5 disagrees with its plain version at [{rows}, {d}] "
+                 f"bf16: {err:.3e} ulp + 1e-5")
+    print(f"[15 kernels] K1 vs plain at the draft's D = 32 ([8, S_b, 4, 32], S_b "
+          f"in 64-512) and window 256 at S in (300, 417, 480): max |o| err "
+          f"{worst[0]:.3e} (limit {lo:g}), |lse| {worst[1]:.3e} (limit "
+          f"{ll:g}), worst at {worst[2]}; K5 at d in (128, 512), rows in "
+          f"(8, 40, 4096): worst {k5:.3f} ulp + 1e-5 (limit 1)", flush=True)
+    report["k1_worst"] = worst
+    report["k5_worst_ulps"] = k5
+
+
+def phase_variants(report, card, serve):
+    """[15] the decode variants behind serve_lm on the card: ``small``
+    bf16 at full width with phase 5's 24 requests through 8 slots of 1024
+    positions — int8 weights, an int8 KV cache, a rolling cache (window
+    256, 384 rows), and a ``tiny`` draft proposing 4 tokens a round,
+    greedy and sampled. Each variant in process (its K1 and K5 launches
+    counted from 0, tokens/s, per decode step or round the device
+    launches, device ms and wall ms) and once through ``serve_lm
+    --listen`` and ``--connect`` in two processes (every stream equal to
+    the in-process serve). Returns (K1, K5) launches of the in-process
+    serves."""
+    import torch
+    from tony_tpu_torch import tree_leaves, tree_map
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.models.quantize import weight_bytes
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    report["variants"] = rep = {}
+    _variant_kernels(rep)
+    cfg, params = serve["cfg"], serve["params"]
+    prompts, budgets = serve["prompts"], serve["budgets"]
+    plain_tps = report["serve"]["tokens_per_s"]
+    plain_step = report["serving_host"]["per_step"]["greedy"]
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), params)
+    hd = cfg.head_dim
+
+    # the layouts' bytes: an int8 cache slot against a bf16 one, the int8
+    # tree's matmul weights (scales included) against the bf16 ones
+    b8 = slot_bytes(cfg, "int8")
+    b16 = slot_bytes(cfg.scaled(dtype=torch.bfloat16), "model")
+    cache_ratio = b8 / b16
+    qparts = _variant_parts(VARIANTS[0][1], cfg, params)
+    mm = lambda t: {"lm_head": t["lm_head"], **{
+        n: t["blocks"][n] for n in ("wq", "wk", "wv", "wo", "w_gate",
+                                    "w_up", "w_down")}}
+    # bf16 bytes: two a weight
+    bf16 = lambda t: 2 * sum(a.numel() for a in tree_leaves(t))
+    w_ratio = weight_bytes(mm(qparts[1])) / bf16(mm(params))
+    tree_ratio = weight_bytes(qparts[1]) / bf16(params)
+    print(f"[15 bytes] int8 KV cache: {b8} bytes per slot position against "
+          f"bf16's {b16} (ratio "
+          f"{cache_ratio:.5f}, (1 + 4/hd)/2 = {(1 + 4 / hd) / 2:.5f}); int8 "
+          f"tree: matmul weights {w_ratio:.4f} of bf16's bytes, the whole "
+          f"tree {tree_ratio:.4f} (the embedding stays bf16)", flush=True)
+    rep["bytes"] = dict(cache_ratio=cache_ratio, matmul_ratio=w_ratio,
+                        tree_ratio=tree_ratio)
+    if abs(cache_ratio - (1 + 4 / hd) / 2) > 1e-9:
+        fail(f"int8 cache bytes ratio {cache_ratio} != (1 + 4/hd)/2")
+    # half, plus an f32 scale per output channel: every matmul contracts
+    # at least d_model inputs
+    if not 0.5 < w_ratio <= (1 + 4 / cfg.d_model) / 2:
+        fail(f"int8 matmul weights take {w_ratio:.4f} of bf16's bytes "
+             f"(limit (1 + 4/d_model)/2)")
+    del qparts
+
+    k1_total = k5_total = 0
+    for idx, (label, flags) in enumerate(VARIANTS):
+        tag = "abcde"[idx]
+        parts = _variant_parts(flags, cfg, params)
+        vcfg, _, draft, samp, k = parts
+        dcfg = draft[0] if draft else None
+        # the main path: 24 requests, counts from 0
+        batcher = _variant_batcher(parts)
+        torch.cuda.synchronize()
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+        S.CALL_COUNTS.clear()
+        outs, wall, counts = _serve_counting(batcher, prompts, budgets)
+        k1, k5 = A.flash_forward.launches, N.rms_norm_forward.launches
+        want_k1, want_k5, admits = _expected_launches(vcfg, dcfg, k)
+        _check_tc_variants(f"phase 15 {label}")
+        if admits == 0 or k1 != want_k1 or k5 != want_k5:
+            fail(f"phase 15 {label}: K1 {k1} (expected {want_k1}), K5 {k5} "
+                 f"(expected {want_k5}) over {admits} admissions")
+        if [len(o) for o in outs] != budgets or not all(
+                0 <= t < cfg.vocab_size for o in outs for t in o):
+            fail(f"phase 15 {label}: a request did not get its budget of "
+                 f"in-vocabulary tokens")
+        k1_total += k1
+        k5_total += k5
+        tokens = sum(budgets)
+        steps = batcher.rounds_executed or batcher.steps_executed
+        r = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                 k1_launches=k1, k5_launches=k5, admissions=admits,
+                 steps=steps)
+        spec = ""
+        if draft is not None:
+            per_round = sum(counts) / max(1, len(counts))
+            r.update(tokens_per_round=per_round,
+                     acceptance=(per_round - 1) / k, live_rounds=len(counts))
+            spec = (f"; {per_round:.3f} tokens per live row-round, "
+                    f"acceptance rate {(per_round - 1) / k:.4f} of k={k} "
+                    f"(a random tiny draft of another seed: it accepts "
+                    f"little)")
+        per = _per_step(_variant_batcher(parts), prompts[:8], budgets[:8])
+        r["per_step"] = per
+        unit = "round" if draft is not None else "decode step"
+        print(f"[15{tag}] {label}: {len(prompts)} requests, {tokens} tokens "
+              f"in {wall:.3f}s ({tokens / wall:.1f} tokens/s; phase 5 plain "
+              f"{plain_tps:.1f}); per {unit} over {per['steps']} "
+              f"(admission included): {per['launches']:.1f} device launches, "
+              f"device {per['device_ms']:.3f} ms, wall {per['wall_ms']:.3f} "
+              f"ms (plain per step: {plain_step['launches']:.1f}, "
+              f"{plain_step['device_ms']:.3f} ms, {plain_step['wall_ms']:.3f}"
+              f" ms); K1 {k1} over {admits} admissions, K5 {k5}" + spec,
+              flush=True)
+
+        # the stream holds: f32 token for token (a first difference only
+        # at a near-tie), bf16 reported
+        if samp["temperature"] == 0.0:
+            ref = vcfg.scaled(kv_cache_capacity=0)
+            ref32 = ref.scaled(dtype=torch.float32)
+            parts32 = _variant_parts(flags, cfg32, params32)
+            limit = 1e-2 if vcfg.kv_quant else 1e-4
+            e32, d32 = _hold_vs_generate(f"{label} f32", parts32, ref32,
+                                         prompts[:8], budgets[:8], limit)
+            e16, d16 = _hold_vs_generate(f"{label} bf16", parts, ref,
+                                         prompts[:8], budgets[:8], None)
+            r.update(f32_equal=e32, f32_diffs=d32, bf16_equal=e16,
+                     bf16_diffs=d16)
+            extra = ""
+            if draft is not None:
+                same = sum(a == b for a, b in zip(outs, serve["outputs"]))
+                r["bf16_equal_phase5"] = same
+                extra = (f"; all 24 bf16 streams vs phase 5's greedy serve: "
+                         f"{same}/24 equal")
+            what = ("the linear windowed cache" if vcfg.kv_cache_capacity
+                    else "the target" if draft else "the same model")
+            print(f"[15{tag}]   vs generate per request ({what}): f32 "
+                  f"{e32}/8 equal, first "
+                  f"differences (request, step, logit gap; limit {limit:g}) "
+                  f"{d32}; bf16 {e16}/8 equal, first differences {d16}"
+                  + extra, flush=True)
+            del parts32
+
+        # once through serve_lm --listen / --connect
+        wire, mode, wwall = _serve_lm_over_wire(flags, tag, serve["preset"])
+        same = sum(a == b for a, b in zip(wire, outs))
+        r.update(wire_equal=same, wire_mode=mode, wire_wall_s=wwall)
+        print(f"[15{tag}]   serve_lm {' '.join(flags)} --listen / --connect "
+              f"(mode '{mode}'): {same}/24 streams equal the in-process "
+              f"serve; client wall {wwall:.2f}s ({tokens / wwall:.1f} "
+              f"tokens/s, the replica's first serve included)", flush=True)
+        if same != len(prompts):
+            fail(f"phase 15 {label}: streams over the wire differ from the "
+                 f"in-process serve")
+        rep[label] = r
+        del batcher, parts
+        torch.cuda.empty_cache()
+    del params32
+    return k1_total, k5_total
+
+
+def slot_bytes(cfg, kv_dtype) -> int:
+    """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
+    from tony_tpu_torch.models import decode as D
+    c = D.init_kv_cache(cfg.scaled(kv_cache_dtype=kv_dtype), 1, 1,
+                        device="cpu")
+    return sum(t.numel() * t.element_size() for t in D._kv_bufs(c).values())
+
+
 def _lat_text(lat) -> str:
     return (f"TTFT p50 {lat['ttft_p50']:.1f} ms p99 {lat['ttft_p99']:.1f} "
             f"ms, ITL p50 {lat['itl_p50']:.2f} ms p99 {lat['itl_p99']:.2f} "
@@ -2520,21 +2955,23 @@ def main() -> int:
     bert = phase_bert(report, card)
     mesh = phase_mesh(report, card)
     host_k1, host_k5 = phase_serving_host(report, card, serve)
+    var_k1, var_k5 = phase_variants(report, card, serve)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
-    # BERT run (phase 12), the mesh-path run (phase 13) and the sampled
-    # serve over the wire (phase 14); K2 over the three training runs;
+    # BERT run (phase 12), the mesh-path run (phase 13), the sampled
+    # serve over the wire (phase 14) and the five decode variants' serves
+    # (phase 15); K2 over the three training runs;
     # K3a/K3b over the run with the budget at 0; K4 over the run with the
-    # fused optimizer; K5 over the two serves and the two LM training
-    # runs; K6 over the BERT run
+    # fused optimizer; K5 over the serves of phases 5, 14 and 15 and the
+    # two LM training runs; K6 over the BERT run
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
-                      + host_k1)
+                      + host_k1 + var_k1)
     bwd["fused"]["launches"] = counts["k2"] + bert["k2"] + mesh["k2"]
     bwd["dq"]["launches"] = counts["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"]
     k4["launches"] = counts["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
-                                + host_k5)
+                                + host_k5 + var_k5)
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -132,11 +132,15 @@ def test_out_of_range_per_row_writes_drop():
 
 
 def test_unported_cache_kinds_raise():
+    """int8 and rolling caches are ported (tests/test_torch_decode_variants.py);
+    MoE decode and shared-prefix templates still raise."""
+    cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, num_experts=4)
+    with pytest.raises(NotImplementedError):
+        TD.init_kv_cache(cfg, 1, 8, device="cpu")
     for kw in ({"kv_cache_dtype": "int8"},
                {"attn_window": 4, "kv_cache_capacity": 8}):
         cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, **kw)
-        with pytest.raises(NotImplementedError):
-            TD.init_kv_cache(cfg, 1, 8, device="cpu")
+        assert TD.init_kv_cache(cfg, 1, 8, device="cpu")["k"].shape[2] == 8
     cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32)
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")

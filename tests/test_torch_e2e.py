@@ -10,9 +10,11 @@ local backend). Two arms: the default (jax) framework with
 ``tony.application.mesh=fsdp=-1``, and the pytorch framework
 (``INIT_METHOD``/``RANK``/``WORLD``), which gets a dp mesh. Both
 workers' stdout must show the world-2 mesh line and ``done:``, and the
-job must exit 0. A job that another test's executor sweep killed (see
-``_killed_from_outside``) is submitted again, up to 4 times: those
-sweeps come in series.
+job must exit 0. The job's executors run through
+:func:`_executor_launcher`, so the machine-wide executor sweeps of the
+TPU backend's tests (see ``_killed_from_outside``) cannot reach them; a
+job that was killed from outside all the same is submitted again, up to
+4 times.
 """
 
 import os
@@ -28,6 +30,26 @@ from tony_tpu.client.client import TonyClient
 from tony_tpu.conf.config import TonyConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _executor_launcher(tmp_path) -> str:
+    """A ``tony.application.python-binary-path`` for the job: a script
+    that takes the coordinator's ``-m tony_tpu.cluster.executor ARGS``
+    and execs this interpreter on the same module through ``runpy``, so
+    no process of the job has ``tony_tpu.cluster.executor`` on its
+    command line. The TPU backend's tests tear their fake slices down
+    with ``pkill -9 -f tony_tpu.cluster.executor``, which matches every
+    executor on the machine; running beside them (``pytest -n``), all of
+    a job's resubmissions were killed within 35 s."""
+    path = tmp_path / "python-executor"
+    path.write_text(
+        "#!/bin/sh\n"
+        "shift 2\n"
+        f"exec {sys.executable} -c 'import runpy; runpy.run_module("
+        "\"tony_tpu\" \".cluster\" \".executor\", run_name=\"__main__\", "
+        "alter_sys=True)' \"$@\"\n")
+    path.chmod(0o755)
+    return str(path)
 
 
 def _killed_from_outside(job_dir: str) -> bool:
@@ -52,6 +74,7 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
         "tony.application.timeout": "120000",
         "tony.worker.instances": "2",
         "tony.application.framework": framework,
+        "tony.application.python-binary-path": _executor_launcher(tmp_path),
     }
     if mesh:
         conf["tony.application.mesh"] = mesh

@@ -45,7 +45,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "io.prefetch", "train_lm", "ops.prng", "serve_lm",
                 "runtime.tracing", "runtime.metrics", "serving.protocol",
                 "serving.client", "serving.server", "serving.weightstore",
-                "conf.keys"):
+                "conf.keys", "models.quantize", "models.decode",
+                "models.weights", "generate"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -98,15 +99,32 @@ def test_serve_lm_without_device_raises_without_a_card(monkeypatch):
         serve_lm.main(["--preset", "tiny", "--listen", "127.0.0.1:0"])
 
 
-@pytest.mark.parametrize("flag", [["--draft_preset", "tiny"],
+@pytest.mark.parametrize("flag", [["--warm_from", "h:1"],
                                   ["--route", "h:1"], ["--disaggregate"],
                                   ["--shared_prefix_file", "p.txt"],
-                                  ["--kv_cache_dtype", "int8"]])
+                                  ["--role", "prefill"]])
 def test_serve_lm_refuses_unported_features(flag, capsys):
     from tony_tpu_torch import serve_lm
     with pytest.raises(SystemExit):
         serve_lm.main(["--device", "cpu"] + flag)
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_generate_and_draft_without_device_raise_without_a_card(
+        monkeypatch):
+    from tony_tpu_torch import generate, serve_lm
+    from tony_tpu_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--max_new_tokens", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--beam_width", "2", "--max_new_tokens", "2"])
+    cfg = transformer.PRESETS["small"].scaled(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.build_draft("tiny", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--preset", "tiny", "--quantize_weights",
+                       "--kv_cache_dtype", "int8"])
 
 
 def test_serve_lm_runs_on_the_cpu_when_asked(capsys):

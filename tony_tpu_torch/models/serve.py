@@ -9,7 +9,9 @@ decoding. The device programs:
   one power-of-two length bucket prefill in one forward (attention
   through the CUDA flash kernel on the card) and land in their slots;
 - :func:`admit_row` — the single-slot admission (the
-  ``bucketed_admission=False`` arm), padded to the same buckets;
+  ``bucketed_admission=False`` arm), padded to the same buckets; rolling
+  (ring) caches, whose wrapped writes cannot take padded prompts, admit
+  at the exact length through :func:`admit_row_ring`;
 - :func:`step_rows` — ``n`` decode steps of every row at its own
   frontier, greedy or sampled from PER-REQUEST key streams;
 - :func:`retire_rows` — zero freed rows' frontiers.
@@ -50,9 +52,22 @@ per-class slot floors, interactive-over-batch row preemption with a
 resume at the preempted stream's offset, and an explicit overload shed
 (:class:`EngineBusy` past ``max_queue_depth``).
 
-Not ported yet: speculative decoding, shared-prefix templates (resident
-prefixes and the prefix lane), disaggregated prefill/decode
-(``submit_prefilled``, ``KVPackage``), rolling caches and the goodput
+:class:`SpeculativeContinuousBatcher` composes continuous batching with
+speculative decoding: every slot runs draft-propose / target-verify
+rounds at its own frontier (:func:`spec_step_rows`, on the rounds of
+:mod:`~tony_tpu_torch.models.decode`), admission prefills both models'
+caches (:func:`spec_admit_rows`), and each request's tokens are the
+target's greedy tokens, or in sampled mode the JAX batcher's, from the
+same per-request streams (the admission seed draw takes stream position
+0, round ``r`` position ``1 + r``).
+
+Every batcher takes an int8 weight snapshot, an int8 KV cache and (the
+greedy and sampled one) a rolling cache, from the params and the config.
+
+Not ported yet: shared-prefix templates (resident prefixes, the prefix
+lane, and the speculative prefix admissions
+:func:`spec_prefix_admit_rows`, which raise), disaggregated
+prefill/decode (``submit_prefilled``, ``KVPackage``) and the goodput
 ledger.
 """
 
@@ -67,9 +82,12 @@ import numpy as np
 import torch
 
 from tony_tpu_torch.models import transformer as T
-from tony_tpu_torch.models.decode import (_check_cache_cfg, _filter_logits,
+from tony_tpu_torch.models.decode import (_check_draft_vocab, _check_no_ring,
+                                          _filter_logits, _kv_bufs,
+                                          _propose_and_verify,
+                                          _propose_and_verify_sampled,
                                           decode_step, init_kv_cache,
-                                          place_rows, prefill_rows,
+                                          place_rows, prefill, prefill_rows,
                                           to_device)
 from tony_tpu_torch.ops import prng
 from tony_tpu_torch.runtime import metrics as metrics_mod
@@ -111,16 +129,24 @@ def bucket_for(n: int, cap: int,
     return min(b, cap)
 
 
-def _scatter_logits(logits, rows, lg) -> None:
-    """``logits[rows[i]] = lg[i]`` in place for the in-range rows (the
+def _scatter_rows(dst, rows, values) -> None:
+    """``dst[rows[i]] = values[i]`` in place for the in-range rows (the
     sentinel rows of a partial wave are dropped)."""
-    batch = logits.shape[0]
+    batch = dst.shape[0]
     keep = [i for i, r in enumerate(rows) if 0 <= int(r) < batch]
     if keep:
-        src = to_device(np.asarray(keep, np.int64), logits.device)
-        dst = to_device(np.asarray([int(rows[i]) for i in keep], np.int64),
-                        logits.device)
-        logits[dst] = lg[src].to(logits.dtype)
+        src = to_device(np.asarray(keep, np.int64), dst.device)
+        idx = to_device(np.asarray([int(rows[i]) for i in keep], np.int64),
+                        dst.device)
+        dst[idx] = values[src].to(dst.dtype)
+
+
+def _place_prefill(cache, mini, row: int, s_p: int) -> None:
+    """Land a batch-1 prefill's buffers (k/v and an int8 cache's scales)
+    into cache slot ``row`` in place and set its frontier to ``s_p``."""
+    for n in _kv_bufs(mini):
+        cache[n][:, row:row + 1, :mini[n].shape[2]] = mini[n]
+    cache["length"][row] = s_p
 
 
 @torch.no_grad()
@@ -138,6 +164,20 @@ def admit_row(params, cache, logits, row: int, prompt, length: int, cfg):
 
 
 @torch.no_grad()
+def admit_row_ring(params, cache, logits, row: int, prompt, cfg):
+    """Admit a request into cache slot ``row`` of a rolling (ring) cache
+    at its EXACT length: padding at position p would land on ring row
+    ``p % capacity``, clobbering real history. prompt: ``[1, S_p]``; a
+    prompt longer than the capacity keeps its last ``capacity`` rows.
+    Cache and logits are updated in place and returned."""
+    _count_call("admit_row_ring", prompt.shape)
+    lg, mini = prefill(params, prompt, cfg, max_len=prompt.shape[1])
+    _place_prefill(cache, mini, row, prompt.shape[1])
+    logits[row] = lg[0].to(logits.dtype)
+    return cache, logits
+
+
+@torch.no_grad()
 def admit_rows(params, cache, logits, rows, prompts, lengths, cfg):
     """BUCKETED, BATCHED admission: land K prompts (one length bucket)
     into their cache slots with one prefill forward. prompts: ``[K,
@@ -149,7 +189,7 @@ def admit_rows(params, cache, logits, rows, prompts, lengths, cfg):
     _count_call("admit_rows", prompts.shape)
     lg, mini = prefill_rows(params, prompts, lengths, cfg)
     place_rows(cache, mini, rows, lengths)
-    _scatter_logits(logits, rows, lg)
+    _scatter_rows(logits, rows, lg)
     return cache, logits
 
 
@@ -202,6 +242,111 @@ def step_rows(params, cache, logits, keys, offsets, n: int, cfg,
     return torch.stack(toks, dim=1), cache, logits
 
 
+def _seed_tokens(logits, keys, temperature, top_k, top_p):
+    """The speculative admission's pending token per row: the argmax, or
+    a draw from each row's seed key ``[K, 2]`` through the filter
+    stack."""
+    noise = (prng.gumbel(keys.to(logits.device), (logits.shape[-1],))
+             if temperature > 0.0 else None)
+    return _row_samples(logits, noise, temperature, top_k, top_p)
+
+
+@torch.no_grad()
+def spec_admit_row(params, draft_params, t_cache, d_cache, pending,
+                   row: int, prompt, key, cfg, draft_cfg,
+                   temperature: float = 0.0, top_k: int = 0,
+                   top_p: float = 0.0):
+    """Speculative admission at the EXACT prompt length ``[1, S_p]``:
+    prefill BOTH models into cache slot ``row`` (the draft keeps its own
+    per-slot K/V history) and seed the row's ``pending`` token from the
+    target's last-position logits — the argmax, or a draw with ``key``
+    (the request's stream position 0) through the filter stack. The
+    batcher's default is the bucketed :func:`spec_admit_rows`."""
+    _count_call("spec_admit_row", prompt.shape)
+    s_p = prompt.shape[1]
+    lg, mini_t = prefill(params, prompt, cfg, max_len=s_p)
+    _, mini_d = prefill(draft_params, prompt, draft_cfg, max_len=s_p)
+    _place_prefill(t_cache, mini_t, row, s_p)
+    _place_prefill(d_cache, mini_d, row, s_p)
+    keys = None if key is None else torch.as_tensor(key)[None]
+    pending[row] = _seed_tokens(lg, keys, temperature, top_k, top_p)[0]
+    return t_cache, d_cache, pending
+
+
+@torch.no_grad()
+def spec_admit_rows(params, draft_params, t_cache, d_cache, pending, rows,
+                    prompts, lengths, keys, cfg, draft_cfg,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 0.0):
+    """Bucketed, batched speculative admission: K prompts (one length
+    bucket) prefill BOTH models in one forward each and land in their
+    slots — the :func:`admit_rows` contract on the speculative batcher's
+    two caches. ``keys``: ``[K, 2]`` per-request seed-draw keys (stream
+    position 0 of each request; the rounds take positions 1 on), used
+    only at ``temperature > 0``."""
+    _count_call("spec_admit_rows", prompts.shape)
+    lg, mini_t = prefill_rows(params, prompts, lengths, cfg)
+    _, mini_d = prefill_rows(draft_params, prompts, lengths, draft_cfg)
+    place_rows(t_cache, mini_t, rows, lengths)
+    place_rows(d_cache, mini_d, rows, lengths)
+    _scatter_rows(pending, rows,
+                  _seed_tokens(lg, keys, temperature, top_k, top_p))
+    return t_cache, d_cache, pending
+
+
+def spec_prefix_admit_row(*args, **kw):
+    """Shared-prefix speculative admission: belongs to the shared-prefix
+    slice, not ported yet."""
+    raise NotImplementedError("speculative shared-prefix admission belongs "
+                              "to the shared-prefix slice (not ported yet)")
+
+
+spec_prefix_admit_rows = spec_prefix_admit_row
+
+
+@torch.no_grad()
+def spec_step_rows(params, draft_params, t_cache, d_cache, pending, keys,
+                   offsets, n: int, cfg, draft_cfg, k: int,
+                   temperature: float = 0.0, top_k: int = 0,
+                   top_p: float = 0.0, lengths=None):
+    """``n`` speculative rounds for every row at its OWN frontier, each
+    row committing its full acceptance ``acc + 1`` per round (the host
+    truncates at each request's budget or eos and discards idle rows'
+    garbage). Greedy at ``temperature == 0``; otherwise sampled rounds
+    with per-row round keys ``fold_in(keys[r], offsets[r] + i)``.
+    ``lengths``: host bounds (lowest, highest) of the rows' frontiers
+    before the first round, which bound the blockwise walk (round ``i``
+    moves them by at least ``i`` and at most ``i * (k+1)``). Returns
+    ``(packed [n, B, k+2], t_cache, d_cache, pending)``: ``packed[i, r,
+    0]`` is round i's commit count of row r and ``packed[i, r, 1:]`` its
+    chunk — ONE tensor, so the host fetches a sync's tokens in one
+    copy."""
+    _count_call("spec_step_rows", (tuple(t_cache["k"].shape), n, k))
+    packed = []
+    for i in range(n):
+        pos = t_cache["length"]                                  # [B]
+        rng = None if lengths is None else (lengths[0] + i,
+                                            lengths[1] + i * (k + 1))
+        if temperature == 0.0:
+            chunk, argmaxes, acc, t_cache, d_cache = _propose_and_verify(
+                params, draft_params, t_cache, d_cache, pending, pos, cfg,
+                draft_cfg, k, None, rng)
+            pending = argmaxes.gather(1, acc[:, None])[:, 0]
+        else:
+            round_keys = prng.fold_in(keys, offsets + i)
+            chunk, pending, acc, t_cache, d_cache = (
+                _propose_and_verify_sampled(
+                    params, draft_params, t_cache, d_cache, pending, pos,
+                    cfg, draft_cfg, k, None, round_keys, temperature,
+                    top_k, top_p, rng))
+        count = acc + 1
+        new_len = (pos + count).to(torch.int32)
+        t_cache["length"] = new_len
+        d_cache["length"] = new_len
+        packed.append(torch.cat([count[:, None], chunk.long()], dim=1))
+    return torch.stack(packed), t_cache, d_cache, pending
+
+
 def retire_rows(cache, mask):
     """Reset retired rows' frontiers to 0 in place (mask: host sequence
     of bools), keeping idle slots from marching off the cache end."""
@@ -226,14 +371,16 @@ class ContinuousBatcher:
     ``pipeline=True`` (default) enqueues chunk N+1 before fetching chunk
     N; ``pipeline=False`` is the sequential equivalence baseline. Both
     give identical outputs. Admission is bucketed and batched by default
-    (``bucketed_admission=False`` admits one row per forward).
-    ``shared_prefix`` is not ported yet and raises.
+    (``bucketed_admission=False`` admits one row per forward). A rolling
+    cache (``cfg.kv_cache_capacity``) admits each request at its exact
+    length (:func:`admit_row_ring`) and lifts the ``max_len`` ceiling on
+    prompt + budget. ``shared_prefix`` is not ported yet and raises.
     """
 
     #: first per-request stream position consumed by step_rows sampling
+    #: (the speculative batcher's admission seed draw takes position 0,
+    #: so its rounds start at 1)
     _off0 = 0
-    #: rolling caches are not ported; HELLO and STATS report the layout
-    _ring = False
 
     def __init__(self, params, cfg: T.TransformerConfig, batch: int,
                  max_len: int, eos_id: int | None = None, chunk: int = 8,
@@ -241,7 +388,7 @@ class ContinuousBatcher:
                  top_p: float = 0.0, seed: int = 0, shared_prefix=None,
                  pipeline: bool = True,
                  bucketed_admission: bool = True) -> None:
-        _check_cache_cfg(cfg)
+        T._check_dense(cfg)
         if shared_prefix is not None:
             raise NotImplementedError(
                 "shared-prefix templates are not ported yet")
@@ -253,6 +400,9 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.eos_id = eos_id
         self.device = params["embed"].device
+        #: rolling KV cache: slots hold a ring of O(window) rows and
+        #: requests may run past max_len (HELLO and STATS report it)
+        self._ring = bool(cfg.kv_cache_capacity)
         #: sampling controls (greedy by default); streams are per request
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -261,7 +411,9 @@ class ContinuousBatcher:
         #: device steps per host round trip
         self.chunk = max(1, chunk)
         self.pipeline = bool(pipeline)
-        self.bucketed_admission = bool(bucketed_admission)
+        #: wrapped ring writes cannot take padded prompts: a ring admits
+        #: one request per forward at its exact length
+        self.bucketed_admission = bool(bucketed_admission) and not self._ring
         self.cache = init_kv_cache(cfg, batch, max_len, device=self.device)
         self.cache["length"] = torch.zeros((batch,), dtype=torch.int32,
                                            device=self.device)
@@ -271,6 +423,8 @@ class ContinuousBatcher:
                                   dtype=cfg.logits_storage_dtype,
                                   device=self.device)
         self.steps_executed = 0
+        #: speculative rounds run (0 for this batcher)
+        self.rounds_executed = 0
         self.phase_times = PhaseTimes()
         #: true prompt tokens run through a prefill forward at admission
         self.prefill_forward_tokens = 0
@@ -365,35 +519,53 @@ class ContinuousBatcher:
                     grp = groups[bucket]
                     rows, keys = self._marshal_wave(grp)
                     toks, lens = self._pad_prompts_to(grp, prompts, bucket)
-                    self._admit_rows(rows, toks, lens)
+                    self._admit_rows(rows, toks, lens, keys)
                     self._rebind_streams(grp, rows, keys)
             else:
                 for row, req in pairs:
-                    self._admit_row(row, prompts[req])
+                    self._admit_row(row, req, prompts[req])
                 rows, keys = self._marshal_wave(pairs)
                 self._rebind_streams(pairs, rows, keys)
             self.prefill_forward_tokens += sum(len(prompts[req])
                                                for _, req in pairs)
 
-    def _admit_rows(self, rows, toks, lens) -> None:
+    def _admit_rows(self, rows, toks, lens, keys) -> None:
+        """Land one bucket group (``keys``: the wave's stream keys, used
+        by the speculative batcher's seed draws)."""
         self.cache, self.logits = admit_rows(
             self.params, self.cache, self.logits, rows,
             to_device(toks, self.device), to_device(lens, self.device),
             self.cfg)
+        self._set_host_len(rows, lens)
+
+    def _set_host_len(self, rows, lens) -> None:
         for row, n in zip(rows, lens):
             if row < self.batch:
                 self._host_len[row] = int(n)
 
-    def _admit_row(self, row: int, prompt) -> None:
+    def _admit_row(self, row: int, req: int, prompt) -> None:
+        """Admit request ``req`` alone into slot ``row``: padded to its
+        bucket, or at its exact length into a rolling cache."""
         n = len(prompt)
-        padded = np.zeros((1, self._bucket_for(n)), np.int64)
-        padded[0, :n] = prompt
-        self.cache, self.logits = admit_row(
-            self.params, self.cache, self.logits, row,
-            to_device(padded, self.device), n, self.cfg)
+        if self._ring:
+            self.cache, self.logits = admit_row_ring(
+                self.params, self.cache, self.logits, row,
+                to_device(np.asarray([prompt], np.int64), self.device),
+                self.cfg)
+        else:
+            padded = np.zeros((1, self._bucket_for(n)), np.int64)
+            padded[0, :n] = prompt
+            self.cache, self.logits = admit_row(
+                self.params, self.cache, self.logits, row,
+                to_device(padded, self.device), n, self.cfg)
         self._host_len[row] = n
 
     # --- dispatch / fetch ---
+
+    def _chunk_tokens_max(self) -> int:
+        """Most tokens one chunk can commit per row (one per step here;
+        the speculative batcher overrides)."""
+        return self.chunk
 
     def _issue(self):
         """Enqueue one chunk WITHOUT waiting for it; returns the device
@@ -426,14 +598,15 @@ class ContinuousBatcher:
                 self._host_len[r] = 0
 
     def _validate_request(self, prompt, max_new: int) -> None:
-        """Reject an empty prompt, a non-positive budget, or prompt +
-        budget past ``max_len``."""
+        """Reject an empty prompt, a non-positive budget, or (linear
+        caches — a rolling cache has no length ceiling) prompt + budget
+        past ``max_len``."""
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         if max_new <= 0:
             raise ValueError(f"max_new_tokens must be positive, "
                              f"got {max_new}")
-        if len(prompt) + max_new > self.max_len:
+        if not self._ring and len(prompt) + max_new > self.max_len:
             raise ValueError(f"prompt {len(prompt)} + {max_new} new tokens "
                              f"exceeds max_len {self.max_len}")
 
@@ -466,6 +639,136 @@ class ContinuousBatcher:
         engine.drain()
         engine.run()
         return outputs
+
+
+class SpeculativeContinuousBatcher(ContinuousBatcher):
+    """Continuous batching with speculative decoding per slot. A draft
+    model proposes ``num_speculative`` tokens per round for EVERY slot
+    at its own frontier; the target verifies each slot's chunk in one
+    wide ``extend_step``; each slot commits its own acceptance
+    (:func:`spec_step_rows`). Admission prefills BOTH caches (bucketed
+    and batched by default, :func:`spec_admit_rows`), retirement frees
+    the slot, and idle rows decode garbage the host discards; the
+    engine's pipelined loop is unchanged — one packed tensor per sync.
+
+    Greedy rounds give each request's greedy ``generate`` tokens wherever
+    chunked and single-step logits agree; ``temperature > 0`` runs
+    speculative SAMPLING, distributed as target-only sampling through
+    the same filter stack, from per-request streams (the admission seed
+    takes stream position 0, round ``r`` position ``1 + r``) — the JAX
+    batcher's tokens.
+
+    ``chunk`` counts ROUNDS per host sync: one round commits 1 to k+1
+    tokens per live slot. ``rounds_executed`` counts rounds;
+    ``steps_executed`` counts target positions verified per slot,
+    ``rounds * (k+1)``. The host keeps bounds of each row's frontier
+    (the lowest and the highest it can have reached), which bound the
+    blockwise cache walk without reading the card.
+
+    The shared-prefix variants belong to the shared-prefix slice and
+    raise; a rolling cache is rejected (the verify is a chunk)."""
+
+    #: stream position 0 is the admission seed draw; rounds start at 1
+    _off0 = 1
+
+    def __init__(self, params, cfg: T.TransformerConfig, draft_params,
+                 draft_cfg: T.TransformerConfig, batch: int, max_len: int,
+                 num_speculative: int = 4, eos_id: int | None = None,
+                 chunk: int = 4, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0, shared_prefix=None,
+                 pipeline: bool = True,
+                 bucketed_admission: bool = True) -> None:
+        if num_speculative < 1:
+            raise ValueError("num_speculative must be >= 1")
+        _check_draft_vocab(cfg, draft_cfg)
+        _check_no_ring(cfg, "speculative serving (chunked verify)")
+        _check_no_ring(draft_cfg, "speculative serving (draft)")
+        super().__init__(params, cfg, batch, max_len, eos_id=eos_id,
+                         chunk=chunk, temperature=temperature, top_k=top_k,
+                         top_p=top_p, seed=seed,
+                         shared_prefix=shared_prefix, pipeline=pipeline,
+                         bucketed_admission=bucketed_admission)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.k = num_speculative
+        self.d_cache = init_kv_cache(draft_cfg, batch, max_len,
+                                     device=self.device)
+        self.d_cache["length"] = torch.zeros((batch,), dtype=torch.int32,
+                                             device=self.device)
+        #: per slot, the committed token whose K/V is not yet written
+        #: (replaces the greedy batcher's per-slot logits)
+        self.pending = torch.zeros((batch,), dtype=torch.long,
+                                   device=self.device)
+        #: upper bounds of the rows' frontiers (``_host_len`` holds the
+        #: lower bounds)
+        self._host_hi = [0] * batch
+
+    def _chunk_tokens_max(self) -> int:
+        # one sync = chunk rounds x up to k+1 commits per row
+        return self.chunk * (self.k + 1)
+
+    def _set_host_len(self, rows, lens) -> None:
+        super()._set_host_len(rows, lens)
+        for row, n in zip(rows, lens):
+            if row < self.batch:
+                self._host_hi[row] = int(n)
+
+    def _admit_rows(self, rows, toks, lens, keys) -> None:
+        seed_keys = (None if keys is None
+                     else to_device(prng.fold_in(keys, 0).numpy(),
+                                    self.device))
+        self.cache, self.d_cache, self.pending = spec_admit_rows(
+            self.params, self.draft_params, self.cache, self.d_cache,
+            self.pending, rows, to_device(toks, self.device),
+            to_device(lens, self.device), seed_keys, self.cfg,
+            self.draft_cfg, self.temperature, self.top_k, self.top_p)
+        self._set_host_len(rows, lens)
+
+    def _admit_row(self, row: int, req: int, prompt) -> None:
+        key = (to_device(prng.fold_in(self._req_key(req), 0).numpy(),
+                         self.device) if self.sampled else None)
+        self.cache, self.d_cache, self.pending = spec_admit_row(
+            self.params, self.draft_params, self.cache, self.d_cache,
+            self.pending, row,
+            to_device(np.asarray([prompt], np.int64), self.device), key,
+            self.cfg, self.draft_cfg, self.temperature, self.top_k,
+            self.top_p)
+        self._set_host_len([row], [len(prompt)])
+
+    def _issue(self):
+        with self.phase_times.phase("dispatch"):
+            keys = offs = None
+            if self.sampled:
+                keys = to_device(self._row_keys.numpy(), self.device)
+                offs = to_device(np.asarray(self._row_off, np.int64),
+                                 self.device)
+            packed, self.cache, self.d_cache, self.pending = spec_step_rows(
+                self.params, self.draft_params, self.cache, self.d_cache,
+                self.pending, keys, offs, self.chunk, self.cfg,
+                self.draft_cfg, self.k, self.temperature, self.top_k,
+                self.top_p, lengths=(min(self._host_len),
+                                     max(self._host_hi)))
+        self.rounds_executed += self.chunk
+        self.steps_executed += self.chunk * (self.k + 1)
+        self._host_len = [n + self.chunk for n in self._host_len]
+        self._host_hi = [n + self.chunk * (self.k + 1)
+                         for n in self._host_hi]
+        self._row_off = [o + self.chunk for o in self._row_off]
+        return packed
+
+    def _fetch(self, handle):
+        with self.phase_times.phase("fetch"):
+            packed = handle.cpu().numpy()              # [n, B, k+2]
+        return [[int(t) for i in range(packed.shape[0])
+                 for t in packed[i, row, 1:1 + packed[i, row, 0]]]
+                for row in range(self.batch)]
+
+    def _retire(self, mask) -> None:
+        super()._retire(mask)
+        self.d_cache = retire_rows(self.d_cache, mask)
+        for r, m in enumerate(mask):
+            if m:
+                self._host_hi[r] = 0
 
 
 class EngineBusy(RuntimeError):
@@ -593,6 +896,7 @@ class ServeEngine:
         self.preemptions = 0
         self.shed = 0
         batcher.steps_executed = 0
+        batcher.rounds_executed = 0
         batcher.phase_times = PhaseTimes()
         batcher._reset_streams()
         reg = registry or metrics_mod.get_default()
@@ -1062,7 +1366,7 @@ class ServeEngine:
         with self._lock:
             return bool(self._wait_total_locked()) and any(
                 req is not None and not req.done
-                and req.budget <= self.b.chunk
+                and req.budget <= self.b._chunk_tokens_max()
                 for req in snap)
 
     def _run_pipelined(self) -> None:

@@ -6,7 +6,11 @@ port's torch tree with the same keys, shapes and (by default) dtypes;
 :func:`params_to_numpy` is its inverse, bit for bit. bfloat16 arrays
 (``ml_dtypes.bfloat16``, as JAX hands them out) are recognized by dtype
 NAME and moved through a 16-bit integer view, so this module never
-imports ``ml_dtypes``.
+imports ``ml_dtypes``. An int8 serving snapshot crosses too: a weight
+of the JAX package's quantized tree (a ``QuantizedWeight`` NamedTuple
+whose ``q``/``scale`` are numpy arrays after ``jax.device_get``) becomes
+the port's :class:`~tony_tpu_torch.models.quantize.QuantizedWeight`, and
+back as the port's NamedTuple of numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from tony_tpu_torch import resolve_device
+from tony_tpu_torch.models.quantize import QuantizedWeight
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -48,6 +53,10 @@ def params_from_numpy(tree, device=None, dtype=None):
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    if getattr(tree, "_fields", None) == QuantizedWeight._fields:
+        # int8 q and f32 scale keep their dtypes
+        return QuantizedWeight(*(_leaf_from_numpy(a, dev, None)
+                                 for a in tree))
     return _leaf_from_numpy(tree, dev, dtype)
 
 
@@ -61,6 +70,8 @@ def params_to_numpy(params, bf16_dtype=None):
     the unsharded one give the same arrays and the same digest."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v, bf16_dtype) for k, v in params.items()}
+    if isinstance(params, QuantizedWeight):
+        return QuantizedWeight(*(params_to_numpy(t) for t in params))
     if hasattr(params, "full_tensor"):
         params = params.full_tensor()
     # a copy even of a CPU tensor: the optimizers update params in place,

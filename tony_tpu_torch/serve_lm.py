@@ -24,18 +24,32 @@ per class with ``--mixed_classes``::
     python -m tony_tpu_torch.serve_lm --preset small --requests 24 \\
         --connect host:7070 --mixed_classes --busy_retries 4
 
+The decode variants, alone or together, in every mode::
+
+    # speculative: a draft preset (scaled to the target's vocab and
+    # dtype, weights from seed 1) proposes 4 tokens per round
+    python -m tony_tpu_torch.serve_lm --preset small \
+        --draft_preset tiny --num_speculative 4
+    # int8 weights (both models) and an int8 KV cache
+    python -m tony_tpu_torch.serve_lm --preset small --quantize_weights \
+        --kv_cache_dtype int8
+    # sliding-window attention over a rolling cache of 384 rows a slot
+    python -m tony_tpu_torch.serve_lm --preset small --attn_window 256 \
+        --kv_cache_capacity 384
+
 The client speaks to the JAX package's replicas and routers too, and
 theirs to this replica. ``--ckpt_dir`` serves the params of the port's
 own ``train_lm`` checkpoint. The model runs on the card in bf16 unless
 ``--device cpu`` is passed (then f32); with no card and no ``--device
 cpu`` it raises. Flags of the JAX script whose features are not ported
-(speculative, disaggregated, router, prefix, weights lane, int8, rolling
-caches) fail with "not ported yet".
+(disaggregated, router, prefix, weights lane) fail with "not ported
+yet".
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import signal
 import sys
 import threading
@@ -46,15 +60,15 @@ import torch
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import transformer as T
-from tony_tpu_torch.models.serve import QOS_CLASSES, ContinuousBatcher
+from tony_tpu_torch.models.quantize import quantize_weights_int8
+from tony_tpu_torch.models.serve import (QOS_CLASSES, ContinuousBatcher,
+                                         SpeculativeContinuousBatcher)
 
 #: flags of the JAX script whose features are not ported, with the value
 #: that leaves them off
-_NOT_PORTED = {"draft_preset": "", "route": "", "route_decode": "",
-               "role": "", "disaggregate": False, "shared_prefix_file": "",
-               "publish_prefix": "", "warm_from": "", "drain": "",
-               "kv_cache_dtype": "model", "quantize_weights": False,
-               "kv_cache_capacity": 0}
+_NOT_PORTED = {"route": "", "route_decode": "", "role": "",
+               "disaggregate": False, "shared_prefix_file": "",
+               "publish_prefix": "", "warm_from": "", "drain": ""}
 
 
 def make_workload(seed: int, requests: int, prompt_len: int,
@@ -74,15 +88,19 @@ def make_workload(seed: int, requests: int, prompt_len: int,
     return prompts, budgets
 
 
-def build(preset: str, device=None, ckpt_dir: str = ""):
+def build(preset: str, device=None, ckpt_dir: str = "",
+          quantize: bool = False, **cfg_kw):
     """(cfg, params) for ``preset`` at full width on ``device``: bf16 on
     the card, f32 on the CPU, random weights from seed 0 — or, with
     ``ckpt_dir``, the params of the latest train-state checkpoint the
-    port's ``train_lm`` saved there, cast to the serving dtype."""
+    port's ``train_lm`` saved there, cast to the serving dtype.
+    ``cfg_kw`` sets the serving fields of the config (``kv_cache_dtype``,
+    ``attn_window``, ``kv_cache_capacity``); ``quantize`` returns the
+    int8 weight snapshot."""
     dev = resolve_device(device)
     cfg = T.PRESETS[preset].scaled(
         dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
-        remat=False)
+        remat=False, **cfg_kw)
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device=dev)
     if ckpt_dir:
@@ -94,7 +112,32 @@ def build(preset: str, device=None, ckpt_dir: str = ""):
         params = state["params"]
         print(f"restored step {int(state['step'])} from {ckpt_dir}",
               flush=True)
+    if quantize:
+        params = quantize_weights_int8(params)
     return cfg, params
+
+
+def build_draft(draft_preset: str, cfg, device=None,
+                quantize: bool = False):
+    """(draft_cfg, draft_params): ``draft_preset`` scaled to the target
+    ``cfg``'s vocab, dtype, KV cache dtype and window (speculation
+    compares token ids), random weights from seed 1, quantized with the
+    target under ``quantize``."""
+    dcfg = T.PRESETS[draft_preset].scaled(
+        dtype=cfg.dtype, remat=False, vocab_size=cfg.vocab_size,
+        kv_cache_dtype=cfg.kv_cache_dtype, attn_window=cfg.attn_window)
+    dparams = T.init_params(torch.Generator().manual_seed(1), dcfg,
+                            device=resolve_device(device))
+    if quantize:
+        dparams = quantize_weights_int8(dparams)
+    return dcfg, dparams
+
+
+def mode_of(batcher) -> str:
+    """The mode line's word: greedy or sampled, speculative or not."""
+    return (("speculative " if isinstance(batcher,
+                                          SpeculativeContinuousBatcher)
+             else "") + ("sampled" if batcher.sampled else "greedy"))
 
 
 def serve(batcher: ContinuousBatcher, prompts, budgets) -> dict:
@@ -106,11 +149,16 @@ def serve(batcher: ContinuousBatcher, prompts, budgets) -> dict:
     dt = time.perf_counter() - t0
     useful = sum(len(o) for o in outputs)
     util = useful / max(1, batcher.steps_executed * batcher.batch)
-    mode = "sampled" if batcher.sampled else "greedy"
     print(f"served {len(prompts)} requests ({useful} tokens) through "
-          f"{batcher.batch} slots in {dt:.2f}s incl. compile — {mode}")
-    print(f"decode steps: {batcher.steps_executed} "
-          f"(slot-step utilization {util:.2f})")
+          f"{batcher.batch} slots in {dt:.2f}s incl. compile — "
+          f"{mode_of(batcher)}")
+    if isinstance(batcher, SpeculativeContinuousBatcher):
+        per = useful / max(1, batcher.rounds_executed * batcher.batch)
+        print(f"speculative rounds: {batcher.rounds_executed} "
+              f"({per:.2f} tokens/slot-round)")
+    else:
+        print(f"decode steps: {batcher.steps_executed} "
+              f"(slot-step utilization {util:.2f})")
     phases = batcher.phase_times.summary()
     if phases:
         print("host phases:",
@@ -135,9 +183,8 @@ def _run_server(args, batcher) -> int:
     server = ServingServer(batcher, bind_host=host, port=port,
                            weights_version=args.weights_version or None)
     bound = server.start()
-    mode = "sampled" if batcher.sampled else "greedy"
-    print(f"serving {args.preset} ({mode}) on {host}:{bound} with "
-          f"{args.slots} slots — ^C drains and exits", flush=True)
+    print(f"serving {args.preset} ({mode_of(batcher)}) on {host}:{bound} "
+          f"with {args.slots} slots — ^C drains and exits", flush=True)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
@@ -251,7 +298,8 @@ def _run_client(args) -> int:
     host, port = _parse_addr(args.connect)
     prompts, budgets = make_workload(args.seed, args.requests,
                                      args.prompt_len, args.max_new_tokens,
-                                     T.PRESETS[args.preset].vocab_size)
+                                     T.PRESETS[args.preset].vocab_size,
+                                     args.min_prompt_len or None)
     classes = None
     if args.mixed_classes:
         classes = [QOS_CLASSES[i % len(QOS_CLASSES)]
@@ -276,6 +324,9 @@ def _run_client(args) -> int:
                 print(latency_line(f"  {c} ({n} reqs)", run.latency_ms(c)))
     first = next((o for o in run.outputs if o), [])
     print("first request tokens:", first[:12])
+    if args.outputs:
+        with open(args.outputs, "w") as f:
+            json.dump(run.outputs, f)
     lost = [i for i, (o, s) in enumerate(zip(run.outputs, run.shed))
             if o is None and not s]
     return 1 if lost else 0
@@ -291,6 +342,25 @@ def main(argv=None) -> int:
     parser.add_argument("--slots", type=int, default=4)
     parser.add_argument("--prompt_len", type=int, default=16)
     parser.add_argument("--max_new_tokens", type=int, default=32)
+    parser.add_argument("--draft_preset", default="",
+                        choices=("",) + tuple(sorted(T.PRESETS)),
+                        help="enable speculative serving with this preset "
+                             "as the draft (random params, seed 1)")
+    parser.add_argument("--num_speculative", type=int, default=4)
+    parser.add_argument("--kv_cache_dtype", default="model",
+                        choices=("model", "int8"),
+                        help="int8 = quantized KV cache (about half the "
+                             "cache memory per slot)")
+    parser.add_argument("--quantize_weights", action="store_true",
+                        help="serve with weight-only int8 matmul weights "
+                             "(models/quantize.py)")
+    parser.add_argument("--attn_window", type=int, default=0,
+                        help="sliding-window attention (0 = full causal)")
+    parser.add_argument("--kv_cache_capacity", type=int, default=0,
+                        help="rolling KV cache rows per slot (0 = linear "
+                             "cache of max_len rows); requires "
+                             "--attn_window and lifts the request-length "
+                             "ceiling")
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--top_k", type=int, default=0)
     parser.add_argument("--top_p", type=float, default=0.0)
@@ -317,6 +387,13 @@ def main(argv=None) -> int:
                         help="with --connect: rotate requests through "
                              "interactive/standard/batch and report "
                              "TTFT/ITL per class")
+    parser.add_argument("--min_prompt_len", type=int, default=0,
+                        help="with --connect: prompt lengths uniform in "
+                             "[min_prompt_len, prompt_len] (0 = all "
+                             "prompt_len)")
+    parser.add_argument("--outputs", default="", metavar="FILE",
+                        help="with --connect: write every request's "
+                             "streamed tokens to FILE as JSON")
     parser.add_argument("--busy_retries", type=int, default=0,
                         help="with --connect: transparent re-admissions "
                              "per request when the server sheds it with "
@@ -341,8 +418,10 @@ def main(argv=None) -> int:
     if args.mixed_classes and args.request_class:
         parser.error("--mixed_classes and --request_class are "
                      "mutually exclusive")
-    if args.busy_retries and not args.connect:
-        parser.error("--busy_retries requires --connect")
+    if (args.busy_retries or args.min_prompt_len or args.outputs) \
+            and not args.connect:
+        parser.error("--busy_retries/--min_prompt_len/--outputs require "
+                     "--connect")
     if args.weights_version and not args.listen:
         parser.error("--weights_version requires --listen")
     if args.listen and args.connect:
@@ -350,13 +429,27 @@ def main(argv=None) -> int:
 
     if args.connect:
         return _run_client(args)
-    cfg, params = build(args.preset, args.device, args.ckpt_dir)
-    batcher = ContinuousBatcher(
-        params, cfg, batch=args.slots,
-        max_len=args.prompt_len + args.max_new_tokens,
-        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        seed=args.seed, pipeline=not args.no_pipeline,
-        bucketed_admission=not args.no_bucketed_admission)
+    cfg, params = build(args.preset, args.device, args.ckpt_dir,
+                        quantize=args.quantize_weights,
+                        kv_cache_dtype=args.kv_cache_dtype,
+                        attn_window=args.attn_window,
+                        kv_cache_capacity=args.kv_cache_capacity)
+    if args.quantize_weights:
+        print("serving with weight-only int8 matmul weights", flush=True)
+    kw = dict(batch=args.slots,
+              max_len=args.prompt_len + args.max_new_tokens,
+              temperature=args.temperature, top_k=args.top_k,
+              top_p=args.top_p, seed=args.seed,
+              pipeline=not args.no_pipeline,
+              bucketed_admission=not args.no_bucketed_admission)
+    if args.draft_preset:
+        dcfg, dparams = build_draft(args.draft_preset, cfg, args.device,
+                                    args.quantize_weights)
+        batcher = SpeculativeContinuousBatcher(
+            params, cfg, dparams, dcfg,
+            num_speculative=args.num_speculative, **kw)
+    else:
+        batcher = ContinuousBatcher(params, cfg, **kw)
     if args.listen:
         return _run_server(args, batcher)
     prompts, budgets = make_workload(args.seed, args.requests,
