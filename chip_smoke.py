@@ -145,6 +145,25 @@ result:
    1e-2 for the int8 cache), in bf16 reported; and each variant once
    through ``serve_lm --listen`` and ``serve_lm --connect`` as two
    processes, every stream equal to the in-process serve's;
+16. shared-prefix serving: K1 against its plain version at the template
+   prefill's [1, P, 8, 64] bf16 causal (P 1 and 509) and K5 at the
+   suffix extensions' rows; then phase 5's model with a 509-token
+   system prompt ahead of 24 suffixes of 16-256 tokens (budgets 16-64),
+   8 slots of 1024 positions: (b) prefix-blind, then with the prefix
+   resident (K1 n_layers times, for the template alone; the serve's
+   prefill tokens the suffixes'), tokens/s and the admission's wall and
+   device ms a request, f32 streams on 8 requests against the
+   prefix-blind ones (a first difference only at a near-tie, 1e-4),
+   bf16 reported; (c) sampled behind the ``ServingServer`` with the
+   classes in rotation, half the ADMITs naming the prefix, every stream
+   equal to the in-process prefix-hit serve; (d) the ``tiny`` draft at
+   k = 4 through ``spec_prefix_admit_rows``, f32 against the
+   non-speculative prefix-hit serve (near-tie rule); (e) ``serve_lm
+   --shared_prefix_file --publish_prefix`` warming a cold ``serve_lm``
+   replica, which serves with zero prefix forwards and the warm one's
+   streams, the template's bytes and publish wall; (f) ``serve_lm
+   --warm_from`` booting from the warm replica's weights lane, its
+   digest and streams the warm one's, the pull's bytes and wall;
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -2616,9 +2635,10 @@ def _serve_counting(batcher, prompts, budgets):
 def _expected_launches(cfg, draft_cfg, k):
     """(K1, K5, admission calls) the serve's device programs in
     CALL_COUNTS should have launched: K1 once a layer of each admission
-    forward (both models' on the speculative path); K5 2 x layers + 1 a
-    model forward, 2 x draft layers for the draft's head-free K/V write
-    of each round."""
+    forward (both models' on the speculative path) and of each prefix
+    template's prefill — a prefix hit's suffix runs the cached attention,
+    not K1; K5 2 x layers + 1 a model forward, 2 x draft layers for the
+    draft's head-free K/V write of each round."""
     from tony_tpu_torch.models import serve as S
     L, Ld = cfg.n_layers, (draft_cfg.n_layers if draft_cfg else 0)
     k1 = k5 = admits = 0
@@ -2633,6 +2653,16 @@ def _expected_launches(cfg, draft_cfg, k):
             admits += c
         elif name == "spec_step_rows":
             k5 += shape[1] * (k * (2 * Ld + 1) + 2 * Ld + 2 * L + 1) * c
+        elif name in ("prefix_admit_rows", "prefix_admit_row"):
+            k5, admits = k5 + (2 * L + 1) * c, admits + c
+        elif name in ("spec_prefix_admit_rows", "spec_prefix_admit_row"):
+            k5, admits = k5 + (2 * L + 2 * Ld + 2) * c, admits + c
+        elif name == "prefix_template":
+            # one template a model per install: the target's, and the
+            # draft's with a draft
+            n = c // 2 if draft_cfg else c
+            k1 += (L + Ld) * n
+            k5 += (2 * L + 1 + (2 * Ld + 1 if draft_cfg else 0)) * n
     return k1, k5, admits
 
 
@@ -2648,22 +2678,11 @@ def _hold_vs_generate(label, parts, ref_cfg, prompts, budgets, limit):
     from tony_tpu_torch.models import decode as D
     params = parts[1]
     outs = _variant_batcher(parts, greedy=True).serve(prompts, budgets)
-    equal, diffs = 0, []
-    for i, (p, n, out) in enumerate(zip(prompts, budgets, outs)):
-        solo = D.generate(params, torch.tensor([p], device="cuda"), ref_cfg,
-                          n).tokens[0, len(p):].tolist()
-        if out == solo:
-            equal += 1
-            continue
-        j = next(t for t, (a, b) in enumerate(zip(out, solo)) if a != b)
-        lg = _decode_logits(params, ref_cfg, p, solo[:j + 1])[j]
-        gap = (lg[solo[j]] - lg[out[j]]).abs().item()
-        diffs.append((i, j, round(gap, 7)))
-        if limit is not None and not gap <= limit:
-            fail(f"phase 15, {label}: request {i} first differs from "
-                 f"generate at token {j} where the logits are {gap:.3e} "
-                 f"apart (limit {limit:g})")
-    return equal, diffs
+    solo = [D.generate(params, torch.tensor([p], device="cuda"), ref_cfg,
+                       n).tokens[0, len(p):].tolist()
+            for p, n in zip(prompts, budgets)]
+    return _near_ties(f"phase 15, {label}", params, ref_cfg, prompts, outs,
+                      solo, limit)
 
 
 def _serve_lm_over_wire(flags, tag, preset):
@@ -2918,6 +2937,485 @@ def phase_variants(report, card, serve):
     return k1_total, k5_total
 
 
+PREFIX_LEN = 509
+
+
+def _prefix_workload(vocab):
+    """Phase 16's traffic: a 509-token system prompt from seed 16, and 24
+    requests whose own suffixes are 16-256 tokens with budgets of 16-64
+    (serve_lm's workload of seed 0, which its --connect client draws)."""
+    import numpy as np
+    from tony_tpu_torch import serve_lm
+    prefix = [int(t) for t in
+              np.random.RandomState(16).randint(0, vocab, PREFIX_LEN)]
+    suffixes, budgets = serve_lm.make_workload(0, 24, 256, 64, vocab,
+                                               min_prompt_len=16)
+    return prefix, [[int(t) for t in s] for s in suffixes], budgets
+
+
+def _near_ties(label, params, cfg, prompts, got, want, limit):
+    """(equal streams, [(request, first differing step, logit gap)]) of
+    ``got`` against ``want``: where a stream differs, the gap of the two
+    tokens' logits on ``want``'s decode path at that step; past ``limit``
+    fails (None: report only)."""
+    equal, diffs = 0, []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        if g == w:
+            equal += 1
+            continue
+        j = next(t for t, (a, b) in enumerate(zip(g, w)) if a != b)
+        lg = _decode_logits(params, cfg, p, w[:j + 1])[j]
+        gap = (lg[w[j]] - lg[g[j]]).abs().item()
+        diffs.append((i, j, round(gap, 7)))
+        if limit is not None and not gap <= limit:
+            fail(f"{label}: request {i} first differs at token {j} where "
+                 f"the logits are {gap:.3e} apart (limit {limit:g})")
+    return equal, diffs
+
+
+def _prefix_kernels(report):
+    """[16a] K1 against its plain version at the template prefill's [1,
+    P, 8, 64] bf16 causal, P in {1, 509}, at phase 3's limits; K5 at the
+    suffix extensions' rows (8 x S_b, S_b 16-256) and d 512."""
+    import torch
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    lo, ll = _k1_limits()[torch.bfloat16]
+    worst = [0.0, 0.0]
+    for s in (1, PREFIX_LEN):
+        q, k, v = _qkv(1, s, 8, 8, 64, torch.bfloat16, seed=1650 + s)
+        o, lse = A.flash_attention_with_lse(q, k, v, causal=True)
+        ro, rlse = A._dense_with_lse(q.float(), k.float(), v.float(),
+                                     causal=True, scale=None)
+        eo = (o.float() - ro).abs().max().item()
+        el = (lse - rlse).abs().max().item()
+        worst = [max(eo, worst[0]), max(el, worst[1])]
+        if not (eo <= lo and el <= ll):
+            fail(f"K1 disagrees with its plain version at [1, {s}, 8, 64]: "
+                 f"|o| {eo:.3e}, |lse| {el:.3e}")
+    k5 = 0.0
+    for rows in (8 * 16, 8 * 64, 8 * 256):
+        x, (w,) = _norm_inputs("rms", rows, 512, torch.bfloat16, 1660 + rows)
+        err = _ulps(N.rms_norm_forward(x, w), N.rms_norm_reference(x, w), 7,
+                    atol=1e-5)
+        k5 = max(k5, err)
+        if not err <= 1.0:
+            fail(f"K5 disagrees with its plain version at [{rows}, 512] "
+                 f"bf16: {err:.3e} ulp + 1e-5")
+    print(f"[16a] K1 vs plain at [1, P, 8, 64] bf16 causal, P in (1, "
+          f"{PREFIX_LEN}): max |o| err {worst[0]:.3e} (limit {lo:g}), |lse| "
+          f"{worst[1]:.3e} (limit {ll:g}); K5 at [8 x S_b, 512], S_b in (16,"
+          f" 64, 256): worst {k5:.3f} ulp + 1e-5 (limit 1)", flush=True)
+    report["kernels"] = dict(k1_worst=worst, k5_worst_ulps=k5)
+
+
+class _AdmitLog:
+    """Mixin: record every ``_admit_rows`` call (the admission programs'
+    arguments) so they can be replayed under the profiler."""
+
+    def _admit_rows(self, *args, **kw):
+        self.admit_log.append((args, kw))
+        return super()._admit_rows(*args, **kw)
+
+
+def _admission_cost(batcher, n_requests):
+    """(wall ms, device ms, top kernels by device time) per admitted
+    request of the admission programs a serve ran: its logged
+    ``_admit_rows`` calls replayed into the same batcher, synchronised
+    one by one (wall) and under torch.profiler (device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    log = list(batcher.admit_log)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args, kw in log:
+        batcher._admit_rows(*args, **kw)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args, kw in log:
+            batcher._admit_rows(*args, **kw)
+        torch.cuda.synchronize()
+    dev, _ = _device_times(prof)
+    device = sum(dev.values()) / 1e3
+    top = [(n[:40], round(us / 1e3 / n_requests, 4)) for n, us in
+           sorted(dev.items(), key=lambda kv: -kv[1])[:4]]
+    return wall / n_requests, (device / n_requests if device else None), top
+
+
+def _serve_lm_proc(preset, flags, tag):
+    """Start ``serve_lm --listen 127.0.0.1:0`` (``preset``, 8 slots) with
+    ``flags``; returns (process, port, the lines it printed up to the
+    serving line)."""
+    import re
+    env = dict(os.environ, PYTHONPATH=HERE)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset",
+         preset, "--slots", "8", "--max_new_tokens", "64", *flags,
+         "--listen", "127.0.0.1:0"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    while True:
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"phase 16: serve_lm {tag} exited before serving: "
+                 + "".join(lines)[-2000:])
+        lines.append(line)
+        m = re.search(r"serving \S+ \((.*)\) on 127\.0\.0\.1:(\d+)", line)
+        if m:
+            return proc, int(m.group(2)), lines
+
+
+def _stop_procs(procs):
+    import signal
+    for proc in procs:
+        proc.send_signal(signal.SIGTERM)
+    for proc in procs:
+        try:
+            proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+
+
+def _connect(preset, port, pfile, tag):
+    """``serve_lm --connect`` with phase 16's workload (every prompt the
+    prefix in ``pfile`` + its suffix); returns every stream."""
+    path = os.path.join(HERE, "chiprun_out", f"phase16_{tag}.json")
+    cli = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset",
+         preset, "--requests", "24", "--prompt_len", "256",
+         "--min_prompt_len", "16", "--max_new_tokens", "64", "--connect",
+         f"127.0.0.1:{port}", "--shared_prefix_file", pfile, "--outputs",
+         path], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0:
+        fail(f"phase 16: serve_lm --connect {tag} failed: "
+             f"{(cli.stdout + cli.stderr)[-2000:]}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def _template_ship_and_warm_boot(rep, preset, prefix, suffixes, budgets):
+    """[16e/16f] serve_lm as three processes: a cold replica B, a warm A
+    that makes the prefix resident and publishes its template to B, and
+    C booted from A's weights lane (with the prefix computed locally);
+    each serves the workload over --connect."""
+    import re
+    from tony_tpu_torch.serving.client import StreamingClient
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    pfile = os.path.join(out_dir, "phase16_prefix.txt")
+    with open(pfile, "w") as f:
+        f.write(" ".join(map(str, prefix)))
+    # every replica holds 509 + 256 + 64 = 829 positions a slot
+    procs = []
+    try:
+        b, bport, _ = _serve_lm_proc(preset, ["--prompt_len", "765"],
+                                     "B (cold)")
+        procs.append(b)
+        a, aport, alines = _serve_lm_proc(
+            preset, ["--prompt_len", "256", "--shared_prefix_file", pfile,
+             "--publish_prefix", f"127.0.0.1:{bport}"], "A (warm)")
+        procs.append(a)
+        m = re.search(r"published prefix \S+ to \S+ \((\d+) bytes in "
+                      r"([0-9.]+)s", "".join(alines))
+        if not m:
+            fail("phase 16e: A did not publish its template: "
+                 + "".join(alines)[-2000:])
+        t_bytes, t_wall = int(m.group(1)), float(m.group(2))
+        print(f"[16e] serve_lm A --shared_prefix_file --publish_prefix B: "
+              f"template {t_bytes} bytes published in {t_wall:.3f}s",
+              flush=True)
+        c, cport, clines = _serve_lm_proc(
+            preset, ["--prompt_len", "256", "--shared_prefix_file", pfile,
+             "--warm_from", f"127.0.0.1:{aport}"], "C (warm boot)")
+        procs.append(c)
+        m = re.search(r"warm boot: pulled weights \S+ from \S+ \((\d+) "
+                      r"bytes in ([0-9.]+)s", "".join(clines))
+        if not m:
+            fail("phase 16f: C's warm boot did not pull: "
+                 + "".join(clines)[-2000:])
+        w_bytes, w_wall = int(m.group(1)), float(m.group(2))
+        outs = {tag: _connect(preset, port, pfile, tag)
+                for tag, port in (("A", aport), ("B", bport), ("C", cport))}
+        stats = {}
+        for tag, port in (("A", aport), ("B", bport), ("C", cport)):
+            with StreamingClient("127.0.0.1", port) as cl:
+                stats[tag] = cl.stats()
+    finally:
+        _stop_procs(procs)
+    suffix_tokens = sum(len(s) for s in suffixes)
+    sb = stats["B"]
+    if [len(o or []) for o in outs["A"]] != budgets:
+        fail("phase 16e: a request to A did not get its budget")
+    if sb["prefix_admits"] != 24 or sb["prefill_tokens"] != suffix_tokens:
+        fail(f"phase 16e: B ran prefix forwards: prefix_admits "
+             f"{sb['prefix_admits']}, prefill_tokens {sb['prefill_tokens']} "
+             f"(suffix tokens {suffix_tokens})")
+    same_b = sum(x == y for x, y in zip(outs["B"], outs["A"]))
+    if same_b != 24:
+        fail(f"phase 16e: {24 - same_b} of B's streams differ from A's")
+    print(f"[16e] B (cold) "
+          f"served 24 requests with prefix_admits {sb['prefix_admits']}, "
+          f"prefill_tokens {sb['prefill_tokens']} = the suffixes' "
+          f"{suffix_tokens} (zero prefix forwards); 24/24 streams equal A's",
+          flush=True)
+    sa, sc = stats["A"], stats["C"]
+    same_c = sum(x == y for x, y in zip(outs["C"], outs["A"]))
+    if sc["weights_digest"] != sa["weights_digest"] or same_c != 24:
+        fail(f"phase 16f: C's digest {sc['weights_digest']} (A's "
+             f"{sa['weights_digest']}), {same_c}/24 streams equal A's")
+    print(f"[16f] serve_lm C --warm_from A: pulled {w_bytes} bytes in "
+          f"{w_wall:.3f}s; C advertises A's weights_digest "
+          f"{sc['weights_digest'][:12]}...; 24/24 streams equal A's",
+          flush=True)
+    rep.update(template_bytes=t_bytes, publish_wall_s=t_wall,
+               pull_bytes=w_bytes, pull_wall_s=w_wall,
+               b_prefill_tokens=sb["prefill_tokens"],
+               b_prefix_admits=sb["prefix_admits"])
+
+
+def phase_prefix(report, card, serve):
+    """[16] shared-prefix serving on the card: phase 5's ``small`` bf16,
+    a 509-token system prompt and 24 requests (suffixes 16-256, budgets
+    16-64) through 8 slots of 1024 positions, chunk 8, pipelined.
+    Returns (K1, K5) launches of the runs with the prefix resident."""
+    import threading
+
+    import torch
+    from tony_tpu_torch import serve_lm, tree_map
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.prefix import fingerprint
+    from tony_tpu_torch.serving.server import ServingServer
+    t_phase = time.perf_counter()
+    report["prefix"] = rep = {}
+    _prefix_kernels(rep)
+    cfg, params = serve["cfg"], serve["params"]
+    L = cfg.n_layers
+    prefix, suffixes, budgets = _prefix_workload(cfg.vocab_size)
+    prompts = [prefix + s for s in suffixes]
+    pid = fingerprint(prefix)
+    suffix_tokens = sum(len(s) for s in suffixes)
+
+    class Logged(_AdmitLog, S.ContinuousBatcher):
+        pass
+
+    def batcher(p=params, c=cfg, **kw):
+        b = Logged(p, c, batch=8, max_len=1024, chunk=8, **kw)
+        b.admit_log = []
+        return b
+
+    def counted(fn):
+        """(result, K1, K5, CALL_COUNTS) of ``fn`` with the counts from 0."""
+        torch.cuda.synchronize()
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+        S.CALL_COUNTS.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        _check_tc_variants("phase 16")
+        return (out, A.flash_forward.launches, N.rms_norm_forward.launches,
+                dict(S.CALL_COUNTS))
+
+    def timed_serve(b):
+        t0 = time.perf_counter()
+        out = b.serve(prompts, budgets)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 16b prefix-blind, then the prefix resident: the slice's main path
+    blind_b = batcher()
+    (blind, blind_wall), bk1, _, bcalls = counted(lambda: timed_serve(blind_b))
+    hit_b = batcher()
+
+    def resident_serve():
+        if not hit_b.install_prefix(pid, prefix):
+            fail("phase 16: install_prefix refused the prefix")
+        before = hit_b.prefill_forward_tokens
+        out = timed_serve(hit_b)
+        return out, hit_b.prefill_forward_tokens - before
+
+    ((hits, hit_wall), fwd), k1, k5, calls = counted(resident_serve)
+    want_k1, want_k5, admits = _expected_launches(cfg, None, 0)
+    if k1 != L or want_k1 != L or k5 != want_k5 or fwd != suffix_tokens:
+        fail(f"phase 16b: K1 {k1} (expected {L}, the template alone), K5 "
+             f"{k5} (expected {want_k5}); prefill tokens {fwd} over the "
+             f"serve (expected the suffixes' {suffix_tokens})")
+    if hit_b.prefix_admits != 24 or [len(o) for o in hits] != budgets or \
+            not all(0 <= t < cfg.vocab_size for o in hits for t in o):
+        fail("phase 16b: a request missed the prefix or its budget")
+    tokens = sum(budgets)
+    bw, bd, btop = _admission_cost(blind_b, 24)
+    hw, hd, htop = _admission_cost(hit_b, 24)
+    blind_admits = sum(c for (n, _), c in bcalls.items()
+                       if n == "admit_rows")
+    same16 = sum(a == b for a, b in zip(hits, blind))
+    bph = blind_b.phase_times.summary().get("admit", {})
+    hph = hit_b.phase_times.summary().get("admit", {})
+    print(f"[16b] small bf16, {PREFIX_LEN}-token prefix + suffixes of "
+          f"16-256 ({suffix_tokens} tokens), 24 requests, {tokens} tokens: "
+          f"prefix-blind {tokens / blind_wall:.1f} tokens/s (K1 {bk1} over "
+          f"{blind_admits} admit_rows calls); prefix resident "
+          f"{tokens / hit_wall:.1f} tokens/s, K1 {k1} (the template), K5 "
+          f"{k5}, prefill tokens {fwd} = the suffixes, {admits} "
+          f"prefix_admit_rows calls", flush=True)
+    print(f"[16b]   admission per admitted request: prefix-blind wall "
+          f"{bw:.3f} ms, device {_ms(bd)} (in the serve's admit phase "
+          f"{bph.get('total_s', 0) * 1e3 / 24:.3f} ms); prefix-hit wall "
+          f"{hw:.3f} ms, device {_ms(hd)} (in the serve "
+          f"{hph.get('total_s', 0) * 1e3 / 24:.3f} ms); bf16 streams "
+          f"prefix-hit vs prefix-blind: {same16}/24 equal", flush=True)
+    print(f"[16b]   admission device ms a request by kernel: prefix-blind "
+          f"{btop}; prefix-hit {htop}", flush=True)
+    rep["inprocess"] = dict(
+        tokens=tokens, blind_wall_s=blind_wall, hit_wall_s=hit_wall,
+        blind_tokens_per_s=tokens / blind_wall,
+        hit_tokens_per_s=tokens / hit_wall, k1=k1, k5=k5,
+        prefill_tokens=fwd, admit_calls=admits, blind_admit_calls=blind_admits,
+        blind_admit_wall_ms=bw, blind_admit_device_ms=bd,
+        hit_admit_wall_ms=hw, hit_admit_device_ms=hd,
+        blind_admit_top=btop, hit_admit_top=htop,
+        blind_admit_phase_ms=bph.get("total_s", 0) * 1e3 / 24,
+        hit_admit_phase_ms=hph.get("total_s", 0) * 1e3 / 24,
+        bf16_equal=same16)
+    k1_total, k5_total = k1, k5
+
+    # f32 on 8 requests: prefix-hit against prefix-blind, near-tie rule
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), params)
+    b32 = batcher(params32, cfg32)
+    b32.install_prefix(pid, prefix)
+    hit32 = b32.serve(prompts[:8], budgets[:8])
+    blind32 = batcher(params32, cfg32).serve(prompts[:8], budgets[:8])
+    e32, d32 = _near_ties("phase 16b f32", params32, cfg32, prompts[:8],
+                          hit32, blind32, 1e-4)
+    print(f"[16b]   f32, 8 requests: prefix-hit vs prefix-blind {e32}/8 "
+          f"equal, first differences (request, step, logit gap; limit "
+          f"1e-4) {d32}", flush=True)
+    rep["inprocess"].update(f32_equal=e32, f32_diffs=d32)
+    del b32
+
+    # 16c sampled behind the ServingServer, the prefix resident; half the
+    # ADMITs name the prefix, half are matched by their tokens; the
+    # engine admits nothing until all 24 are queued, so the class order
+    # seats every interactive request first (no preemption)
+    gate = threading.Event()
+
+    want = batcher(**SAMPLING)
+    want.install_prefix(pid, prefix)
+    want = want.serve(prompts, budgets)
+    classes = [S.QOS_CLASSES[i % 3] for i in range(24)]
+
+    def over_wire():
+        srv = ServingServer(S.ContinuousBatcher(params, cfg, batch=8,
+                                                max_len=1024, chunk=8,
+                                                **SAMPLING),
+                            registry=MetricsRegistry())
+        admit = srv.engine._admit_free
+
+        def gated_admit():
+            gate.wait(timeout=120)
+            return admit()
+
+        srv.engine._admit_free = gated_admit
+        port = srv.start()
+        try:
+            got = srv.install_prefix(prefix)
+            if got != pid:
+                fail(f"phase 16c: the server installed {got}, not {pid}")
+            with StreamingClient("127.0.0.1", port) as c:
+                t0 = time.perf_counter()
+                rids = [c.submit(p, n, request_class=cls,
+                                 prefix_id=pid if i % 2 == 0 else None)
+                        for i, (p, n, cls) in
+                        enumerate(zip(prompts, budgets, classes))]
+                deadline = time.time() + 60
+                while srv.engine.stats()["queue_depth"] < 24:
+                    if time.time() > deadline:
+                        fail("phase 16c: the ADMITs did not all arrive")
+                    time.sleep(0.005)
+                gate.set()
+                outs = [c.result(r, timeout=300)[0] for r in rids]
+                wall = time.perf_counter() - t0
+                stats = c.stats()
+        finally:
+            gate.set()
+            srv.stop(drain=True)
+        return outs, wall, stats
+
+    (outs, wall, stats), ck1, ck5, _ = counted(over_wire)
+    want_k1, want_k5, _ = _expected_launches(cfg, None, 0)
+    if outs != want:
+        bad = [i for i in range(24) if outs[i] != want[i]]
+        fail(f"phase 16c: sampled streams over the wire differ from the "
+             f"in-process prefix-hit serve in requests {bad}")
+    if (stats["prefix_admits"] != 24 or stats["preemptions"] != 0
+            or ck1 != want_k1 or ck5 != want_k5):
+        fail(f"phase 16c: prefix_admits {stats['prefix_admits']}, "
+             f"preemptions {stats['preemptions']}, K1 {ck1} (expected "
+             f"{want_k1}), K5 {ck5} (expected {want_k5})")
+    print(f"[16c] sampled (T 0.8, top-k 50, top-p 0.95), classes in "
+          f"rotation, behind the ServingServer: 24/24 streams equal the "
+          f"in-process prefix-hit serve (12 ADMITs naming the prefix, 12 "
+          f"matched); prefix_admits 24, prefill_tokens "
+          f"{stats['prefill_tokens']}; {tokens / wall:.1f} tokens/s; K1 "
+          f"{ck1}, K5 {ck5}", flush=True)
+    rep["sampled"] = dict(wall_s=wall, tokens_per_s=tokens / wall,
+                          k1=ck1, k5=ck5,
+                          prefill_tokens=stats["prefill_tokens"])
+    k1_total += ck1
+    k5_total += ck5
+
+    # 16d speculative: the tiny draft, k = 4, greedy
+    dcfg, dparams = serve_lm.build_draft("tiny", cfg, "cuda")
+
+    def spec(p, c, dp, dc, n):
+        b = S.SpeculativeContinuousBatcher(p, c, dp, dc, batch=8,
+                                           max_len=1024, num_speculative=4)
+        b.install_prefix(pid, prefix)
+        return b.serve(prompts[:n], budgets[:n]), b
+
+    (sp, sb), sk1, sk5, scalls = counted(
+        lambda: spec(params, cfg, dparams, dcfg, 24))
+    want_k1, want_k5, sadmits = _expected_launches(cfg, dcfg, 4)
+    spec_calls = sum(c for (n, _), c in scalls.items()
+                     if n == "spec_prefix_admit_rows")
+    if (sk1 != want_k1 or sk5 != want_k5 or spec_calls == 0
+            or sb.prefix_admits != 24 or [len(o) for o in sp] != budgets):
+        fail(f"phase 16d: K1 {sk1} (expected {want_k1}), K5 {sk5} "
+             f"(expected {want_k5}), {spec_calls} spec_prefix_admit_rows "
+             f"calls, prefix_admits {sb.prefix_admits}")
+    same_sp = sum(a == b for a, b in zip(sp, hits))
+    dcfg32 = dcfg.scaled(dtype=torch.float32)
+    dparams32 = tree_map(lambda v: v.float(), dparams)
+    sp32, _ = spec(params32, cfg32, dparams32, dcfg32, 8)
+    e, d = _near_ties("phase 16d f32", params32, cfg32, prompts[:8], sp32,
+                      hit32, 1e-4)
+    print(f"[16d] speculative (tiny draft, k 4, greedy), prefix resident: "
+          f"{spec_calls} spec_prefix_admit_rows calls, K1 {sk1} (both "
+          f"templates), K5 {sk5}; bf16 24 streams vs the prefix-hit serve: "
+          f"{same_sp}/24 equal; f32 8 requests: {e}/8 equal, first "
+          f"differences {d} (limit 1e-4)", flush=True)
+    rep["speculative"] = dict(k1=sk1, k5=sk5, calls=spec_calls,
+                              bf16_equal=same_sp, f32_equal=e, f32_diffs=d)
+    k1_total += sk1
+    k5_total += sk5
+    del params32, dparams32, sb, want, blind_b, hit_b
+    torch.cuda.empty_cache()
+
+    # 16e/16f: the template ship and the warm boot, as processes
+    _template_ship_and_warm_boot(rep, serve["preset"], prefix, suffixes,
+                                 budgets)
+    rep["wall_s"] = time.perf_counter() - t_phase
+    print(f"[16] phase wall {rep['wall_s']:.1f}s", flush=True)
+    return k1_total, k5_total
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -2956,22 +3454,24 @@ def main() -> int:
     mesh = phase_mesh(report, card)
     host_k1, host_k5 = phase_serving_host(report, card, serve)
     var_k1, var_k5 = phase_variants(report, card, serve)
+    pre_k1, pre_k5 = phase_prefix(report, card, serve)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
     # BERT run (phase 12), the mesh-path run (phase 13), the sampled
-    # serve over the wire (phase 14) and the five decode variants' serves
-    # (phase 15); K2 over the three training runs;
+    # serve over the wire (phase 14), the five decode variants' serves
+    # (phase 15) and the prefix-resident serves (phase 16: the template
+    # prefills); K2 over the three training runs;
     # K3a/K3b over the run with the budget at 0; K4 over the run with the
-    # fused optimizer; K5 over the serves of phases 5, 14 and 15 and the
-    # two LM training runs; K6 over the BERT run
+    # fused optimizer; K5 over the serves of phases 5, 14, 15 and 16 and
+    # the two LM training runs; K6 over the BERT run
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
-                      + host_k1 + var_k1)
+                      + host_k1 + var_k1 + pre_k1)
     bwd["fused"]["launches"] = counts["k2"] + bert["k2"] + mesh["k2"]
     bwd["dq"]["launches"] = counts["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"]
     k4["launches"] = counts["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
-                                + host_k5 + var_k5)
+                                + host_k5 + var_k5 + pre_k5)
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

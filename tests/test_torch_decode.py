@@ -132,8 +132,9 @@ def test_out_of_range_per_row_writes_drop():
 
 
 def test_unported_cache_kinds_raise():
-    """int8 and rolling caches are ported (tests/test_torch_decode_variants.py);
-    MoE decode and shared-prefix templates still raise."""
+    """int8 and rolling caches are ported (tests/test_torch_decode_variants.py)
+    and so are shared-prefix templates (tests/test_torch_prefix.py); MoE
+    decode still raises."""
     cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, num_experts=4)
     with pytest.raises(NotImplementedError):
         TD.init_kv_cache(cfg, 1, 8, device="cpu")
@@ -145,6 +146,6 @@ def test_unported_cache_kinds_raise():
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     from tony_tpu_torch.models import serve as TS
-    with pytest.raises(NotImplementedError):
-        TS.ContinuousBatcher(params, cfg, batch=1, max_len=8,
+    b = TS.ContinuousBatcher(params, cfg, batch=1, max_len=8,
                              shared_prefix=[1, 2])
+    assert b._prefix_template["k"].shape[:3] == (cfg.n_layers, 1, 2)

@@ -46,7 +46,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "runtime.tracing", "runtime.metrics", "serving.protocol",
                 "serving.client", "serving.server", "serving.weightstore",
                 "conf.keys", "models.quantize", "models.decode",
-                "models.weights", "generate"):
+                "models.weights", "generate", "channels.channel",
+                "serving.blobcodec", "serving.kvship", "serving.prefix"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -99,9 +100,9 @@ def test_serve_lm_without_device_raises_without_a_card(monkeypatch):
         serve_lm.main(["--preset", "tiny", "--listen", "127.0.0.1:0"])
 
 
-@pytest.mark.parametrize("flag", [["--warm_from", "h:1"],
+@pytest.mark.parametrize("flag", [["--route_decode", "h:1"],
                                   ["--route", "h:1"], ["--disaggregate"],
-                                  ["--shared_prefix_file", "p.txt"],
+                                  ["--drain", "h:1"],
                                   ["--role", "prefill"]])
 def test_serve_lm_refuses_unported_features(flag, capsys):
     from tony_tpu_torch import serve_lm

@@ -274,12 +274,13 @@ def test_floor_and_class_validation(params):
     eng = TS.ServeEngine(b, registry=M.MetricsRegistry())
     with pytest.raises(ValueError, match="unknown request class"):
         eng.submit(1, [1, 2], 4, request_class="gold")
-    with pytest.raises(NotImplementedError, match="prefix"):
-        eng.submit(1, [1, 2], 4, prefix_id="abc")
+    # an unknown prefix id is no error: the request serves prefix-blind
+    eng.submit(1, [1, 2], 4, prefix_id="abc")
+    assert eng.stats()["queue_depth"] == 1
     assert eng.stats()["class_floors"] == {c: 0 for c in TS.QOS_CLASSES}
-    with pytest.raises(NotImplementedError, match="shared-prefix"):
+    with pytest.raises(ValueError, match="shared_prefix must be non-empty"):
         TS.ContinuousBatcher(tp, TCFG, batch=2, max_len=32,
-                             shared_prefix=[1, 2])
+                             shared_prefix=[])
 
 
 def test_shed_past_queue_depth_interactive_exempt(params):

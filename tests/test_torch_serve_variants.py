@@ -304,8 +304,11 @@ def test_speculative_refusals(params):
     with pytest.raises(ValueError, match="vocab"):
         TS.SpeculativeContinuousBatcher(tp, TCFG, bad, bad_cfg, batch=2,
                                         max_len=32)
-    with pytest.raises(NotImplementedError, match="shared-prefix slice"):
-        TS.spec_prefix_admit_rows()
-    with pytest.raises(NotImplementedError):
-        TS.SpeculativeContinuousBatcher(tp, TCFG, tp, TCFG, batch=1,
+    # the legacy shared prefix builds both models' templates
+    b = TS.SpeculativeContinuousBatcher(tp, TCFG, tp, TCFG, batch=1,
                                         max_len=32, shared_prefix=[1, 2])
+    assert b._prefix_template["k"].shape[2] == 2
+    assert b._draft_prefix_template["k"].shape[2] == 2
+    with pytest.raises(ValueError, match="linear KV cache"):
+        TS.SpeculativeContinuousBatcher(
+            tp, TCFG.scaled(**RING), tp, TCFG, batch=1, max_len=32)

@@ -13,8 +13,8 @@ the JAX package's.
   un-servable or duplicate ADMIT → request-scoped ERROR; a disconnect
   cancels the client's requests and their slots readmit; CANCEL is
   idempotent; ``stop(drain=True)`` finishes in-flight requests;
-  ``kill()`` severs clients at once), plus PREFIX / WEIGHTS frames
-  answered with a request-scoped ERROR naming the lane;
+  ``kill()`` severs clients at once), plus the PREFIX / WEIGHTS lanes
+  answering their ops on one advertised hub port;
 - QoS on the wire: a classless ADMIT lands ``standard``, an unknown
   class is request-scoped, BUSY surfaces as ``ServerBusy`` and a retry
   budget recovers;
@@ -307,6 +307,11 @@ def test_streamed_tokens_match_reference(tp):
 
 
 def test_poll_mode_stats_and_unported_lanes(tp):
+    """Poll mode and STATS, and the prefix and weights lanes the server
+    now carries: PREFIX ``list`` and WEIGHTS ``list`` answer on their
+    rids, and HELLO advertises both lanes on one hub port. (The name
+    dates from when both lanes answered ERROR.)"""
+    from tony_tpu_torch.serving.weightstore import weights_rpc
     prompts = _prompts(5, (4, 4))
     srv = ServingServer(_batcher(tp), registry=M.MetricsRegistry())
     port = srv.start()
@@ -325,16 +330,20 @@ def test_poll_mode_stats_and_unported_lanes(tp):
             st = c.stats()
             assert st["slots"] == 2 and st["queue_depth"] == 0
             assert st["prefixes"] == [] and st["weights_resident"] == []
-            # the prefix and weights lanes answer request-scoped
-            with pytest.raises(ServingConnectionError, match="prefix lane"):
-                c.prefix_op("list")
-            with c._lock:
-                c._queues[99] = queue.Queue()
-            c._send(P.WEIGHTS, 99, P.pack_json({"op": "list"}))
-            ev = c.next_event(99, timeout=60)
-            assert ev[0] == "error" and "weights lane" in ev[1]
+            # both lanes on one hub port, advertised in HELLO
+            lane = c.hello["prefix_port"]
+            assert isinstance(lane, int) and lane > 0
+            assert c.hello["weight_port"] == lane == srv.prefix_port
+            assert c.prefix_op("list") == {"ok": True, "resident": []}
+            bad = c.prefix_op("frobnicate")
+            assert bad["ok"] is False and "unknown prefix op" in bad["error"]
             toks, _ = c.result(c.submit(prompts[1], 5))
             assert toks == _reference(tp, prompts[1], 5)
+        listed = weights_rpc(f"127.0.0.1:{port}", {"op": "list"})
+        assert listed["ok"] and listed["resident"] == [st["weights_digest"]]
+        assert listed["_hello"]["weight_port"] == lane
+        res = weights_rpc(f"127.0.0.1:{port}", {"op": "resident"})
+        assert res["resident"] == [st["weights_digest"]]
     finally:
         srv.stop(drain=True)
 
@@ -622,8 +631,10 @@ def test_wire_compatible_both_ways(params, sampling):
         jsrv.stop(drain=True)
     assert got == want
     assert set(hello) == set(jhello)
-    assert hello["prefixes"] == [] and hello["prefix_port"] is None
-    assert hello["weight_port"] is None
+    # both lanes advertised on one hub port, as the JAX server does
+    assert hello["prefixes"] == [] and hello["prefix_port"] > 0
+    assert hello["weight_port"] == hello["prefix_port"]
+    assert jhello["weight_port"] == jhello["prefix_port"] > 0
     assert hello["weights_resident"] == []
     assert hello["weights_digest"] == jax_tree_digest(jp)
     assert hello["weights_digest"] == tree_digest(tp)

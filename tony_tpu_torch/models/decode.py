@@ -493,6 +493,21 @@ def extend_step(params: dict, tokens, cache: dict, pos,
 
 
 @torch.no_grad()
+def extend_rows(params: dict, tokens, cache: dict, pos: int, lengths,
+                cfg: T.TransformerConfig):
+    """:func:`extend_step` of K right-padded chunks ``[K, S]`` at one
+    host position ``pos``, keeping only each row's last REAL position:
+    returns (logits ``[K, V]`` at positions ``lengths - 1`` of the
+    chunks, ``lengths`` a ``[K]`` tensor; the cache). The head runs on
+    those K rows alone, as :func:`prefill_rows`' does."""
+    x, cache = _blocks_forward(params, tokens, cache, pos, cfg)
+    x = rms_norm(x, params["final_norm"])
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    return _lm_head(x[rows, lengths.long() - 1], params["lm_head"],
+                    cfg), cache
+
+
+@torch.no_grad()
 def decode_step(params: dict, token, cache: dict, pos,
                 cfg: T.TransformerConfig, pos_range=None, window=None):
     """One decode step. token: ``[B]``; returns (logits ``[B, V]``, the

@@ -64,16 +64,26 @@ same per-request streams (the admission seed draw takes stream position
 Every batcher takes an int8 weight snapshot, an int8 KV cache and (the
 greedy and sampled one) a rolling cache, from the params and the config.
 
-Not ported yet: shared-prefix templates (resident prefixes, the prefix
-lane, and the speculative prefix admissions
-:func:`spec_prefix_admit_rows`, which raise), disaggregated
-prefill/decode (``submit_prefilled``, ``KVPackage``) and the goodput
-ledger.
+Shared prefixes: a prefix every request continues from (a system
+prompt) prefills ONCE into a K/V template (:func:`prefix_template`);
+admission copies it into the slot and runs only the request's suffix
+through the model — :func:`prefix_admit_rows`, a chunked extend against
+the copied history on the cached attention (the blockwise walk from 512
+rows up), token-identical to serving prefix + suffix in full wherever
+the two attention paths' f32 sums agree. Templates live in a resident
+store (:meth:`ContinuousBatcher.install_prefix`), land from a peer's
+shipped blob with zero prefix forwards, and pack for shipping
+(:meth:`ContinuousBatcher.export_prefix_blob`); the serving host's
+prefix lane moves them between replicas.
+
+Not ported yet: disaggregated prefill/decode (``submit_prefilled``,
+``KVPackage``) and the goodput ledger.
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 import time
 from typing import Sequence
@@ -86,9 +96,11 @@ from tony_tpu_torch.models.decode import (_check_draft_vocab, _check_no_ring,
                                           _filter_logits, _kv_bufs,
                                           _propose_and_verify,
                                           _propose_and_verify_sampled,
-                                          decode_step, init_kv_cache,
-                                          place_rows, prefill, prefill_rows,
+                                          decode_step, extend_rows,
+                                          init_kv_cache, place_rows,
+                                          prefill, prefill_rows,
                                           to_device)
+from tony_tpu_torch.models.weights import params_from_numpy
 from tony_tpu_torch.ops import prng
 from tony_tpu_torch.runtime import metrics as metrics_mod
 from tony_tpu_torch.runtime import tracing
@@ -189,6 +201,168 @@ def admit_rows(params, cache, logits, rows, prompts, lengths, cfg):
     _count_call("admit_rows", prompts.shape)
     lg, mini = prefill_rows(params, prompts, lengths, cfg)
     place_rows(cache, mini, rows, lengths)
+    _scatter_rows(logits, rows, lg)
+    return cache, logits
+
+
+@torch.no_grad()
+def prefix_template(params, prefix, cfg):
+    """Prefill a SHARED PREFIX once (a system prompt every request
+    continues from); returns the ``[L, 1, P, KV, hd]`` K/V template
+    (and an int8 cache's scales) :func:`prefix_admit_rows` copies into
+    each admitted slot. prefix: ``[P]`` ints. Rolling caches are
+    rejected up front: a ring buffer's rows are the capacity, which a
+    template consumer would misread as the prefix length."""
+    _check_no_ring(cfg, "prefix templates")
+    _count_call("prefix_template", (len(prefix),))
+    toks = to_device(np.asarray(prefix, np.int64)[None],
+                     params["embed"].device)
+    _, mini = prefill(params, toks, cfg, max_len=len(prefix))
+    return _kv_bufs(mini)
+
+
+class PrefixEntry:
+    """One RESIDENT shared prefix in a batcher's prefix store: the token
+    sequence (for matching and suffix splitting) plus its K/V
+    ``template`` (:func:`prefix_template`'s shape, on the batcher's
+    device). ``draft_template`` is the speculative batcher's draft-model
+    template (computed locally at install — template ships carry only
+    the target's K/V). Complete before it enters the store, immutable
+    after."""
+
+    __slots__ = ("id", "tokens", "template", "draft_template")
+
+    def __init__(self, prefix_id: str, tokens: list, template: dict,
+                 draft_template: dict | None = None) -> None:
+        self.id = prefix_id
+        self.tokens = tokens
+        self.template = template
+        self.draft_template = draft_template
+
+
+class _PrefixHit:
+    """Engine-side admission payload for a request that matched a
+    resident prefix: only ``suffix`` runs a forward; the prefix K/V come
+    from ``entry.template``."""
+
+    __slots__ = ("entry", "suffix")
+
+    def __init__(self, entry: PrefixEntry, suffix: list) -> None:
+        self.entry = entry
+        self.suffix = suffix
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A template buffer (numpy array — bfloat16 by dtype name — or
+    tensor) as a tensor, raising ``ValueError`` for a dtype the port
+    cannot hold."""
+    if isinstance(a, torch.Tensor):
+        return a
+    try:
+        return params_from_numpy(np.asarray(a), device="cpu")
+    except TypeError as e:
+        raise ValueError(f"template buffer: {e}") from None
+
+
+def validate_template_bufs(proto: dict, tokens, bufs: dict) -> dict:
+    """Validate a (possibly shipped) prefix template against a reference
+    cache's buffer layout ``proto`` (``_kv_bufs`` of a cache built from
+    the serving config): buffer-name set, dtypes, layer count and
+    trailing head dims must match, and the sequence extent must equal
+    the prefix length. Raises ``ValueError`` naming the mismatch —
+    request-scoped at the install path. Returns the buffers on
+    ``proto``'s device."""
+    p_len = len(tokens)
+    if set(bufs) != set(proto):
+        raise ValueError(
+            f"template buffers {sorted(bufs)} do not match this cache's "
+            f"layout {sorted(proto)} (quantization mismatch?)")
+    out = {}
+    for n, c in proto.items():
+        a = _host_tensor(bufs[n])
+        if a.dtype != c.dtype:
+            raise ValueError(f"template buffer {n!r} dtype {a.dtype} "
+                             f"!= cache dtype {c.dtype}")
+        if a.dim() != c.dim() or a.shape[0] != c.shape[0]:
+            layers = a.shape[0] if a.dim() else 0
+            raise ValueError(
+                f"template buffer {n!r} carries {layers} layers; this "
+                f"model has {c.shape[0]} (layer mismatch between "
+                f"producer and installer?)")
+        if a.shape[1] != 1 or a.shape[3:] != c.shape[3:]:
+            raise ValueError(f"template buffer {n!r} shape "
+                             f"{list(a.shape)} does not fit cache "
+                             f"{list(c.shape)}")
+        if a.shape[2] != p_len:
+            raise ValueError(f"template buffer {n!r} holds {a.shape[2]} "
+                             f"positions for a {p_len}-token prefix")
+        if c.device.type == "cuda" and a.device.type == "cpu":
+            # pinned: a pageable copy would wait for the queued chunks
+            a = a.pin_memory().to(c.device, non_blocking=True)
+        out[n] = a.to(c.device)
+    return out
+
+
+def _extend_rows_from_template(model_params, template, suffixes, lengths,
+                               model_cfg):
+    """Tile the prefix ``template`` across K rows and run all K
+    right-padded suffixes ``[K, S_b]`` through the model against it in
+    one chunked :func:`~tony_tpu_torch.models.decode.extend_rows`:
+    suffix queries attend the full prefix history exactly as a prefill
+    of prefix + suffix would. Each row's padding-tail K/V land beyond
+    its frontier (unreachable — the bucketed-admission argument).
+    Returns (per-row last-REAL-suffix-position logits ``[K, V]``, the
+    ``[L, K, P + S_b]``-row mini cache, per-row totals ``P +
+    lengths``)."""
+    p_len = template["k"].shape[2]
+    k_rows, s_len = suffixes.shape
+    mini = {n: torch.cat([x.expand(x.shape[0], k_rows, *x.shape[2:]),
+                          x.new_zeros((x.shape[0], k_rows, s_len)
+                                      + tuple(x.shape[3:]))], dim=2)
+            for n, x in template.items()}
+    lg, mini = extend_rows(model_params, suffixes, mini, p_len, lengths,
+                           model_cfg)
+    return lg, mini, (p_len + lengths).to(torch.int32)
+
+
+def _extend_from_template(model_params, template, suffix, model_cfg):
+    """:func:`_extend_rows_from_template` of ONE suffix ``[1, S]`` at its
+    exact length: (its last-position logits ``[1, V]``, the mini cache,
+    the total length P + S as an int)."""
+    s_len = suffix.shape[1]
+    lengths = torch.full((1,), s_len, dtype=torch.int32,
+                         device=suffix.device)
+    lg, mini, _ = _extend_rows_from_template(model_params, template,
+                                             suffix, lengths, model_cfg)
+    return lg, mini, template["k"].shape[2] + s_len
+
+
+@torch.no_grad()
+def prefix_admit_row(params, cache, logits, row: int, template, suffix,
+                     cfg):
+    """Admit a request that CONTINUES a shared prefix: its K/V come from
+    the precomputed ``template`` and only the request's ``suffix`` ``[1,
+    S]`` runs a forward (:func:`_extend_from_template`) — O(S) admission
+    compute instead of O(P + S). The exact-length arm; the batcher's
+    default is the bucketed :func:`prefix_admit_rows`."""
+    _count_call("prefix_admit_row", suffix.shape)
+    lg, mini, total = _extend_from_template(params, template, suffix, cfg)
+    _place_prefill(cache, mini, row, total)
+    logits[row] = lg[0].to(logits.dtype)
+    return cache, logits
+
+
+@torch.no_grad()
+def prefix_admit_rows(params, cache, logits, rows, template, suffixes,
+                      lengths, cfg):
+    """Bucketed, batched shared-prefix admission: K suffixes (one length
+    bucket, right-padded) continue the ``template`` and land in their
+    slots in one forward — the :func:`admit_rows` contract (sentinel
+    ``rows``, true ``lengths``) at O(suffix) cost."""
+    _count_call("prefix_admit_rows", suffixes.shape)
+    lg, mini, totals = _extend_rows_from_template(params, template,
+                                                  suffixes, lengths, cfg)
+    place_rows(cache, mini, rows, totals)
     _scatter_rows(logits, rows, lg)
     return cache, logits
 
@@ -294,14 +468,50 @@ def spec_admit_rows(params, draft_params, t_cache, d_cache, pending, rows,
     return t_cache, d_cache, pending
 
 
-def spec_prefix_admit_row(*args, **kw):
-    """Shared-prefix speculative admission: belongs to the shared-prefix
-    slice, not ported yet."""
-    raise NotImplementedError("speculative shared-prefix admission belongs "
-                              "to the shared-prefix slice (not ported yet)")
+@torch.no_grad()
+def spec_prefix_admit_row(params, draft_params, t_cache, d_cache, pending,
+                          row: int, t_template, d_template, suffix, key,
+                          cfg, draft_cfg, temperature: float = 0.0,
+                          top_k: int = 0, top_p: float = 0.0):
+    """Shared-prefix admission for the speculative batcher at the EXACT
+    suffix length ``[1, S]``: both models' prefix K/V come from their
+    templates and only the suffix runs a forward through each
+    (:func:`_extend_from_template`); the pending seed comes from the
+    target's last suffix position, the argmax or a draw with ``key``,
+    as in :func:`spec_admit_row`. The batcher's default is the bucketed
+    :func:`spec_prefix_admit_rows`."""
+    _count_call("spec_prefix_admit_row", suffix.shape)
+    lg, mini_t, total = _extend_from_template(params, t_template, suffix,
+                                              cfg)
+    _, mini_d, _ = _extend_from_template(draft_params, d_template, suffix,
+                                         draft_cfg)
+    _place_prefill(t_cache, mini_t, row, total)
+    _place_prefill(d_cache, mini_d, row, total)
+    keys = None if key is None else torch.as_tensor(key)[None]
+    pending[row] = _seed_tokens(lg, keys, temperature, top_k, top_p)[0]
+    return t_cache, d_cache, pending
 
 
-spec_prefix_admit_rows = spec_prefix_admit_row
+@torch.no_grad()
+def spec_prefix_admit_rows(params, draft_params, t_cache, d_cache, pending,
+                           rows, t_template, d_template, suffixes, lengths,
+                           keys, cfg, draft_cfg, temperature: float = 0.0,
+                           top_k: int = 0, top_p: float = 0.0):
+    """Bucketed, batched shared-prefix speculative admission: K suffixes
+    (one length bucket) continue both models' templates in one chunked
+    extend each (:func:`_extend_rows_from_template`) and land in their
+    slots, each slot's pending seeded from its true last suffix
+    position."""
+    _count_call("spec_prefix_admit_rows", suffixes.shape)
+    lg, mini_t, totals = _extend_rows_from_template(params, t_template,
+                                                    suffixes, lengths, cfg)
+    _, mini_d, _ = _extend_rows_from_template(draft_params, d_template,
+                                              suffixes, lengths, draft_cfg)
+    place_rows(t_cache, mini_t, rows, totals)
+    place_rows(d_cache, mini_d, rows, totals)
+    _scatter_rows(pending, rows,
+                  _seed_tokens(lg, keys, temperature, top_k, top_p))
+    return t_cache, d_cache, pending
 
 
 @torch.no_grad()
@@ -374,7 +584,17 @@ class ContinuousBatcher:
     (``bucketed_admission=False`` admits one row per forward). A rolling
     cache (``cfg.kv_cache_capacity``) admits each request at its exact
     length (:func:`admit_row_ring`) and lifts the ``max_len`` ceiling on
-    prompt + budget. ``shared_prefix`` is not ported yet and raises.
+    prompt + budget.
+
+    Shared prefixes: ``install_prefix`` makes a prefix RESIDENT (its K/V
+    template computed here, or landed from a peer's shipped template
+    with zero prefix forwards), and a request whose prompt properly
+    continues a resident prefix admits only its suffix through the model
+    (:func:`prefix_admit_rows` against the template). The legacy
+    ``shared_prefix=`` mode interprets EVERY prompt as a continuation of
+    one prefix. A rolling cache cannot host positional templates: it
+    serves prefix-blind (``install_prefix`` returns False, with one
+    warning); ``shared_prefix=`` on it raises.
     """
 
     #: first per-request stream position consumed by step_rows sampling
@@ -389,9 +609,6 @@ class ContinuousBatcher:
                  pipeline: bool = True,
                  bucketed_admission: bool = True) -> None:
         T._check_dense(cfg)
-        if shared_prefix is not None:
-            raise NotImplementedError(
-                "shared-prefix templates are not ported yet")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         self.params = params
@@ -403,6 +620,26 @@ class ContinuousBatcher:
         #: rolling KV cache: slots hold a ring of O(window) rows and
         #: requests may run past max_len (HELLO and STATS report it)
         self._ring = bool(cfg.kv_cache_capacity)
+        #: legacy shared-prefix mode: every prompt continues this prefix
+        #: (a suffix); its template prefills once, here
+        self.shared_prefix = (None if shared_prefix is None
+                              else [int(t) for t in shared_prefix])
+        if self.shared_prefix is not None:
+            if not self.shared_prefix:
+                raise ValueError("shared_prefix must be non-empty when "
+                                 "given")
+            # templates are positional; they do not survive wraparound
+            _check_no_ring(cfg, "shared-prefix caching")
+        self._prefix_template = (
+            prefix_template(params, self.shared_prefix, cfg)
+            if self.shared_prefix else None)
+        #: RESIDENT prefix templates: id -> PrefixEntry, only ever
+        #: grown, each entry complete before it is published
+        self._prefix_store: dict = {}
+        self._ring_prefix_warned = False
+        #: serializes a template's landing (install threads) with the
+        #: engine's admissions, which read the store and the counters
+        self._store_lock = threading.Lock()
         #: sampling controls (greedy by default); streams are per request
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -426,9 +663,11 @@ class ContinuousBatcher:
         #: speculative rounds run (0 for this batcher)
         self.rounds_executed = 0
         self.phase_times = PhaseTimes()
-        #: true prompt tokens run through a prefill forward at admission
+        #: true prompt/suffix tokens run through a prefill or extend
+        #: forward (a locally computed template included) vs prefix
+        #: positions satisfied by a template COPY, and the admissions
+        #: that took a resident template
         self.prefill_forward_tokens = 0
-        #: prefix-template accounting (no templates in the port: 0)
         self.prefix_copied_tokens = 0
         self.prefix_admits = 0
         self._reset_streams()
@@ -458,14 +697,132 @@ class ContinuousBatcher:
         them): ``fold_in(PRNGKey(seed), req)``."""
         return prng.fold_in(self._base_key, req)
 
+    # --- resident prefix templates (prefix-aware serving) ---
+
+    def install_prefix(self, prefix_id: str, tokens,
+                       template: dict | None = None) -> bool:
+        """Make a shared prefix RESIDENT: admissions whose prompt
+        continues ``tokens`` run only their suffix through the model
+        (:func:`prefix_admit_rows` against the stored template).
+        ``template`` None computes the prefill here (ONE forward); a
+        template shipped from a peer replica installs with ZERO prefix
+        forwards (:func:`validate_template_bufs` guards the layout). A
+        rolling cache degrades to prefix-blind serving with one warning
+        and returns False. Raises ``ValueError`` for empty tokens, no
+        room for a suffix, legacy ``shared_prefix`` mode, or a
+        mismatched template. Callable from any thread: the entry is
+        complete (the speculative batcher's draft template included)
+        before it enters the store, under the lock admissions take."""
+        tokens = [int(t) for t in tokens]
+        if not tokens:
+            raise ValueError("prefix tokens must be non-empty")
+        if self.shared_prefix is not None:
+            raise ValueError(
+                "legacy shared_prefix mode already interprets every "
+                "prompt as a continuation; per-request prefix "
+                "templates compose with plain batchers only")
+        if self._ring:
+            self._warn_ring("rolling (ring) caches cannot host prefix "
+                            "templates (positional K/V do not survive "
+                            "wraparound); serving prefix-blind")
+            return False
+        if len(tokens) + 2 > self.max_len:
+            raise ValueError(
+                f"prefix of {len(tokens)} tokens leaves no room for a "
+                f"suffix + generation under max_len {self.max_len}")
+        with self._store_lock:
+            if template is None:
+                template = prefix_template(self.params, tokens, self.cfg)
+                self.prefill_forward_tokens += len(tokens)
+            else:
+                template = validate_template_bufs(_kv_bufs(self.cache),
+                                                  tokens, template)
+            self._prefix_store[str(prefix_id)] = self._build_entry(
+                str(prefix_id), tokens, template)
+        return True
+
+    def _warn_ring(self, msg: str) -> None:
+        if not self._ring_prefix_warned:
+            self._ring_prefix_warned = True
+            logging.getLogger(__name__).warning(msg)
+
+    def _build_entry(self, prefix_id: str, tokens: list,
+                     template: dict) -> PrefixEntry:
+        """Entry construction hook: the speculative batcher adds the
+        draft-model template before the entry is published."""
+        return PrefixEntry(prefix_id, tokens, template)
+
+    def install_prefix_template(self, meta: dict, bufs: dict) -> str:
+        """Land an unpacked SHIPPED template (``kvship.unpack_template``
+        output): the vocab is checked against this model up front, so a
+        template of a differently-shaped model is a request-scoped
+        ``ValueError``, never garbage K/V. Returns the prefix id."""
+        if int(meta["vocab"]) != self.cfg.vocab_size:
+            raise ValueError(
+                f"template vocab {meta['vocab']} != this model's "
+                f"{self.cfg.vocab_size} (shipped from a different "
+                f"model?)")
+        if not self.install_prefix(meta["id"], meta["tokens"],
+                                   template=bufs):
+            raise ValueError("rolling-cache layout cannot host prefix "
+                             "templates (degraded prefix-blind)")
+        return str(meta["id"])
+
     def resident_prefixes(self) -> list:
-        """Resident prefix templates: none (not ported)."""
-        return []
+        """Ids of the installed prefix templates (advertised in HELLO and
+        STATS)."""
+        return sorted(self._prefix_store)
+
+    def export_prefix_blob(self, prefix_id: str) -> bytes:
+        """Pack the resident ``prefix_id`` for publication to a peer
+        replica (one device-to-host copy per buffer); raises
+        ``ValueError`` when not resident."""
+        from tony_tpu_torch.serving import kvship
+        entry = self._prefix_store.get(str(prefix_id))
+        if entry is None:
+            raise ValueError(f"prefix {prefix_id!r} is not resident")
+        return kvship.pack_template(entry.id, entry.tokens, entry.template,
+                                    self.cfg.vocab_size)
+
+    def _resolve_prefix(self, prefix_id, prompt) -> PrefixEntry | None:
+        """Resolve a submission against the resident store: the named
+        entry when ``prefix_id`` is given and the prompt properly
+        continues its tokens, else the LONGEST resident proper-prefix
+        match. None = serve prefix-blind (a miss is never an error)."""
+        if self._ring:
+            if prefix_id is not None:
+                self._warn_ring("prefix-id admission on a rolling (ring) "
+                                "cache; serving prefix-blind")
+            return None
+        if not self._prefix_store or self.shared_prefix is not None:
+            return None
+        if prefix_id is not None:
+            entry = self._prefix_store.get(prefix_id)
+            if (entry is not None and len(entry.tokens) < len(prompt)
+                    and prompt[:len(entry.tokens)] == entry.tokens):
+                return entry
+        from tony_tpu_torch.serving.prefix import match_prefix
+        entries = list(self._prefix_store.values())
+        pid = match_prefix(prompt, ((e.id, e.tokens) for e in entries))
+        return next((e for e in entries if e.id == pid), None) \
+            if pid is not None else None
 
     # --- admission (bucketed/batched with a per-row fallback) ---
 
     def _bucket_for(self, n: int) -> int:
-        return bucket_for(n, self.max_len)
+        """Padded admission length of an n-token prompt (a suffix in the
+        legacy shared-prefix mode) against the cache's admissible
+        length."""
+        cap = self.max_len - (len(self.shared_prefix)
+                              if self.shared_prefix else 0)
+        return bucket_for(n, cap)
+
+    @staticmethod
+    def _seq_of(payload):
+        """The tokens an admission payload runs through the model: the
+        whole prompt, or only the suffix of a prefix hit."""
+        return payload.suffix if isinstance(payload, _PrefixHit) \
+            else payload
 
     def _marshal_wave(self, pairs):
         """([batch] row targets, [batch, 2] stream keys or None) for
@@ -493,50 +850,90 @@ class ContinuousBatcher:
 
     def _pad_prompts_to(self, grp, prompts, bucket):
         """[batch, bucket] right-padded prompts and [batch] true lengths
-        for one bucket group (entries past the group are inert)."""
+        for one bucket group (entries past the group are inert); a
+        prefix hit pads its SUFFIX."""
         toks = np.zeros((self.batch, bucket), np.int64)
         lens = np.ones((self.batch,), np.int32)
         for i, (_, req) in enumerate(grp):
-            p = prompts[req]
+            p = self._seq_of(prompts[req])
             toks[i, :len(p)] = p
             lens[i] = len(p)
         return toks, lens
 
     def _admit_batch(self, pairs, prompts) -> None:
-        """Admit (row, request-index) pairs: group by length bucket and
-        land each group with one :func:`admit_rows` (one
-        :func:`admit_row` per pair when bucketing is off), then rebind
-        the rows' rng streams."""
+        """Admit (row, request-index) pairs: group by (resident prefix,
+        length bucket) and land each group with one :func:`admit_rows`
+        — :func:`prefix_admit_rows` for a prefix-hit group, which runs
+        only its suffixes (one admission per pair when bucketing is
+        off) — then rebind the rows' rng streams."""
         if not pairs:
             return
-        with self.phase_times.phase("admit"):
+        with self.phase_times.phase("admit"), self._store_lock:
             if self.bucketed_admission:
-                groups: dict[int, list] = {}
+                groups: dict[tuple, list] = {}
                 for row, req in pairs:
-                    groups.setdefault(self._bucket_for(len(prompts[req])),
-                                      []).append((row, req))
-                for bucket in sorted(groups):
-                    grp = groups[bucket]
+                    p = prompts[req]
+                    if isinstance(p, _PrefixHit):
+                        key = (p.entry.id, bucket_for(
+                            len(p.suffix),
+                            self.max_len - len(p.entry.tokens)))
+                    else:
+                        key = (None, self._bucket_for(len(p)))
+                    groups.setdefault(key, []).append((row, req))
+                for pid, bucket in sorted(groups, key=lambda k: (k[0] or "",
+                                                                 k[1])):
+                    grp = groups[(pid, bucket)]
+                    entry = (prompts[grp[0][1]].entry if pid is not None
+                             else None)
                     rows, keys = self._marshal_wave(grp)
                     toks, lens = self._pad_prompts_to(grp, prompts, bucket)
-                    self._admit_rows(rows, toks, lens, keys)
+                    self._admit_rows(rows, toks, lens, keys, entry=entry)
                     self._rebind_streams(grp, rows, keys)
             else:
                 for row, req in pairs:
                     self._admit_row(row, req, prompts[req])
                 rows, keys = self._marshal_wave(pairs)
                 self._rebind_streams(pairs, rows, keys)
-            self.prefill_forward_tokens += sum(len(prompts[req])
-                                               for _, req in pairs)
+            self._count_admission(pairs, prompts)
 
-    def _admit_rows(self, rows, toks, lens, keys) -> None:
+    def _count_admission(self, pairs, prompts) -> None:
+        """Fold admitted pairs into the prefill accounting: forward
+        tokens vs template-copied prefix positions (the legacy
+        shared-prefix mode's copies count too)."""
+        shared_p = len(self.shared_prefix) if self.shared_prefix else 0
+        for _, req in pairs:
+            p = prompts[req]
+            self.prefill_forward_tokens += len(self._seq_of(p))
+            if isinstance(p, _PrefixHit):
+                self.prefix_copied_tokens += len(p.entry.tokens)
+                self.prefix_admits += 1
+            elif shared_p:
+                self.prefix_copied_tokens += shared_p
+
+    def _template_of(self, entry):
+        """(target template, prefix length) of a group: the resident
+        entry's, the legacy shared prefix's, or (None, 0)."""
+        if entry is not None:
+            return entry.template, len(entry.tokens)
+        if self._prefix_template is not None:
+            return self._prefix_template, len(self.shared_prefix)
+        return None, 0
+
+    def _admit_rows(self, rows, toks, lens, keys, entry=None) -> None:
         """Land one bucket group (``keys``: the wave's stream keys, used
         by the speculative batcher's seed draws)."""
-        self.cache, self.logits = admit_rows(
-            self.params, self.cache, self.logits, rows,
-            to_device(toks, self.device), to_device(lens, self.device),
-            self.cfg)
-        self._set_host_len(rows, lens)
+        template, p_len = self._template_of(entry)
+        toks_d = to_device(toks, self.device)
+        lens_d = to_device(lens, self.device)
+        if template is not None:
+            self.cache, self.logits = prefix_admit_rows(
+                self.params, self.cache, self.logits, rows, template,
+                toks_d, lens_d, self.cfg)
+        else:
+            self.cache, self.logits = admit_rows(
+                self.params, self.cache, self.logits, rows, toks_d, lens_d,
+                self.cfg)
+        self._set_host_len(rows, lens + p_len)
 
     def _set_host_len(self, rows, lens) -> None:
         for row, n in zip(rows, lens):
@@ -544,21 +941,31 @@ class ContinuousBatcher:
                 self._host_len[row] = int(n)
 
     def _admit_row(self, row: int, req: int, prompt) -> None:
-        """Admit request ``req`` alone into slot ``row``: padded to its
-        bucket, or at its exact length into a rolling cache."""
-        n = len(prompt)
-        if self._ring:
+        """Admit request ``req`` alone into slot ``row``: a prefix hit's
+        (or the legacy mode's) suffix at its exact length against the
+        template, else padded to its bucket, or at its exact length into
+        a rolling cache."""
+        entry = prompt.entry if isinstance(prompt, _PrefixHit) else None
+        seq = self._seq_of(prompt)
+        n = len(seq)
+        template, p_len = self._template_of(entry)
+        if template is not None:
+            self.cache, self.logits = prefix_admit_row(
+                self.params, self.cache, self.logits, row, template,
+                to_device(np.asarray([seq], np.int64), self.device),
+                self.cfg)
+        elif self._ring:
             self.cache, self.logits = admit_row_ring(
                 self.params, self.cache, self.logits, row,
-                to_device(np.asarray([prompt], np.int64), self.device),
+                to_device(np.asarray([seq], np.int64), self.device),
                 self.cfg)
         else:
             padded = np.zeros((1, self._bucket_for(n)), np.int64)
-            padded[0, :n] = prompt
+            padded[0, :n] = seq
             self.cache, self.logits = admit_row(
                 self.params, self.cache, self.logits, row,
                 to_device(padded, self.device), n, self.cfg)
-        self._host_len[row] = n
+        self._host_len[row] = p_len + n
 
     # --- dispatch / fetch ---
 
@@ -599,16 +1006,33 @@ class ContinuousBatcher:
 
     def _validate_request(self, prompt, max_new: int) -> None:
         """Reject an empty prompt, a non-positive budget, or (linear
-        caches — a rolling cache has no length ceiling) prompt + budget
-        past ``max_len``."""
+        caches — a rolling cache has no length ceiling) shared prefix +
+        prompt + budget past ``max_len``."""
+        p_len = len(self.shared_prefix) if self.shared_prefix else 0
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         if max_new <= 0:
             raise ValueError(f"max_new_tokens must be positive, "
                              f"got {max_new}")
-        if not self._ring and len(prompt) + max_new > self.max_len:
-            raise ValueError(f"prompt {len(prompt)} + {max_new} new tokens "
-                             f"exceeds max_len {self.max_len}")
+        if not self._ring and p_len + len(prompt) + max_new > self.max_len:
+            raise ValueError(
+                (f"shared prefix {p_len} + " if p_len else "")
+                + f"prompt {len(prompt)} + {max_new} new tokens exceeds "
+                  f"max_len {self.max_len}")
+
+    def _validate_prefix_hit(self, hit: _PrefixHit, max_new: int) -> None:
+        """Validate a prefix-hit admission (resident template + suffix)
+        against the cache geometry (the suffix is non-empty by the
+        proper-prefix match)."""
+        total = len(hit.entry.tokens) + len(hit.suffix)
+        if max_new <= 0:
+            raise ValueError(f"max_new_tokens must be positive, "
+                             f"got {max_new}")
+        if total + max_new > self.max_len:
+            raise ValueError(
+                f"prefix {len(hit.entry.tokens)} + suffix "
+                f"{len(hit.suffix)} + {max_new} new tokens exceeds "
+                f"max_len {self.max_len}")
 
     def serve(self, prompts: Sequence, max_new_tokens):
         """Run all ``prompts`` (each a token sequence) to completion;
@@ -665,8 +1089,11 @@ class SpeculativeContinuousBatcher(ContinuousBatcher):
     (the lowest and the highest it can have reached), which bound the
     blockwise cache walk without reading the card.
 
-    The shared-prefix variants belong to the shared-prefix slice and
-    raise; a rolling cache is rejected (the verify is a chunk)."""
+    Shared prefixes admit through :func:`spec_prefix_admit_rows`: the
+    draft keeps its own per-slot K/V, so each resident prefix carries a
+    draft template too, computed locally at install (a shipped template
+    carries the target's K/V only). A rolling cache is rejected (the
+    verify is a chunk)."""
 
     #: stream position 0 is the admission seed draw; rounds start at 1
     _off0 = 1
@@ -690,6 +1117,10 @@ class SpeculativeContinuousBatcher(ContinuousBatcher):
                          bucketed_admission=bucketed_admission)
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
+        # the draft needs its own prefix template (its K/V dims differ)
+        self._draft_prefix_template = (
+            prefix_template(draft_params, self.shared_prefix, draft_cfg)
+            if self.shared_prefix else None)
         self.k = num_speculative
         self.d_cache = init_kv_cache(draft_cfg, batch, max_len,
                                      device=self.device)
@@ -713,27 +1144,60 @@ class SpeculativeContinuousBatcher(ContinuousBatcher):
             if row < self.batch:
                 self._host_hi[row] = int(n)
 
-    def _admit_rows(self, rows, toks, lens, keys) -> None:
+    def _build_entry(self, prefix_id: str, tokens: list,
+                     template: dict) -> PrefixEntry:
+        # the draft template is computed here, before the entry is
+        # published: a half-built entry must never be resolvable
+        return PrefixEntry(
+            prefix_id, tokens, template,
+            draft_template=prefix_template(self.draft_params, tokens,
+                                           self.draft_cfg))
+
+    def _draft_template_of(self, entry):
+        if entry is not None:
+            return entry.draft_template
+        return self._draft_prefix_template
+
+    def _admit_rows(self, rows, toks, lens, keys, entry=None) -> None:
         seed_keys = (None if keys is None
                      else to_device(prng.fold_in(keys, 0).numpy(),
                                     self.device))
-        self.cache, self.d_cache, self.pending = spec_admit_rows(
-            self.params, self.draft_params, self.cache, self.d_cache,
-            self.pending, rows, to_device(toks, self.device),
-            to_device(lens, self.device), seed_keys, self.cfg,
-            self.draft_cfg, self.temperature, self.top_k, self.top_p)
-        self._set_host_len(rows, lens)
+        template, p_len = self._template_of(entry)
+        toks_d = to_device(toks, self.device)
+        lens_d = to_device(lens, self.device)
+        if template is not None:
+            self.cache, self.d_cache, self.pending = spec_prefix_admit_rows(
+                self.params, self.draft_params, self.cache, self.d_cache,
+                self.pending, rows, template,
+                self._draft_template_of(entry), toks_d, lens_d, seed_keys,
+                self.cfg, self.draft_cfg, self.temperature, self.top_k,
+                self.top_p)
+        else:
+            self.cache, self.d_cache, self.pending = spec_admit_rows(
+                self.params, self.draft_params, self.cache, self.d_cache,
+                self.pending, rows, toks_d, lens_d, seed_keys, self.cfg,
+                self.draft_cfg, self.temperature, self.top_k, self.top_p)
+        self._set_host_len(rows, lens + p_len)
 
     def _admit_row(self, row: int, req: int, prompt) -> None:
         key = (to_device(prng.fold_in(self._req_key(req), 0).numpy(),
                          self.device) if self.sampled else None)
-        self.cache, self.d_cache, self.pending = spec_admit_row(
-            self.params, self.draft_params, self.cache, self.d_cache,
-            self.pending, row,
-            to_device(np.asarray([prompt], np.int64), self.device), key,
-            self.cfg, self.draft_cfg, self.temperature, self.top_k,
-            self.top_p)
-        self._set_host_len([row], [len(prompt)])
+        entry = prompt.entry if isinstance(prompt, _PrefixHit) else None
+        seq = to_device(np.asarray([self._seq_of(prompt)], np.int64),
+                        self.device)
+        template, p_len = self._template_of(entry)
+        if template is not None:
+            self.cache, self.d_cache, self.pending = spec_prefix_admit_row(
+                self.params, self.draft_params, self.cache, self.d_cache,
+                self.pending, row, template,
+                self._draft_template_of(entry), seq, key, self.cfg,
+                self.draft_cfg, self.temperature, self.top_k, self.top_p)
+        else:
+            self.cache, self.d_cache, self.pending = spec_admit_row(
+                self.params, self.draft_params, self.cache, self.d_cache,
+                self.pending, row, seq, key, self.cfg, self.draft_cfg,
+                self.temperature, self.top_k, self.top_p)
+        self._set_host_len([row], [p_len + seq.shape[1]])
 
     def _issue(self):
         with self.phase_times.phase("dispatch"):
@@ -947,8 +1411,17 @@ class ServeEngine:
             for c in QOS_CLASSES}
         self._prefill_tok_c = reg.counter(
             "tony_serve_prefill_tokens_total",
-            help="true prompt tokens run through a prefill forward at "
-                 "admission")
+            help="true prompt/suffix tokens run through a prefill or "
+                 "extend forward at admission (the prefill-FLOPs proxy "
+                 "the prefix fast path shrinks)")
+        self._prefix_tok_c = reg.counter(
+            "tony_serve_prefix_tokens_total",
+            help="prefix positions satisfied by a resident-template "
+                 "COPY instead of a forward (prefix-aware serving)")
+        self._prefix_admits_c = reg.counter(
+            "tony_serve_prefix_admits_total",
+            help="admissions that went through a resident prefix "
+                 "template (only suffix tokens ran the model)")
         self._qdepth_g.set(0)
         for g in self._qdepth_by_cls.values():
             g.set(0)
@@ -962,22 +1435,29 @@ class ServeEngine:
         """Enqueue a request under caller-chosen id ``rid`` (must not
         collide with a LIVE request's). Raises ``ValueError`` for an
         un-servable request or an unknown class, ``RuntimeError`` once
-        draining, :class:`EngineBusy` past the queue bound, and
-        ``NotImplementedError`` for a ``prefix_id`` (resident prefixes
-        are not ported). ``trace_ctx`` (``{"tid", "sid"}``) joins the
-        engine's spans to the submitter's trace; ``rng = (stream, off)``
-        pins the request's stream index with ``off`` positions already
-        consumed."""
+        draining, and :class:`EngineBusy` past the queue bound.
+        ``prefix_id`` optionally names a resident prefix the prompt
+        continues (the ADMIT frame's ``prefix``); the engine also
+        auto-matches the prompt against its resident store. A hit
+        admits only the SUFFIX through the model; a miss serves
+        prefix-blind, never an error. ``trace_ctx`` (``{"tid",
+        "sid"}``) joins the engine's spans to the submitter's trace;
+        ``rng = (stream, off)`` pins the request's stream index with
+        ``off`` positions already consumed."""
         prompt = [int(t) for t in prompt]
         max_new_tokens = int(max_new_tokens)
         if request_class not in QOS_CLASSES:
             raise ValueError(
                 f"unknown request class {request_class!r} (expected "
                 f"one of {', '.join(QOS_CLASSES)})")
-        if prefix_id is not None:
-            raise NotImplementedError(
-                "resident prefix templates are not ported yet")
-        self.b._validate_request(prompt, max_new_tokens)
+        entry = self.b._resolve_prefix(prefix_id, prompt)
+        if entry is None:
+            self.b._validate_request(prompt, max_new_tokens)
+            payload, attrs = prompt, {}
+        else:
+            payload = _PrefixHit(entry, prompt[len(entry.tokens):])
+            self.b._validate_prefix_hit(payload, max_new_tokens)
+            attrs = {"prefix": entry.id}
         shed = False
         with self._work:
             if self._draining or self._stopped:
@@ -992,7 +1472,8 @@ class ServeEngine:
             else:
                 stream = self._next_stream if rng is None else int(rng[0])
                 req = _EngineRequest(
-                    rid, prompt, max_new_tokens, stream, time.perf_counter(),
+                    rid, payload, max_new_tokens, stream,
+                    time.perf_counter(),
                     rng_skip=0 if rng is None else int(rng[1]),
                     cls=request_class)
                 if request_class == "batch":
@@ -1002,7 +1483,7 @@ class ServeEngine:
                                          prompt_tokens=len(prompt),
                                          budget=max_new_tokens,
                                          request_class=request_class,
-                                         prefilled=False)
+                                         prefilled=False, **attrs)
                 req.queued_span = tr.start_span("engine.queued",
                                                 parent=req.span)
                 if rng is None:
@@ -1191,10 +1672,17 @@ class ServeEngine:
             old.done = True
             old.reason = "preempted"
             # fold the WHOLE history into the prompt as submitted: a
-            # reincarnation's own prompt already holds its first history
-            new = _EngineRequest(old.rid,
-                                 list(old.base_prompt) + old.history,
-                                 old.budget, old.stream, old.t_submit,
+            # reincarnation's own prompt already holds its first history.
+            # A prefix hit stays a hit on the same resident entry, so its
+            # re-prefill stays suffix-only
+            base = old.base_prompt
+            if isinstance(base, _PrefixHit):
+                payload = _PrefixHit(base.entry,
+                                     list(base.suffix) + old.history)
+            else:
+                payload = list(base) + old.history
+            new = _EngineRequest(old.rid, payload, old.budget, old.stream,
+                                 old.t_submit,
                                  rng_skip=old.base_skip + old.emitted,
                                  cls="batch")
             new.emitted = old.emitted   # resumed deltas are inter-token
@@ -1257,15 +1745,23 @@ class ServeEngine:
                     req.first_span = tr.start_span("engine.first_token",
                                                    parent=req.span)
             b = self.b
-            before = b.prefill_forward_tokens
+            before = (b.prefill_forward_tokens, b.prefix_copied_tokens,
+                      b.prefix_admits)
             for req in admitted:
                 if req.rng_skip:
                     # consumed by _rebind_streams at this admission
                     b._stream_skip[req.stream] = req.rng_skip
             b._admit_batch(pairs, prompts)
             self._admitted_c.inc(len(admitted))
-            if b.prefill_forward_tokens > before:
-                self._prefill_tok_c.inc(b.prefill_forward_tokens - before)
+            # fold the batcher's host accounting into the registry (a
+            # concurrent local install's prefill counts here too)
+            for c, was, now in zip(
+                    (self._prefill_tok_c, self._prefix_tok_c,
+                     self._prefix_admits_c), before,
+                    (b.prefill_forward_tokens, b.prefix_copied_tokens,
+                     b.prefix_admits)):
+                if now > was:
+                    c.inc(now - was)
 
     def _consume(self, host_toks, snap) -> None:
         """Apply one fetched chunk under the occupancy it was ISSUED

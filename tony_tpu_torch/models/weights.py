@@ -10,7 +10,10 @@ imports ``ml_dtypes``. An int8 serving snapshot crosses too: a weight
 of the JAX package's quantized tree (a ``QuantizedWeight`` NamedTuple
 whose ``q``/``scale`` are numpy arrays after ``jax.device_get``) becomes
 the port's :class:`~tony_tpu_torch.models.quantize.QuantizedWeight`, and
-back as the port's NamedTuple of numpy arrays.
+back as the port's NamedTuple of numpy arrays. A tree may also hold
+torch tensors (a weight artifact landed by
+:func:`~tony_tpu_torch.serving.weightstore.pull_weights` keeps its
+bfloat16 leaves as tensors); they are moved as they are.
 """
 
 from __future__ import annotations
@@ -33,6 +36,11 @@ _NP_TO_TORCH = {
 
 
 def _leaf_from_numpy(a, device, dtype):
+    if isinstance(a, torch.Tensor):
+        t = a
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.int16)
@@ -47,9 +55,9 @@ def _leaf_from_numpy(a, device, dtype):
 
 
 def params_from_numpy(tree, device=None, dtype=None):
-    """numpy tree → torch tree on ``device`` (the card unless the caller
-    passes ``"cpu"``). ``dtype`` casts floating leaves (None keeps each
-    leaf's dtype). Nested dicts keep their keys."""
+    """numpy tree (or torch leaves) → torch tree on ``device`` (the card
+    unless the caller passes ``"cpu"``). ``dtype`` casts floating leaves
+    (None keeps each leaf's dtype). Nested dicts keep their keys."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}

@@ -37,12 +37,32 @@ The decode variants, alone or together, in every mode::
     python -m tony_tpu_torch.serve_lm --preset small --attn_window 256 \
         --kv_cache_capacity 384
 
+Shared prefixes: with ``--shared_prefix_file F`` (token ids, separated
+by whitespace or commas) every prompt continues that prefix. In process
+the prefix is resident and each admission runs only its suffix; a
+``--listen`` replica makes it resident (one local prefill) and with
+``--publish_prefix HOST:PORT`` ships the template to that peer's prefix
+lane, which then serves the prefix with zero prefix forwards; a
+``--connect`` client sends prompts that continue it (the replica
+matches them)::
+
+    python -m tony_tpu_torch.serve_lm --preset small --listen :7071
+    python -m tony_tpu_torch.serve_lm --preset small --listen :7070 \
+        --shared_prefix_file sys.txt --publish_prefix 127.0.0.1:7071
+    python -m tony_tpu_torch.serve_lm --preset small --connect :7071 \
+        --shared_prefix_file sys.txt
+
+Warm boot: ``--warm_from HOST:PORT`` pulls the params from a running
+replica's weights lane (digest-checked) instead of building them; if the
+pull fails it says so and falls back to the storage load.
+
 The client speaks to the JAX package's replicas and routers too, and
-theirs to this replica. ``--ckpt_dir`` serves the params of the port's
+theirs to this replica; the prefix and weights lanes cross between the
+packages the same way. ``--ckpt_dir`` serves the params of the port's
 own ``train_lm`` checkpoint. The model runs on the card in bf16 unless
 ``--device cpu`` is passed (then f32); with no card and no ``--device
 cpu`` it raises. Flags of the JAX script whose features are not ported
-(disaggregated, router, prefix, weights lane) fail with "not ported
+(disaggregated serving, the router, fleet drains) fail with "not ported
 yet".
 """
 
@@ -67,8 +87,7 @@ from tony_tpu_torch.models.serve import (QOS_CLASSES, ContinuousBatcher,
 #: flags of the JAX script whose features are not ported, with the value
 #: that leaves them off
 _NOT_PORTED = {"route": "", "route_decode": "", "role": "",
-               "disaggregate": False, "shared_prefix_file": "",
-               "publish_prefix": "", "warm_from": "", "drain": ""}
+               "disaggregate": False, "drain": ""}
 
 
 def make_workload(seed: int, requests: int, prompt_len: int,
@@ -88,19 +107,57 @@ def make_workload(seed: int, requests: int, prompt_len: int,
     return prompts, budgets
 
 
+def load_prefix_tokens(path: str) -> list[int]:
+    """Token ids from a whitespace- or comma-separated file: the shared
+    prefix (system prompt) the prefix paths install, publish and
+    continue."""
+    with open(path) as f:
+        toks = [int(t) for t in f.read().replace(",", " ").split()]
+    if not toks:
+        raise SystemExit(f"{path}: no tokens")
+    return toks
+
+
+def warm_boot(seeder: str, device=None):
+    """Params pulled from the running replica ``seeder``'s weights lane
+    (digest-checked), on ``device``; None when the pull fails — printed,
+    and the caller falls back to the storage load."""
+    from tony_tpu_torch.models.weights import params_from_numpy
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.weightstore import pull_weights
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    try:
+        meta, tree = pull_weights(seeder, registry=reg)
+    except Exception as e:              # noqa: BLE001 — degrade
+        print(f"warm boot from {seeder} failed ({e}); falling back to a "
+              f"storage load", flush=True)
+        return None
+    params = params_from_numpy(tree, resolve_device(device))
+    moved = int(reg.counter("tony_channel_bytes_total", channel="weights",
+                            direction="recv").value)
+    print(f"warm boot: pulled weights {meta['digest'][:12]}… from "
+          f"{seeder} ({moved} bytes in {time.perf_counter() - t0:.3f}s)",
+          flush=True)
+    return params
+
+
 def build(preset: str, device=None, ckpt_dir: str = "",
-          quantize: bool = False, **cfg_kw):
+          quantize: bool = False, params=None, **cfg_kw):
     """(cfg, params) for ``preset`` at full width on ``device``: bf16 on
     the card, f32 on the CPU, random weights from seed 0 — or, with
     ``ckpt_dir``, the params of the latest train-state checkpoint the
-    port's ``train_lm`` saved there, cast to the serving dtype.
-    ``cfg_kw`` sets the serving fields of the config (``kv_cache_dtype``,
-    ``attn_window``, ``kv_cache_capacity``); ``quantize`` returns the
-    int8 weight snapshot."""
+    port's ``train_lm`` saved there, cast to the serving dtype; or the
+    ``params`` given (a warm boot's). ``cfg_kw`` sets the serving fields
+    of the config (``kv_cache_dtype``, ``attn_window``,
+    ``kv_cache_capacity``); ``quantize`` returns the int8 weight
+    snapshot."""
     dev = resolve_device(device)
     cfg = T.PRESETS[preset].scaled(
         dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
         remat=False, **cfg_kw)
+    if params is not None:
+        return cfg, (quantize_weights_int8(params) if quantize else params)
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device=dev)
     if ckpt_dir:
@@ -174,7 +231,34 @@ def _parse_addr(addr: str) -> tuple[str, int]:
     return host or "127.0.0.1", int(port)
 
 
-def _run_server(args, batcher) -> int:
+def _install_and_publish(args, server, toks) -> None:
+    """--shared_prefix_file on a replica: make the prefix resident (ONE
+    local prefill); --publish_prefix also warms a peer replica with one
+    template ship over its prefix lane (the peer runs ZERO prefix
+    forwards)."""
+    from tony_tpu_torch.serving.client import StreamingClient
+
+    pid = server.install_prefix(toks)
+    if pid is None:
+        print("prefix NOT resident (rolling-cache layout); serving "
+              "prefix-blind", flush=True)
+        return
+    print(f"prefix {pid} resident ({len(toks)} tokens)", flush=True)
+    if args.publish_prefix:
+        host, port = _parse_addr(args.publish_prefix)
+        with StreamingClient(host, port) as peer:
+            lane = peer.hello.get("prefix_port")
+        if lane is None:
+            raise SystemExit(f"{args.publish_prefix} advertises no "
+                             f"prefix lane")
+        t0 = time.perf_counter()
+        n = server.publish_prefix(pid, f"{host}:{lane}")
+        print(f"published prefix {pid} to {host}:{lane} ({n} bytes in "
+              f"{time.perf_counter() - t0:.3f}s — the peer warmed without "
+              f"recomputing)", flush=True)
+
+
+def _run_server(args, batcher, shared) -> int:
     """--listen: drive the batcher's engine behind a streaming server
     until SIGINT or SIGTERM, then drain gracefully."""
     from tony_tpu_torch.serving.server import ServingServer
@@ -183,6 +267,8 @@ def _run_server(args, batcher) -> int:
     server = ServingServer(batcher, bind_host=host, port=port,
                            weights_version=args.weights_version or None)
     bound = server.start()
+    if shared:
+        _install_and_publish(args, server, shared)
     print(f"serving {args.preset} ({mode_of(batcher)}) on {host}:{bound} "
           f"with {args.slots} slots — ^C drains and exits", flush=True)
     stop = threading.Event()
@@ -300,6 +386,11 @@ def _run_client(args) -> int:
                                      args.prompt_len, args.max_new_tokens,
                                      T.PRESETS[args.preset].vocab_size,
                                      args.min_prompt_len or None)
+    if args.shared_prefix_file:
+        # prefix-heavy traffic: every prompt continues the shared prefix
+        # (no prefix id is sent; the replica matches the tokens)
+        shared = load_prefix_tokens(args.shared_prefix_file)
+        prompts = [shared + p for p in prompts]
     classes = None
     if args.mixed_classes:
         classes = [QOS_CLASSES[i % len(QOS_CLASSES)]
@@ -398,6 +489,20 @@ def main(argv=None) -> int:
                         help="with --connect: transparent re-admissions "
                              "per request when the server sheds it with "
                              "BUSY")
+    parser.add_argument("--shared_prefix_file", default="",
+                        metavar="FILE",
+                        help="token ids every prompt continues (a system "
+                             "prompt): resident in process and on a "
+                             "--listen replica, prepended by a --connect "
+                             "client")
+    parser.add_argument("--publish_prefix", default="", metavar="HOST:PORT",
+                        help="with --listen + --shared_prefix_file: ship "
+                             "the prefix template to this peer replica's "
+                             "prefix lane")
+    parser.add_argument("--warm_from", default="", metavar="HOST:PORT",
+                        help="pull the params from this running replica's "
+                             "weights lane instead of building them "
+                             "(falls back to the storage load)")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     # the JAX script's flags whose features are not ported yet
@@ -424,20 +529,31 @@ def main(argv=None) -> int:
                      "--connect")
     if args.weights_version and not args.listen:
         parser.error("--weights_version requires --listen")
+    if args.publish_prefix and not (args.shared_prefix_file
+                                    and args.listen):
+        parser.error("--publish_prefix requires --listen and "
+                     "--shared_prefix_file")
+    if args.warm_from and args.connect:
+        parser.error("--warm_from builds a replica's model; --connect "
+                     "has none")
     if args.listen and args.connect:
         parser.error("--listen and --connect are mutually exclusive")
 
     if args.connect:
         return _run_client(args)
+    warm = warm_boot(args.warm_from, args.device) if args.warm_from \
+        else None
     cfg, params = build(args.preset, args.device, args.ckpt_dir,
-                        quantize=args.quantize_weights,
+                        quantize=args.quantize_weights, params=warm,
                         kv_cache_dtype=args.kv_cache_dtype,
                         attn_window=args.attn_window,
                         kv_cache_capacity=args.kv_cache_capacity)
     if args.quantize_weights:
         print("serving with weight-only int8 matmul weights", flush=True)
+    shared = (load_prefix_tokens(args.shared_prefix_file)
+              if args.shared_prefix_file else [])
     kw = dict(batch=args.slots,
-              max_len=args.prompt_len + args.max_new_tokens,
+              max_len=len(shared) + args.prompt_len + args.max_new_tokens,
               temperature=args.temperature, top_k=args.top_k,
               top_p=args.top_p, seed=args.seed,
               pipeline=not args.no_pipeline,
@@ -451,10 +567,18 @@ def main(argv=None) -> int:
     else:
         batcher = ContinuousBatcher(params, cfg, **kw)
     if args.listen:
-        return _run_server(args, batcher)
+        return _run_server(args, batcher, shared)
     prompts, budgets = make_workload(args.seed, args.requests,
                                      args.prompt_len, args.max_new_tokens,
                                      cfg.vocab_size)
+    if shared:
+        # the admission fast path in process: a resident template,
+        # suffix-only admissions
+        from tony_tpu_torch.serving.prefix import fingerprint
+        prompts = [shared + p for p in prompts]
+        if batcher.install_prefix(fingerprint(shared), shared):
+            print(f"prefix resident locally ({len(shared)} tokens); "
+                  f"prefix-hit admissions run suffix-only", flush=True)
     serve(batcher, prompts, budgets)
     return 0
 
