@@ -144,7 +144,8 @@ result:
    token but for a first difference at a near-tie of the logits (1e-4;
    1e-2 for the int8 cache), in bf16 reported; and each variant once
    through ``serve_lm --listen`` and ``serve_lm --connect`` as two
-   processes, every stream equal to the in-process serve's;
+   processes, 8 requests of serve_lm's workload, every stream equal to
+   the in-process serve's of the same 8;
 16. shared-prefix serving: K1 against its plain version at the template
    prefill's [1, P, 8, 64] bf16 causal (P 1 and 509) and K5 at the
    suffix extensions' rows; then phase 5's model with a 509-token
@@ -164,6 +165,31 @@ result:
    streams, the template's bytes and publish wall; (f) ``serve_lm
    --warm_from`` booting from the warm replica's weights lane, its
    digest and streams the warm one's, the pull's bytes and wall;
+17. disaggregated prefill/decode and the router: (a) per admission
+   bucket S_b in {64, 128, 256, 512}, 8 prompts admitted colocated
+   (``admit_rows`` into slots r) and through prefill_ship_rows,
+   extract_kv_rows, the kvship codec, _validate_package and
+   land_kv_rows into slots r of a fresh cache — cache bytes over [0,
+   length), frontiers, logits and rng keys bitwise equal, in bf16, an
+   int8 cache and a 384-row ring with window 256 — and the bytes a row
+   ships beside the reckoning; (b) the router, a prefill tier and a
+   decode tier in process on the card (``serve_lm --disaggregate``'s
+   deployment): phase 5's 24 requests greedy (agreement with phase 5
+   reported), then the main path, sampled with the classes in rotation,
+   K1 and K5 counted from 0 and split by the thread that launched them
+   (the decode tier launches no K1; the prefill tier n_layers per wave),
+   f32 8 x 16 tokens against the colocated ``ServingServer`` behind a
+   router (near-tie rule), and the decode tier's launches, device and
+   wall ms a step with landing in place of admission; (c) ``serve_lm
+   --role prefill`` and ``--role decode`` as processes behind a
+   ``--route --route_decode`` router process against one colocated
+   ``serve_lm --listen`` behind a ``--route`` router, each driven by a
+   ``--connect --mixed_classes`` client: TTFT and ITL p50/p99 per class,
+   tokens/s, and from the tiers' STATS the ship and land wall and bytes;
+   (d) two decode processes: one SIGKILLed mid-stream, a third added,
+   the other drained by ``serve_lm --connect ROUTER --drain``: every
+   stream of its budget (bf16), and the same drill in process in f32
+   equal to the unfailed run (near-tie rule);
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -2147,8 +2173,8 @@ def _record_preemptions(engine) -> list:
     preempt = engine._preempt_locked
 
     def recording():
-        out = preempt()
-        points.extend((r.stream, r.emitted) for r in out)
+        requeued, evicted = out = preempt()
+        points.extend((r.stream, r.emitted) for r in requeued + evicted)
         return out
 
     engine._preempt_locked = recording
@@ -2533,6 +2559,10 @@ def phase_serving_host(report, card, serve):
 
 # phase 15: the decode variants behind serve_lm ---------------------------
 
+#: requests each variant serves through serve_lm --listen / --connect (8
+#: of phase 5's 24: the whole script stays inside its time limit)
+WIRE_REQUESTS = 8
+
 #: (label, serve_lm flags) of each variant, built from phase 5's weights
 VARIANTS = (
     ("int8 weights", ["--quantize_weights"]),
@@ -2685,12 +2715,12 @@ def _hold_vs_generate(label, parts, ref_cfg, prompts, budgets, limit):
                       solo, limit)
 
 
-def _serve_lm_over_wire(flags, tag, preset):
+def _serve_lm_over_wire(flags, tag, preset, requests):
     """``serve_lm --listen`` (small, 8 slots, 1024 positions a slot, the
-    variant's flags) and ``serve_lm --connect`` with phase 5's workload
-    (24 requests, prompts of 64-480 tokens, budgets 16-64), as two
-    processes; returns (every request's streamed tokens, the replica's
-    mode word, the client's wall seconds)."""
+    variant's flags) and ``serve_lm --connect`` with serve_lm's workload
+    of seed 0 (``requests`` requests, prompts of 64-480 tokens, budgets
+    16-64), as two processes; returns (every request's streamed tokens,
+    the replica's mode word, the client's wall seconds)."""
     import re
     import signal
     env = dict(os.environ, PYTHONPATH=HERE)
@@ -2716,7 +2746,8 @@ def _serve_lm_over_wire(flags, tag, preset):
             if m:
                 mode, port = m.group(1), m.group(2)
         t0 = time.perf_counter()
-        cli = subprocess.run(cmd + ["--requests", "24", "--prompt_len",
+        cli = subprocess.run(cmd + ["--requests", str(requests),
+                                    "--prompt_len",
                                     "480", "--min_prompt_len", "64",
                                     "--max_new_tokens", "64", "--connect",
                                     f"127.0.0.1:{port}", "--outputs", path],
@@ -2795,7 +2826,7 @@ def phase_variants(report, card, serve):
     the in-process serve). Returns (K1, K5) launches of the in-process
     serves."""
     import torch
-    from tony_tpu_torch import tree_leaves, tree_map
+    from tony_tpu_torch import serve_lm, tree_leaves, tree_map
     from tony_tpu_torch.models import serve as S
     from tony_tpu_torch.models.quantize import weight_bytes
     from tony_tpu_torch.ops import attention as A
@@ -2919,15 +2950,22 @@ def phase_variants(report, card, serve):
                   + extra, flush=True)
             del parts32
 
-        # once through serve_lm --listen / --connect
-        wire, mode, wwall = _serve_lm_over_wire(flags, tag, serve["preset"])
-        same = sum(a == b for a, b in zip(wire, outs))
+        # once through serve_lm --listen / --connect, at the depth of
+        # WIRE_REQUESTS (the whole script's time limit), against the
+        # in-process serve of the same requests
+        p_w, b_w = serve_lm.make_workload(0, WIRE_REQUESTS, 480, 64,
+                                          cfg.vocab_size, min_prompt_len=64)
+        want_w = _variant_batcher(parts).serve(p_w, b_w)
+        wire, mode, wwall = _serve_lm_over_wire(flags, tag, serve["preset"],
+                                                WIRE_REQUESTS)
+        same = sum(a == b for a, b in zip(wire, want_w))
         r.update(wire_equal=same, wire_mode=mode, wire_wall_s=wwall)
         print(f"[15{tag}]   serve_lm {' '.join(flags)} --listen / --connect "
-              f"(mode '{mode}'): {same}/24 streams equal the in-process "
-              f"serve; client wall {wwall:.2f}s ({tokens / wwall:.1f} "
-              f"tokens/s, the replica's first serve included)", flush=True)
-        if same != len(prompts):
+              f"(mode '{mode}'): {same}/{len(p_w)} streams equal the "
+              f"in-process serve; client wall {wwall:.2f}s "
+              f"({sum(b_w) / wwall:.1f} tokens/s, the replica's first serve "
+              f"included)", flush=True)
+        if same != len(p_w):
             fail(f"phase 15 {label}: streams over the wire differ from the "
                  f"in-process serve")
         rep[label] = r
@@ -3416,6 +3454,746 @@ def phase_prefix(report, card, serve):
     return k1_total, k5_total
 
 
+# phase 17: disaggregated prefill/decode and the router ------------------
+
+class _ThreadTally:
+    """An int-like launch count that also tallies each increment by the
+    thread that made it. The kernel wrappers count with ``wrapper.launches
+    += 1``; with this object in place of the int, that statement lands in
+    :meth:`__iadd__` under a lock, so the wrapper's own count stays exact
+    while two tiers launch from their own threads, and each tier's share
+    is read off by its thread's name."""
+
+    def __init__(self) -> None:
+        import collections
+        import threading
+        self.total = 0
+        self.by = collections.Counter()
+        self._lock = threading.Lock()
+
+    def __iadd__(self, n):
+        import threading
+        with self._lock:
+            self.total += n
+            self.by[threading.current_thread().name] += n
+        return self
+
+    def __int__(self) -> int:
+        return self.total
+
+    __index__ = __int__
+
+    def __eq__(self, other) -> bool:
+        return self.total == other
+
+    __hash__ = None
+
+
+def _tallies():
+    """Zero K1's and K5's counts as per-thread tallies; returns them."""
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    A.reset_launches()
+    A.flash_forward.launches = _ThreadTally()
+    N.rms_norm_forward.launches = _ThreadTally()
+    return A.flash_forward.launches, N.rms_norm_forward.launches
+
+
+def _untally():
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    A.reset_launches()
+    N.rms_norm_forward.launches = 0
+
+
+def _ship_chain(params, cfg, prompts, pairs, ring, seed):
+    """The disaggregated chain for K prompts landing in slots ``pairs``:
+    prefill_ship_rows (one K-row wave; a ring: prefill_ship_row each),
+    extract_kv_rows, kvship.pack_shipment and unpack_shipment,
+    _validate_package, then land_kv_rows into a fresh batcher. Returns
+    (the landed batcher, bytes of each shipment, header bytes of each)."""
+    import numpy as np
+    import torch
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.ops import prng
+    from tony_tpu_torch.serving import kvship
+    landed = S.ContinuousBatcher(params, cfg, batch=8, max_len=1024,
+                                 chunk=8, **SAMPLING)
+    lens = [len(p) for p in prompts]
+    if ring:
+        rows, lgs = [], []
+        for p in prompts:
+            lg, mini = S.prefill_ship_row(
+                params, D.to_device(np.asarray([p], np.int64), "cuda"), cfg)
+            rows += D.extract_kv_rows(mini, [mini["k"].shape[2]])
+            lgs.append(lg[0].cpu())
+    else:
+        s_b = S.bucket_for(max(lens), 1024)
+        toks = np.zeros((8, s_b), np.int64)
+        tl = np.ones((8,), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+            tl[i] = len(p)
+        lg, mini = S.prefill_ship_rows(params, D.to_device(toks, "cuda"),
+                                       D.to_device(tl, "cuda"), cfg)
+        rows = D.extract_kv_rows(mini, lens)
+        lgs = list(lg.cpu())
+    base = prng.PRNGKey(seed)
+    pkgs, sizes, heads = {}, [], []
+    for i, (bufs, lg) in enumerate(zip(rows, lgs)):
+        key = prng.fold_in(base, i).numpy().astype(np.uint32)
+        blob = kvship.pack_shipment(
+            kvship.pack_kv_meta(i + 1, 16, lens[i], key),
+            dict(bufs, logits=lg))
+        sizes.append(len(blob))
+        heads.append(4 + int.from_bytes(blob[:4], "little"))
+        meta, got = kvship.unpack_shipment(blob)
+        meta = kvship.parse_kv_meta(meta)
+        pkg = S.KVPackage(got, meta["length"], got.pop("logits"),
+                          meta["rng"], meta["rng_off"])
+        landed._validate_package(pkg, 16)
+        pkgs[i] = pkg
+    landed._land_group(pairs, pkgs)
+    torch.cuda.synchronize()
+    return landed, sizes, heads
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _landing_exactness(rep, params, cfg):
+    """[17a] per bucket S_b in {64, 128, 256, 512}: the same 8 prompts
+    admitted colocated (admit_rows into slots r) and through the shipping
+    chain into slots r of a fresh cache — the slots' cache bytes over [0,
+    length), frontiers, logits and rng keys bitwise equal; in bf16, an
+    int8 cache, and a 384-row ring with window 256 (per-row admission at
+    the exact length, the whole ring compared, 2 prompts a bucket)."""
+    import numpy as np
+    import torch
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import serve as S
+    L, kv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+    logit_bytes = cfg.vocab_size * torch.tensor(
+        [], dtype=cfg.logits_storage_dtype).element_size()
+    layouts = (("bf16", cfg, False),
+               ("int8", cfg.scaled(kv_cache_dtype="int8"), False),
+               ("ring", cfg.scaled(attn_window=256, kv_cache_capacity=384),
+                True))
+    out = {}
+    for label, c, ring in layouts:
+        proto = D.init_kv_cache(c, 1, 1, device="cpu")
+        per_tok = sum(t.numel() * t.element_size() for t in D._kv_bufs(
+            proto).values()) // proto["k"].shape[2]
+        checked, sizes, heads, reck = 0, [], [], []
+        for s_b in (64, 128, 256, 512):
+            rs = np.random.RandomState(1700 + s_b)
+            k = 2 if ring else 8
+            lens = rs.randint(s_b // 2 + 1, s_b + 1, size=k)
+            prompts = [[int(t) for t in rs.randint(0, cfg.vocab_size, n)]
+                       for n in lens]
+            pairs = [((3 * i + 1) % 8, i) for i in range(k)]
+            colo = S.ContinuousBatcher(params, c, batch=8, max_len=1024,
+                                       chunk=8, **SAMPLING)
+            colo._admit_prompts(pairs, dict(enumerate(prompts)))
+            landed, sz, hb = _ship_chain(params, c, prompts, pairs, ring,
+                                         SAMPLING["seed"])
+            for r, i in pairs:
+                n = c.kv_cache_capacity if ring else len(prompts[i])
+                for name, buf in D._kv_bufs(colo.cache).items():
+                    if not _same_bytes(landed.cache[name][:, r, :n],
+                                       buf[:, r, :n]):
+                        fail(f"phase 17a {label}: slot {r} buffer {name} "
+                             f"differs from colocated admission (S_b "
+                             f"{s_b}, length {len(prompts[i])})")
+                if (int(landed.cache["length"][r])
+                        != int(colo.cache["length"][r])
+                        or not _same_bytes(landed.logits[r], colo.logits[r])
+                        or not torch.equal(landed._row_keys[r],
+                                           colo._row_keys[r])
+                        or landed._host_len[r] != colo._host_len[r]):
+                    fail(f"phase 17a {label}: slot {r}'s frontier, logits "
+                         f"or rng key differ from colocated admission")
+                checked += 1
+                w = c.kv_cache_capacity if ring else len(prompts[i])
+                reck.append(per_tok * w + logit_bytes)
+            sizes += sz
+            heads += hb
+        out[label] = dict(rows=checked, bytes_per_token=per_tok,
+                          mean_bytes=float(np.mean(sizes)),
+                          mean_reckoned=float(np.mean(reck)),
+                          header_bytes=[min(heads), max(heads)],
+                          over=max(s - r for s, r in zip(sizes, reck)))
+        print(f"[17a] {label}: {checked} shipped rows bitwise equal to "
+              f"colocated admission over [0, length) with their frontiers, "
+              f"logits and rng keys (S_b 64-512); {per_tok} B per position "
+              f"({L} layers x k, v x {kv} kv heads x {hd}"
+              + (" + f32 scales" if label == "int8" else "")
+              + f") + {logit_bytes} B of logits + a header of "
+              f"{min(heads)}-{max(heads)} B: mean {np.mean(sizes):.0f} B a "
+              f"row against {np.mean(reck):.0f} B reckoned before the "
+              f"header", flush=True)
+    rep["landing"] = out
+
+
+def _stack(params, cfg, decode_batchers, regs, *, max_batch=8, seed=0):
+    """The in-process disaggregated deployment ``serve_lm
+    --disaggregate`` runs: a prefill tier, decode tiers and a router, on
+    127.0.0.1. Returns (router, prefill, decodes)."""
+    from tony_tpu_torch.serving.disagg import DecodeServer, PrefillServer
+    from tony_tpu_torch.serving.router import ServingRouter
+    pre = PrefillServer(params, cfg, max_len=1024, seed=seed,
+                        max_batch=max_batch, registry=regs[0])
+    decs = [DecodeServer(b, registry=regs[1]) for b in decode_batchers]
+    router = ServingRouter([f"127.0.0.1:{pre.start()}"],
+                           decode_replicas=[f"127.0.0.1:{d.start()}"
+                                            for d in decs],
+                           health_interval_s=0.2, registry=regs[2])
+    router.start()
+    return router, pre, decs
+
+
+def _stop_stack(router, pre, decs):
+    router.stop()
+    pre.stop()
+    for d in decs:
+        d.stop()
+
+
+def _stream(port, prompts, budgets, classes=None):
+    """(WorkloadStreams, wall) of the requests over one client."""
+    from tony_tpu_torch.serve_lm import WorkloadStreams
+    from tony_tpu_torch.serving.client import StreamingClient
+    with StreamingClient("127.0.0.1", port) as c:
+        run = WorkloadStreams(c)
+        for i, (p, n) in enumerate(zip(prompts, budgets)):
+            run.submit([p], [n], classes[i] if classes else None)
+        return run, run.wait()
+
+
+def _landing_per_step(params, cfg, prompts, budgets):
+    """Device launches, device ms and wall ms per decode step of a decode
+    tier's engine (landing included in place of phase 14g's prefill
+    admission): 8 packages shipped beforehand, adopted through
+    ``submit_prefilled`` and served under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.ops import prng
+    s_b = S.bucket_for(max(len(p) for p in prompts), 1024)
+    toks = np.zeros((8, s_b), np.int64)
+    tl = np.ones((8,), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+        tl[i] = len(p)
+    lg, mini = S.prefill_ship_rows(params, D.to_device(toks, "cuda"),
+                                   D.to_device(tl, "cuda"), cfg)
+    rows = D.extract_kv_rows(mini, [len(p) for p in prompts])
+    lgs = lg.cpu()
+    b = S.ContinuousBatcher(params, cfg, batch=8, max_len=1024, chunk=8)
+    engine = S.ServeEngine(b)
+    for i, n in enumerate(budgets):
+        key = prng.fold_in(prng.PRNGKey(0), i).numpy().astype(np.uint32)
+        engine.submit_prefilled(i, S.KVPackage(rows[i], len(prompts[i]),
+                                               lgs[i], key), n)
+    engine.drain()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, launches = _device_times(prof)
+    steps = b.steps_executed
+    return dict(launches=launches / steps,
+                device_ms=sum(dev.values()) / 1e3 / steps,
+                wall_ms=wall * 1e3 / steps, steps=steps,
+                top=sorted(dev.items(), key=lambda kv: -kv[1])[:4])
+
+
+def _in_process_stack(rep, card, serve):
+    """[17b] the router, a prefill tier and a decode tier in this
+    process on the card, as ``serve_lm --disaggregate`` runs them: phase
+    5's 24 requests greedy (agreement with phase 5 reported), then the
+    main path, sampled with the classes in rotation, K1 and K5 counted
+    from 0 and split by tier; f32, 8 requests of 16 tokens against the
+    colocated ServingServer behind a router (near-tie rule); the decode
+    tier's launches, device and wall ms a step. Returns (K1, K5)."""
+    import torch
+    from tony_tpu_torch import tree_map
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.router import ServingRouter
+    from tony_tpu_torch.serving.server import ServingServer
+    cfg, params = serve["cfg"], serve["params"]
+    prompts, budgets = serve["prompts"], serve["budgets"]
+    L, n = cfg.n_layers, len(prompts)
+
+    def batcher(p=params, c=cfg, **kw):
+        return S.ContinuousBatcher(p, c, batch=8, max_len=1024, chunk=8,
+                                   **kw)
+
+    # greedy, against phase 5's colocated streams
+    regs = [MetricsRegistry() for _ in range(3)]
+    stack = _stack(params, cfg, [batcher()], regs)
+    try:
+        run, wall = _stream(stack[0].port, prompts, budgets)
+    finally:
+        _stop_stack(*stack)
+    if [len(o or []) for o in run.outputs] != budgets:
+        fail("phase 17b: a greedy disaggregated request missed its budget")
+    g_same = sum(a == b for a, b in zip(run.outputs, serve["outputs"]))
+    g_lat = run.latency_ms()
+    print(f"[17b] greedy, disaggregated in process: {g_same}/{n} streams "
+          f"equal phase 5's colocated serve (bf16); {sum(budgets)} tokens "
+          f"in {wall:.3f}s ({sum(budgets) / wall:.1f} tokens/s); "
+          + _lat_text(g_lat), flush=True)
+    rep["greedy"] = dict(equal=g_same, wall_s=wall, latency_ms=g_lat,
+                         tokens_per_s=sum(budgets) / wall)
+
+    # the main path: sampled, classes in rotation, counts from 0
+    classes = [S.QOS_CLASSES[i % 3] for i in range(n)]
+    regs = [MetricsRegistry() for _ in range(3)]
+    stack = _stack(params, cfg, [batcher(**SAMPLING)], regs,
+                   seed=SAMPLING["seed"])
+    try:
+        torch.cuda.synchronize()
+        k1, k5 = _tallies()
+        S.CALL_COUNTS.clear()
+        run, wall = _stream(stack[0].port, prompts, budgets, classes)
+        torch.cuda.synchronize()
+        calls = dict(S.CALL_COUNTS)
+        variants = _check_tc_variants("phase 17b")["k1"]
+        k1_total, k5_total = int(k1), int(k5)
+        k1_by, k5_by = dict(k1.by), dict(k5.by)
+        dec_stats = stack[2][0].engine.stats()
+    finally:
+        _stop_stack(*stack)
+        _untally()
+    waves = sum(c for (name, _), c in calls.items()
+                if name == "prefill_ship_rows")
+    steps = sum(c * shape[1] for (name, shape), c in calls.items()
+                if name == "step_rows")
+    pk1 = k1_by.get("tony-prefill-worker", 0)
+    dk1 = k1_by.get("tony-decode-engine", 0)
+    pk5 = k5_by.get("tony-prefill-worker", 0)
+    dk5 = k5_by.get("tony-decode-engine", 0)
+    if dk1 != 0 or pk1 != L * waves or k1_total != pk1:
+        fail(f"phase 17b: K1 launches {k1_by} (total {k1_total}); expected "
+             f"{L} x {waves} waves at the prefill tier and none elsewhere")
+    if (pk5 != (2 * L + 1) * waves or dk5 != (2 * L + 1) * steps
+            or k5_total != pk5 + dk5):
+        fail(f"phase 17b: K5 launches {k5_by} (total {k5_total}); expected "
+             f"(2 x {L} + 1) x {waves} waves at the prefill tier and x "
+             f"{steps} decode steps at the decode tier")
+    if [len(o or []) for o in run.outputs] != budgets or not all(
+            0 <= t < cfg.vocab_size for o in run.outputs for t in o):
+        fail("phase 17b: a sampled disaggregated request missed its budget "
+             "or left the vocabulary")
+    want = batcher(**SAMPLING).serve(prompts, budgets)
+    s_same = sum(a == b for a, b in zip(run.outputs, want))
+    lat = {c: run.latency_ms(c) for c in S.QOS_CLASSES}
+    ship = regs[0].histogram("tony_kv_ship_seconds")
+    land = regs[1].histogram("tony_kv_land_seconds")
+    shipped = regs[0].counter("tony_kv_ship_bytes_total").value
+    print(f"[17b] sampled, classes in rotation (the main path): {s_same}/"
+          f"{n} streams equal the colocated in-process serve ("
+          f"{dec_stats['preemptions']} decode-tier preemptions); "
+          f"{sum(budgets)} tokens in {wall:.3f}s ({sum(budgets) / wall:.1f}"
+          f" tokens/s); K1 {k1_total} = {L} x {waves} prefill waves, all at "
+          f"the prefill tier ({variants['tensor_core']} tensor-core), 0 at "
+          f"the decode tier; K5 {k5_total}: prefill tier {pk5}, decode tier "
+          f"{dk5} over {steps} steps; {ship.count} shipments, "
+          f"{shipped / max(1, ship.count):.0f} B and "
+          f"{ship.sum / max(1, ship.count) * 1e3:.2f} ms (ship) + "
+          f"{land.sum / max(1, land.count) * 1e3:.2f} ms (land) each",
+          flush=True)
+    for c in S.QOS_CLASSES:
+        print(f"[17b]   {c}: " + _lat_text(lat[c]), flush=True)
+    rep["sampled"] = dict(equal=s_same, wall_s=wall, latency_ms=lat,
+                          k1=k1_total, k5=k5_total, k1_by_thread=k1_by,
+                          k5_by_thread=k5_by, waves=waves, steps=steps,
+                          ship_s=ship.sum / max(1, ship.count),
+                          land_s=land.sum / max(1, land.count),
+                          ship_bytes=shipped / max(1, ship.count),
+                          preemptions=dec_stats["preemptions"])
+
+    # f32: 8 requests of 16 tokens, disaggregated vs colocated, each
+    # behind a router
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), params)
+    p8, b8 = prompts[:8], [16] * 8
+    stack = _stack(params32, cfg32, [batcher(params32, cfg32)],
+                   [MetricsRegistry() for _ in range(3)])
+    try:
+        disagg, _ = _stream(stack[0].port, p8, b8)
+    finally:
+        _stop_stack(*stack)
+    srv = ServingServer(batcher(params32, cfg32), registry=MetricsRegistry())
+    router = ServingRouter([f"127.0.0.1:{srv.start()}"],
+                           registry=MetricsRegistry())
+    try:
+        router.start()
+        colo, _ = _stream(router.port, p8, b8)
+    finally:
+        router.stop()
+        srv.stop()
+    equal, diffs = _near_ties("phase 17b f32", params32, cfg32, p8,
+                              disagg.outputs, colo.outputs, 1e-4)
+    del params32
+    print(f"[17b] f32, 8 requests of 16 tokens: disaggregated {equal}/8 "
+          f"equal to the colocated ServingServer behind a router (first "
+          f"differences {diffs}, each a near-tie within 1e-4)", flush=True)
+    rep["f32"] = dict(equal=equal, diffs=diffs)
+
+    # the decode tier's step: landing in place of prefill admission
+    per = _landing_per_step(params, cfg, prompts[:8], budgets[:8])
+    print(f"[17b] decode tier, per decode step over {per['steps']} (landing "
+          f"included): {per['launches']:.1f} device launches, device "
+          f"{per['device_ms']:.3f} ms, wall {per['wall_ms']:.3f} ms; top: "
+          + "; ".join(f"{nm[:40]} {us / 1e3 / per['steps']:.3f} ms"
+                      for nm, us in per["top"]), flush=True)
+    rep["decode_per_step"] = per
+    return k1_total, k5_total
+
+
+def _spawn(argss):
+    """Start a ``serve_lm`` process for each argument list, at once."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    return [subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.serve_lm", *args], cwd=HERE,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for args in argss]
+
+
+def _await(procs, patterns, tag):
+    """The first group of each process's first line matching its
+    pattern (its address), in order; fails if one exits first."""
+    import re
+    out = []
+    for proc, pattern in zip(procs, patterns):
+        lines = []
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"phase 17: serve_lm {tag} exited before serving: "
+                     + "".join(lines)[-2000:])
+            lines.append(line)
+            m = re.search(pattern, line)
+            if m:
+                out.append(m.group(1))
+                break
+    return out
+
+
+_ADDR = r"on (127\.0\.0\.1:\d+)"
+
+#: phase 17's tier processes: a prefill tier, three decode tiers (17c
+#: serves through the first; 17d kills one of the first two, adds the
+#: third and drains the other) and one colocated replica (17c's
+#: comparison), each with the line that gives its address
+_TIERS = tuple(
+    (["--preset", "small", "--slots", "8", "--prompt_len", "960",
+      "--max_new_tokens", "64", "--listen", "127.0.0.1:0", *role], pattern)
+    for role, pattern in (
+        (["--role", "prefill"], "prefill tier.*" + _ADDR),
+        (["--role", "decode"], "decode tier.*" + _ADDR),
+        (["--role", "decode"], "decode tier.*" + _ADDR),
+        (["--role", "decode"], "decode tier.*" + _ADDR),
+        ([], r"serving \S+ .*" + _ADDR)))
+
+
+def _client(addr, tag, extra=()):
+    """``serve_lm --connect`` with phase 5's workload; returns (streams,
+    {label: latency line numbers}, tokens/s)."""
+    import re
+    path = os.path.join(HERE, "chiprun_out", f"phase17_{tag}.json")
+    cli = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset",
+         "small", "--requests", "24", "--prompt_len", "480",
+         "--min_prompt_len", "64", "--max_new_tokens", "64", "--connect",
+         addr, "--outputs", path, *extra], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+        text=True, timeout=600)
+    if cli.returncode != 0:
+        fail(f"phase 17: serve_lm --connect {tag} failed: "
+             f"{(cli.stdout + cli.stderr)[-2000:]}")
+    lat = {}
+    for m in re.finditer(r"(\w+)(?: \(\d+ reqs\))?: ttft p50 ([\d.]+) ms  p99 "
+                         r"([\d.]+) ms;  inter-token p50 ([\d.]+) ms  p99 "
+                         r"([\d.]+) ms", cli.stdout):
+        lat[m.group(1)] = dict(zip(("ttft_p50", "ttft_p99", "itl_p50",
+                                    "itl_p99"),
+                                   map(float, m.groups()[1:])))
+    tok_s = float(re.search(r"— ([\d.]+) tok/s", cli.stdout).group(1))
+    with open(path) as f:
+        return json.load(f), lat, tok_s
+
+
+def _tier_stats(addr):
+    from tony_tpu_torch.serving.client import StreamingClient
+    host, port = addr.rsplit(":", 1)
+    with StreamingClient(host, int(port)) as c:
+        return c.stats()
+
+
+def _tiers_as_processes(rep, serve, procs, addrs):
+    """[17c] ``serve_lm --role prefill`` and ``--role decode`` on the
+    card behind a ``--listen --route --route_decode`` router, a
+    ``--connect --mixed_classes`` client; the same traffic through a
+    router to one colocated ``serve_lm --listen`` replica. [17d] two
+    decode processes behind a router: one SIGKILLed mid-stream, a third
+    added, the other drained with ``serve_lm --connect ROUTER --drain``
+    while its sessions stream: every stream its budget, no token
+    duplicated or dropped."""
+    import signal
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.router import ServingRouter
+    pre, d1, d2, d3, colo = addrs
+    routers = []
+    try:
+        routers = _spawn([["--listen", "127.0.0.1:0", "--route", pre,
+                           "--route_decode", d1],
+                          ["--listen", "127.0.0.1:0", "--route", colo]])
+        r_dis, r_colo = _await(routers, ["routing " + _ADDR] * 2, "routers")
+        outs_d, lat_d, tps_d = _client(r_dis, "disagg", ["--mixed_classes"])
+        pst, dst = _tier_stats(pre), _tier_stats(d1)
+        outs_c, lat_c, tps_c = _client(r_colo, "colocated",
+                                       ["--mixed_classes"])
+    finally:
+        _stop_procs(routers)
+    budgets = serve["budgets"]
+    if [len(o or []) for o in outs_d] != budgets or \
+            [len(o or []) for o in outs_c] != budgets:
+        fail("phase 17c: a request through a router missed its budget")
+    same = sum(a == b for a, b in zip(outs_d, outs_c))
+    ship = pst["series"]["tony_kv_ship_seconds"]
+    land = dst["series"]["tony_kv_land_seconds"]
+    bytes_ = pst["series"]["tony_kv_ship_bytes_total"]
+    phases = dst["phases"]
+    host_ms = sum(v["total_s"] for v in phases.values()) * 1e3 / max(
+        1, dst["steps"])
+    print(f"[17c] tiers as processes, {len(budgets)} requests with the "
+          f"classes in rotation: disaggregated {tps_d:.1f} tokens/s, "
+          f"colocated {tps_c:.1f} tokens/s; {same}/{len(budgets)} streams "
+          f"equal; {ship['count']} shipments of {bytes_ / max(1, ship['count']):.0f}"
+          f" B, ship {ship['sum'] / max(1, ship['count']) * 1e3:.2f} ms and "
+          f"land {land['sum'] / max(1, land['count']) * 1e3:.2f} ms each "
+          f"(STATS); the decode tier's host wall {host_ms:.3f} ms a step over "
+          f"{dst['steps']} steps", flush=True)
+    for label in ("all", "interactive", "standard", "batch"):
+        for name, lat in (("disaggregated", lat_d), ("colocated", lat_c)):
+            v = lat.get(label)
+            if v:
+                print(f"[17c]   {label}, {name}: TTFT p50 {v['ttft_p50']} ms "
+                      f"p99 {v['ttft_p99']} ms, ITL p50 {v['itl_p50']} ms "
+                      f"p99 {v['itl_p99']} ms", flush=True)
+    rep["processes"] = dict(
+        disagg=dict(latency_ms=lat_d, tokens_per_s=tps_d),
+        colocated=dict(latency_ms=lat_c, tokens_per_s=tps_c), equal=same,
+        ships=ship["count"], ship_s=ship["sum"] / max(1, ship["count"]),
+        land_s=land["sum"] / max(1, land["count"]),
+        ship_bytes=bytes_ / max(1, ship["count"]),
+        decode_steps=dst["steps"], decode_host_ms_per_step=host_ms,
+        decode_phases=phases)
+
+    # 17d failover and drain, bf16, the tiers as processes. The drain is
+    # serve_lm's --connect --drain, run in a process started beforehand
+    # with its imports done (an interpreter's start would outlast the
+    # streams it is meant to migrate)
+    n, budget = 16, 256
+    prompts = serve["prompts"][:n]
+    drainer = subprocess.Popen(
+        [sys.executable, "-c", _DRAIN_HELPER], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    reg = MetricsRegistry()
+    router = ServingRouter([pre], decode_replicas=[d1, d2],
+                           health_interval_s=0.2, registry=reg)
+    try:
+        router.start()
+        from tony_tpu_torch.serving.client import StreamingClient
+        with StreamingClient("127.0.0.1", router.port) as c:
+            rids, got = _started_streams(c, prompts, budget)
+            reps = router.stats()["replicas"]
+            victim = max((d1, d2), key=lambda a: reps[a]["assigned"])
+            survivor = d2 if victim == d1 else d1
+            procs[(d1, d2).index(victim) + 1].send_signal(signal.SIGKILL)
+            router.add_replicas([d3], role="decode")
+            text, _ = drainer.communicate(
+                f"--connect 127.0.0.1:{router.port} --drain {survivor}\n",
+                timeout=300)
+            _collect_streams(c, rids, got)
+        outs = [got[r] for r in rids]
+        res = text.strip().splitlines()[-1] if text.strip() else ""
+        if (drainer.returncode != 0 or "'drained': True" not in res
+                or "'migrated': 0," in res):
+            fail(f"phase 17d: serve_lm --drain failed or migrated no live "
+                 f"session: {text[-2000:]}")
+        failovers = reg.counter("tony_router_failovers_total").value
+        migrations = reg.counter("tony_router_migrations_total").value
+    finally:
+        router.stop()
+        if drainer.poll() is None:
+            drainer.kill()
+            drainer.communicate()
+    if [len(o) for o in outs] != [budget] * n:
+        fail(f"phase 17d: streams of {[len(o) for o in outs]} tokens after "
+             f"the kill and the drain (every one should have {budget}: a "
+             f"token was duplicated or dropped)")
+    if not failovers:
+        fail("phase 17d: the kill caused no failover")
+    print(f"[17d] bf16 processes: decode {victim} SIGKILLed mid-stream, "
+          f"{d3} added, {survivor} drained ({res}); {n}/{n} streams of "
+          f"{budget} tokens, none duplicated or dropped; {failovers:.0f} "
+          f"failovers, {migrations:.0f} migrations", flush=True)
+    rep["failover_bf16"] = dict(streams=n, budget=budget,
+                                failovers=failovers, migrations=migrations,
+                                drain=res)
+
+
+#: ``serve_lm.main`` on the arguments of the first line of stdin, in a
+#: process whose imports are done before the line arrives
+_DRAIN_HELPER = ("import sys; from tony_tpu_torch import serve_lm; "
+                 "sys.exit(serve_lm.main(sys.stdin.readline().split()))")
+
+
+def _started_streams(c, prompts, budget):
+    """Submit; return once every stream has its first tokens."""
+    import queue
+    rids = [c.submit(p, budget) for p in prompts]
+    got = {r: [] for r in rids}
+    deadline = time.time() + 300
+    while any(not got[r] for r in rids) and time.time() < deadline:
+        for r in rids:
+            if not got[r]:
+                try:
+                    ev = c.next_event(r, timeout=0.01)
+                except queue.Empty:
+                    continue
+                if ev[0] != "tokens":
+                    fail(f"phase 17d: stream {r} ended early: {ev}")
+                got[r].extend(ev[1])
+    if any(not got[r] for r in rids):
+        fail("phase 17d: the streams never started")
+    return rids, got
+
+
+def _collect_streams(c, rids, got):
+    """Read every stream to its ONE terminal frame (RETIRED)."""
+    for r in rids:
+        while True:
+            ev = c.next_event(r, timeout=300)
+            if ev[0] == "tokens":
+                got[r].extend(ev[1])
+            elif ev[0] == "retired":
+                break
+            else:
+                fail(f"phase 17d: stream {r}: {ev}")
+
+
+def _failover_f32(rep, serve):
+    """[17d] the same drill in f32, the tiers in process (``kill()`` for
+    the loss): 8 requests of 128 tokens over two decode tiers of 4
+    slots, one killed mid-stream, a third added, the other drained;
+    every stream equal to the unfailed run (near-tie rule)."""
+    import torch
+    from tony_tpu_torch import tree_map
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.disagg import DecodeServer
+    cfg = serve["cfg"].scaled(dtype=torch.float32)
+    params = tree_map(lambda v: v.float(), serve["params"])
+    prompts, budget = serve["prompts"][:8], 128
+
+    class Paced(S.ContinuousBatcher):
+        def _fetch(self, handle):
+            time.sleep(0.02)            # keep the streams mid-flight
+            return super()._fetch(handle)
+
+    def decoder():
+        return Paced(params, cfg, batch=4, max_len=1024, chunk=8)
+
+    regs = [MetricsRegistry() for _ in range(3)]
+    stack = _stack(params, cfg, [decoder(), decoder()], regs, max_batch=4)
+    try:
+        unfailed, _ = _stream(stack[0].port, prompts, [budget] * 8)
+    finally:
+        _stop_stack(*stack)
+    regs = [MetricsRegistry() for _ in range(3)]
+    router, pre, decs = _stack(params, cfg, [decoder(), decoder()], regs,
+                               max_batch=4)
+    third = DecodeServer(decoder(), registry=regs[1])
+    try:
+        with StreamingClient("127.0.0.1", router.port) as c:
+            rids, got = _started_streams(c, prompts, budget)
+            reps = router.stats()["replicas"]
+            addrs = [f"127.0.0.1:{d.port}" for d in decs]
+            k = max(range(2), key=lambda i: reps[addrs[i]]["assigned"])
+            decs[k].kill()
+            router.add_replicas([f"127.0.0.1:{third.start()}"],
+                                role="decode")
+            res = c.drain_replica(addrs[1 - k])
+            _collect_streams(c, rids, got)
+        failovers = regs[2].counter("tony_router_failovers_total").value
+    finally:
+        _stop_stack(router, pre, decs + [third])
+    outs = [got[r] for r in rids]
+    if [len(o) for o in outs] != [budget] * 8 or not res.get("drained"):
+        fail(f"phase 17d f32: streams of {[len(o) for o in outs]} tokens, "
+             f"drain {res}")
+    equal, diffs = _near_ties("phase 17d f32", params, cfg, prompts, outs,
+                              unfailed.outputs, 1e-4)
+    print(f"[17d] f32 in process: a decode tier killed mid-stream, a third "
+          f"added, the other drained ({res['migrated']} migrated); "
+          f"{failovers:.0f} failovers; {equal}/8 streams of {budget} tokens "
+          f"equal to the unfailed run (first differences {diffs}, each a "
+          f"near-tie within 1e-4)", flush=True)
+    rep["failover_f32"] = dict(equal=equal, diffs=diffs,
+                               failovers=failovers, drain=res)
+
+
+def phase_disagg(report, card, serve):
+    """[17] disaggregated prefill/decode and the router on the card:
+    phase 5's ``small`` bf16, 8 slots of 1024 positions, chunk 8, phase
+    5's 24 requests. Returns (K1, K5) launches of the in-process main
+    path (17b's sampled serve)."""
+    t_phase = time.perf_counter()
+    report["disagg"] = rep = {}
+    # the tier processes boot while 17a runs (it measures no time)
+    procs = _spawn([args for args, _ in _TIERS])
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        _landing_exactness(rep, serve["params"], serve["cfg"])
+        addrs = _await(procs, [pat for _, pat in _TIERS], "tiers")
+        walls["17a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1, k5 = _in_process_stack(rep, card, serve)
+        walls["17b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _tiers_as_processes(rep, serve, procs, addrs)
+        walls["17c-d"] = time.perf_counter() - t0
+    finally:
+        _stop_procs(procs)
+    t0 = time.perf_counter()
+    _failover_f32(rep, serve)
+    walls["17d f32"] = time.perf_counter() - t0
+    rep["wall_s"] = time.perf_counter() - t_phase
+    rep["walls_s"] = walls
+    print(f"[17] phase wall {rep['wall_s']:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()) + ")",
+          flush=True)
+    return k1, k5
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -3455,23 +4233,25 @@ def main() -> int:
     host_k1, host_k5 = phase_serving_host(report, card, serve)
     var_k1, var_k5 = phase_variants(report, card, serve)
     pre_k1, pre_k5 = phase_prefix(report, card, serve)
+    dis_k1, dis_k5 = phase_disagg(report, card, serve)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
     # BERT run (phase 12), the mesh-path run (phase 13), the sampled
     # serve over the wire (phase 14), the five decode variants' serves
-    # (phase 15) and the prefix-resident serves (phase 16: the template
-    # prefills); K2 over the three training runs;
-    # K3a/K3b over the run with the budget at 0; K4 over the run with the
-    # fused optimizer; K5 over the serves of phases 5, 14, 15 and 16 and
-    # the two LM training runs; K6 over the BERT run
+    # (phase 15), the prefix-resident serves (phase 16: the template
+    # prefills) and the disaggregated serve (phase 17b: both tiers); K2
+    # over the three training runs; K3a/K3b over the run with the budget
+    # at 0; K4 over the run with the fused optimizer; K5 over the serves
+    # of phases 5, 14, 15, 16 and 17 and the two LM training runs; K6
+    # over the BERT run
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
-                      + host_k1 + var_k1 + pre_k1)
+                      + host_k1 + var_k1 + pre_k1 + dis_k1)
     bwd["fused"]["launches"] = counts["k2"] + bert["k2"] + mesh["k2"]
     bwd["dq"]["launches"] = counts["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"]
     k4["launches"] = counts["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
-                                + host_k5 + var_k5 + pre_k5)
+                                + host_k5 + var_k5 + pre_k5 + dis_k5)
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -47,12 +47,34 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "serving.client", "serving.server", "serving.weightstore",
                 "conf.keys", "models.quantize", "models.decode",
                 "models.weights", "generate", "channels.channel",
-                "serving.blobcodec", "serving.kvship", "serving.prefix"):
+                "serving.blobcodec", "serving.kvship", "serving.prefix",
+                "serving.disagg", "serving.router"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
            or m == "tony_tpu" or m.startswith("tony_tpu.")]
     assert bad == []
+
+
+def test_router_loads_no_model_stack():
+    """The router is deployable on a host with no model stack: its
+    module imports no torch, and importing it (with everything it
+    imports) leaves torch unloaded."""
+    path = os.path.join(REPO, "tony_tpu_torch", "serving", "router.py")
+    top = ast.parse(open(path, encoding="utf-8").read()).body
+    names = [a.name for n in top if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in top
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in names if m.split(".")[0] == "torch"], names
+    code = ("import sys, tony_tpu_torch.serving.router, "
+            "tony_tpu_torch.serving.client; "
+            "print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def _imports_of(path):
@@ -100,15 +122,117 @@ def test_serve_lm_without_device_raises_without_a_card(monkeypatch):
         serve_lm.main(["--preset", "tiny", "--listen", "127.0.0.1:0"])
 
 
-@pytest.mark.parametrize("flag", [["--route_decode", "h:1"],
-                                  ["--route", "h:1"], ["--disaggregate"],
-                                  ["--drain", "h:1"],
-                                  ["--role", "prefill"]])
-def test_serve_lm_refuses_unported_features(flag, capsys):
+class _StubReplica:
+    """A model-free TONYS1 replica: HELLO with a role, STATS with an idle
+    load — enough for a router to place on it and drain it."""
+
+    def __init__(self, role):
+        from tony_tpu_torch.serving import protocol as P
+        from tony_tpu_torch.serving.server import FrameServerBase
+
+        class Stub(FrameServerBase):
+            def _hello_payload(self):
+                return {"v": 1, "role": role, "slots": 2,
+                        "channel_port": 1}
+
+            def _handle_frame(self, conn, ftype, rid, payload):
+                if ftype == P.STATS:
+                    conn.send(P.STATS, 0, P.pack_json(
+                        {"queue_depth": 0, "active": 0, "slots": 2}))
+
+            def _on_conn_closed(self, conn):
+                pass
+
+        self.server = Stub()
+        self.addr = f"127.0.0.1:{self.server.start()}"
+
+    def stop(self):
+        self.server._stopping.set()
+        self.server._close_listener()
+        self.server._close_conns()
+
+
+def _route(monkeypatch, capsys, flags, roles):
+    """``serve_lm --listen --route ...`` over stub replicas: the router
+    comes up model-free (no card asked for), answers a client as a
+    router, and exits 0 on the signal."""
+    import re
     from tony_tpu_torch import serve_lm
-    with pytest.raises(SystemExit):
-        serve_lm.main(["--device", "cpu"] + flag)
-    assert "not ported yet" in capsys.readouterr().err
+    from tony_tpu_torch.serving.client import StreamingClient
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stubs = [_StubReplica(r) for r in roles]
+    seen = {}
+
+    def on_signal():
+        out = capsys.readouterr().out
+        host, port = re.search(r"routing on (\S+):(\d+)", out).groups()
+        with StreamingClient(host, int(port)) as c:
+            seen.update(hello=c.hello, stats=c.stats())
+        seen["out"] = out
+
+    monkeypatch.setattr(serve_lm, "_wait_for_signal", on_signal)
+    try:
+        argv = ["--listen", "127.0.0.1:0"]
+        for flag, n in flags:
+            argv += [flag, ",".join(s.addr for s in stubs[n])]
+        assert serve_lm.main(argv) == 0
+    finally:
+        for s in stubs:
+            s.stop()
+    assert seen["hello"]["router"] is True
+    assert set(seen["stats"]["replicas"]) == {s.addr for s in stubs}
+    return seen["out"]
+
+
+def _drain(monkeypatch, capsys):
+    """``serve_lm --connect ROUTER --drain REPLICA``: a client operation,
+    no model; the router fences the (idle) replica and reports."""
+    from tony_tpu_torch import serve_lm
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.router import ServingRouter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stubs = [_StubReplica("engine") for _ in range(2)]
+    router = ServingRouter([s.addr for s in stubs],
+                           registry=MetricsRegistry())
+    try:
+        port = router.start()
+        assert serve_lm.main(["--connect", f"127.0.0.1:{port}", "--drain",
+                              stubs[0].addr]) == 0
+        assert router.stats()["replicas"][stubs[0].addr]["draining"]
+    finally:
+        router.stop()
+        for s in stubs:
+            s.stop()
+    out = capsys.readouterr().out
+    assert f"drain {stubs[0].addr}: " in out and "'drained': True" in out
+
+
+@pytest.mark.parametrize("flag", ["role-prefill", "role-decode",
+                                  "disaggregate", "route",
+                                  "route-route_decode", "drain"])
+def test_serve_lm_fleet_flags(flag, monkeypatch, capsys):
+    """The fleet flags of the JAX script: the model roles resolve the
+    device as every entry point does (no card and no ``--device cpu``:
+    they raise), the router and the drain load no model and touch no
+    device."""
+    from tony_tpu_torch import serve_lm
+    if flag in ("role-prefill", "role-decode", "disaggregate"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        argv = (["--disaggregate"] if flag == "disaggregate" else
+                ["--role", flag.split("-")[1], "--listen", "127.0.0.1:0"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_lm.main(["--preset", "tiny"] + argv)
+    elif flag == "route":
+        out = _route(monkeypatch, capsys, [("--route", slice(0, 2))],
+                     ["engine", "engine"])
+        assert "over 2 replicas" in out
+    elif flag == "route-route_decode":
+        out = _route(monkeypatch, capsys, [("--route", slice(0, 1)),
+                                           ("--route_decode", slice(1, 2))],
+                     ["prefill", "decode"])
+        assert "over 1 prefill + 1 decode replicas" in out
+    else:
+        _drain(monkeypatch, capsys)
 
 
 def test_generate_and_draft_without_device_raise_without_a_card(

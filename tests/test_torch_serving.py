@@ -142,11 +142,13 @@ def test_serving_keys_equal_the_jax_package_keys():
     from tony_tpu.conf import keys as JK
     from tony_tpu_torch.conf import keys as TK
     names = [n for n in dir(TK) if n.endswith("_KEY")]
-    assert len(names) == 6
+    assert len(names) == 8
+    defaults = dict(TK.SERVE_DEFAULTS, **TK.ROUTER_DEFAULTS)
     for n in names:
         assert getattr(TK, n) == getattr(JK, n), n
-        assert TK.SERVE_DEFAULTS[getattr(TK, n)] == JK.DEFAULTS[getattr(JK, n)]
-    assert set(TK.SERVE_DEFAULTS) == {getattr(TK, n) for n in names}
+        assert defaults[getattr(TK, n)] == JK.DEFAULTS[getattr(JK, n)]
+    assert set(defaults) == {getattr(TK, n) for n in names}
+    assert not set(TK.SERVE_DEFAULTS) & set(TK.ROUTER_DEFAULTS)
 
 
 def test_engine_defaults_are_the_serving_keys_defaults(tp):

@@ -14,13 +14,14 @@ with no card and no explicit CPU they raise (:func:`resolve_device`).
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another. Raises when the card is asked for (explicitly or by
-    default) and there is none — never falls back to the CPU."""
+    default) and there is none — never falls back to the CPU. (torch is
+    imported here, not with the package: the router and the wire codecs
+    run on hosts with no model stack.)"""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

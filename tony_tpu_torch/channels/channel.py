@@ -90,11 +90,10 @@ import time
 from collections import OrderedDict, deque
 
 import numpy as np
-import torch
 
 from tony_tpu_torch.runtime import metrics as metrics_mod
-from tony_tpu_torch.serving.blobcodec import (BF16, from_wire, np_dtype,
-                                              wire_array)
+from tony_tpu_torch.serving.blobcodec import (BF16, from_wire, is_tensor,
+                                              np_dtype, wire_array)
 from tony_tpu_torch.serving.protocol import (BODY_HEADER_BYTES, ProtocolError,
                                        frame_header, pack_json, recv_exact,
                                        recv_frame, send_frame, set_nodelay,
@@ -214,12 +213,14 @@ def _check_codec(codec: str, what: str) -> str:
 def _f32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
     """float32 -> the int16 payload of its bfloat16 rounding (to nearest
     even, as ``ml_dtypes``' cast rounds)."""
+    import torch
     t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return t.to(torch.bfloat16).view(torch.int16).numpy()
 
 
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     """The int16 payload of bfloat16 values -> float32 (exact)."""
+    import torch
     t = torch.from_numpy(np.array(bits, np.int16, copy=True))
     return t.view(torch.bfloat16).float().numpy()
 
@@ -228,6 +229,7 @@ def _restore(f32: np.ndarray, dtype: str):
     """A float32 decode cast to the frame's original ``dtype``: a
     ``torch.bfloat16`` tensor for bfloat16, else a numpy array."""
     if dtype == BF16:
+        import torch
         return torch.from_numpy(np.ascontiguousarray(f32)).to(
             torch.bfloat16)
     return f32.astype(np_dtype(dtype))
@@ -658,7 +660,7 @@ class ChannelSender:
         ``sync=True`` — until the peer acked this frame."""
         t0 = time.perf_counter()
         deadline = None if timeout is None else time.monotonic() + timeout
-        if not isinstance(arr, torch.Tensor):
+        if not is_tensor(arr):
             arr = np.asarray(arr)
         logical_bytes = arr.nbytes
         # encode BEFORE the window: _unacked retains only the encoded

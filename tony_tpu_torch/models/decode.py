@@ -603,6 +603,34 @@ def place_rows(cache: dict, mini: dict, rows, lengths) -> dict:
     return cache
 
 
+def extract_kv_rows(mini: dict, widths) -> list[dict]:
+    """Per-row HOST copies of a K-row mini cache's buffers — the
+    extraction half of a disaggregated KV shipment (:func:`place_rows`
+    and ``serve.land_kv_rows`` are the landing halves). Row ``i`` ships
+    the first ``widths[i]`` positions of every buffer (k/v, and an int8
+    cache's scales, quantized as stored): the true prompt length for a
+    linear cache (the bucket padding past the frontier is unreachable),
+    the whole capacity for a ring (whose positional wrap only a
+    whole-slot landing keeps). Each row's buffers are packed side by
+    side on the device and cross to the host in ONE copy. Returns one
+    ``{name: CPU tensor [L, 1, w, KV, hd]}`` per row (a bf16 buffer
+    stays ``torch.bfloat16``)."""
+    bufs = _kv_bufs(mini)
+    out = []
+    for i, w in enumerate(widths):
+        parts = {n: b[:, i:i + 1, :int(w)].contiguous()
+                 for n, b in bufs.items()}
+        flat = torch.cat([p.reshape(-1).view(torch.uint8)
+                          for p in parts.values()]).cpu()
+        row, off = {}, 0
+        for n, p in parts.items():
+            nbytes = p.numel() * p.element_size()
+            row[n] = flat[off:off + nbytes].view(p.dtype).reshape(p.shape)
+            off += nbytes
+        out.append(row)
+    return out
+
+
 def greedy_tokens(logits) -> tuple[torch.Tensor, torch.Tensor]:
     """logits ``[B, V]`` → (argmax token ``[B]``, its model logprob
     ``[B]``), math in f32. Ties go to the first index, as in JAX."""

@@ -76,8 +76,16 @@ shipped blob with zero prefix forwards, and pack for shipping
 (:meth:`ContinuousBatcher.export_prefix_blob`); the serving host's
 prefix lane moves them between replicas.
 
-Not ported yet: disaggregated prefill/decode (``submit_prefilled``,
-``KVPackage``) and the goodput ledger.
+Disaggregated serving splits the two device workloads across a prefill
+tier and a decode tier: the prefill tier runs :func:`prefill_ship_rows`
+(the same program and row count as colocated admission) and ships each
+row's K/V, last-real logits and rng stream state as a
+:class:`KVPackage` (``serving/kvship.py`` is the wire codec,
+``serving/disagg.py`` the servers); the decode tier's engine adopts it
+through :meth:`ServeEngine.submit_prefilled` and lands it with
+:func:`land_kv_rows` — host-to-device copies of the real rows, no model
+forward — inside its own admission sweep, on the thread and stream that
+own the cache. Not ported yet: the goodput ledger.
 """
 
 from __future__ import annotations
@@ -253,15 +261,25 @@ class _PrefixHit:
 
 
 def _host_tensor(a) -> torch.Tensor:
-    """A template buffer (numpy array — bfloat16 by dtype name — or
-    tensor) as a tensor, raising ``ValueError`` for a dtype the port
-    cannot hold."""
+    """A shipped buffer (a template's or a KV package's: a numpy array —
+    bfloat16 by dtype name — or a tensor) as a tensor, raising
+    ``ValueError`` for a dtype the port cannot hold."""
     if isinstance(a, torch.Tensor):
         return a
     try:
         return params_from_numpy(np.asarray(a), device="cpu")
     except TypeError as e:
         raise ValueError(f"template buffer: {e}") from None
+
+
+def _pinned_to(a, device) -> torch.Tensor:
+    """A host buffer (numpy or CPU tensor) as a tensor on ``device``: to
+    the card through pinned memory without blocking (a pageable copy
+    would wait for the chunks already queued)."""
+    t = _host_tensor(a)
+    if torch.device(device).type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def validate_template_bufs(proto: dict, tokens, bufs: dict) -> dict:
@@ -296,10 +314,7 @@ def validate_template_bufs(proto: dict, tokens, bufs: dict) -> dict:
         if a.shape[2] != p_len:
             raise ValueError(f"template buffer {n!r} holds {a.shape[2]} "
                              f"positions for a {p_len}-token prefix")
-        if c.device.type == "cuda" and a.device.type == "cpu":
-            # pinned: a pageable copy would wait for the queued chunks
-            a = a.pin_memory().to(c.device, non_blocking=True)
-        out[n] = a.to(c.device)
+        out[n] = _pinned_to(a, c.device)
     return out
 
 
@@ -365,6 +380,113 @@ def prefix_admit_rows(params, cache, logits, rows, template, suffixes,
     place_rows(cache, mini, rows, totals)
     _scatter_rows(logits, rows, lg)
     return cache, logits
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated prefill/decode: the KV-shipping device programs
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def prefill_ship_rows(params, prompts, lengths, cfg):
+    """Prefill one admission bucket of prompts FOR SHIPMENT: the exact
+    :func:`~tony_tpu_torch.models.decode.prefill_rows` program the
+    colocated :func:`admit_rows` runs, minus the landing — the prefill
+    tier has no persistent cache; each row's K/V, last-real logits and
+    frontier ship to a decode tier instead (``serving/disagg.py``). Both
+    sides run the same bucket ladder and the same program at the same
+    row count, so the shipped buffers are what colocated admission would
+    have written. prompts: ``[K, S_b]`` right-padded; lengths: ``[K]``.
+    Returns (logits ``[K, V]``, the mini cache)."""
+    _count_call("prefill_ship_rows", prompts.shape)
+    return prefill_rows(params, prompts, lengths, cfg)
+
+
+@torch.no_grad()
+def prefill_ship_row(params, prompt, cfg):
+    """Exact-length batch-1 prefill for shipment — the rolling (ring)
+    cache path, whose wrapped writes cannot take padded prompts; the
+    whole capacity ring ships (landing is a whole-slot write). prompt:
+    ``[1, S_p]``."""
+    _count_call("prefill_ship_row", prompt.shape)
+    return prefill(params, prompt, cfg, max_len=prompt.shape[1])
+
+
+@torch.no_grad()
+def prefix_ship_rows(params, template, suffixes, lengths, cfg):
+    """Prefill one bucket of SUFFIXES for shipment against a resident
+    prefix ``template`` — the disaggregated counterpart of
+    :func:`prefix_admit_rows`: only the suffixes run a forward and the
+    prefix + suffix mini cache ships like a full-prefill row. Returns
+    (per-row last-real-suffix logits ``[K, V]``, the ``[L, K, P +
+    S_b]``-row mini cache)."""
+    _count_call("prefix_ship_rows", suffixes.shape)
+    lg, mini, _ = _extend_rows_from_template(params, template, suffixes,
+                                             lengths, cfg)
+    return lg, mini
+
+
+@torch.no_grad()
+def land_kv_rows(cache, logits, rows, minis, lengths, row_logits, keys,
+                 row_keys):
+    """Land K shipped KV rows into cache slots ``rows`` in place: each
+    row's buffers (``minis[i]``: ``{name: [L, 1, w_i, KV, hd]}``, host or
+    device) copy into positions [0, w_i) of their slot — one indexed
+    copy per buffer, only the real rows, no padding — then the slots'
+    frontiers (``lengths``), next-step logits (``row_logits``, K ``[V]``)
+    and rng stream keys (``row_keys``, K ``[2]`` into the host key table
+    ``keys``) are set. No model forward: adopting a row never stalls the
+    in-flight decode chunk behind a prefill. Returns (cache, logits,
+    keys)."""
+    _count_call("land_kv_rows", (len(rows),))
+    dev = cache["k"].device
+    for row, mini in zip(rows, minis):
+        for n, a in mini.items():
+            src = _pinned_to(a, dev)
+            cache[n][:, row:row + 1, :src.shape[2]].copy_(src)
+    idx = to_device(np.asarray(rows, np.int64), dev)
+    cache["length"][idx] = to_device(np.asarray(lengths, np.int32), dev)
+    lg = torch.stack([_host_tensor(x).to(logits.dtype)
+                      for x in row_logits])
+    logits[idx] = _pinned_to(lg, dev)
+    for row, k in zip(rows, row_keys):
+        keys[row] = torch.as_tensor(np.asarray(k, np.uint32).astype(
+            np.int64))
+    return cache, logits, keys
+
+
+class KVPackage:
+    """One prefilled request's state, shipped from a prefill tier to a
+    decode tier (disaggregated serving), as the decode side lands it
+    (:meth:`ServeEngine.submit_prefilled`):
+
+    - ``bufs``: host copies of the row's cache buffers (``k``/``v``, and
+      ``k_scale``/``v_scale`` of an int8 cache, shipped quantized), each
+      ``[L, 1, S, KV, hd]``: the true prompt length of a linear cache,
+      the whole capacity of a ring;
+    - ``length``: the row's frontier (a ring's absolute position may
+      exceed its capacity);
+    - ``logits``: ``[V]`` last-real-position logits seeding the first
+      decode step;
+    - ``rng_key``: ``[2]`` uint32 per-request stream key and ``rng_off``
+      its stream position — what makes a SAMPLED disaggregated stream
+      the colocated one.
+
+    The wire form is :mod:`tony_tpu_torch.serving.kvship`'s."""
+
+    __slots__ = ("bufs", "length", "logits", "rng_key", "rng_off")
+
+    def __init__(self, bufs: dict, length: int, logits, rng_key,
+                 rng_off: int = 0) -> None:
+        self.bufs = bufs
+        self.length = int(length)
+        self.logits = logits
+        self.rng_key = rng_key
+        self.rng_off = int(rng_off)
+
+    @property
+    def width(self) -> int:
+        """Shipped cache positions per layer (the buffers' S extent)."""
+        return self.bufs["k"].shape[2]
 
 
 def _row_samples(logits, noise, temperature, top_k, top_p):
@@ -861,13 +983,104 @@ class ContinuousBatcher:
         return toks, lens
 
     def _admit_batch(self, pairs, prompts) -> None:
-        """Admit (row, request-index) pairs: group by (resident prefix,
-        length bucket) and land each group with one :func:`admit_rows`
-        — :func:`prefix_admit_rows` for a prefix-hit group, which runs
-        only its suffixes (one admission per pair when bucketing is
-        off) — then rebind the rows' rng streams."""
-        if not pairs:
-            return
+        """Admit (row, request-index) pairs. ``prompts`` maps each
+        request index to a token sequence or prefix hit (prefilled here)
+        or a :class:`KVPackage` (prefilled on a prefill tier: landing is
+        a copy). The engine's admission sweep feeds both through this
+        one seam."""
+        pkg, toks = [], []
+        for pair in pairs:
+            (pkg if isinstance(prompts[pair[1]], KVPackage)
+             else toks).append(pair)
+        if pkg:
+            self._admit_packages(pkg, prompts)
+        if toks:
+            self._admit_prompts(toks, prompts)
+
+    def _admit_packages(self, pairs, pkgs) -> None:
+        """Land shipped-KV admissions (:meth:`_land_group`)."""
+        with self.phase_times.phase("admit"):
+            self._land_group(pairs, pkgs)
+
+    def _land_group(self, grp, pkgs) -> None:
+        """Land packages into their slots with :func:`land_kv_rows`, on
+        the thread and stream that own the cache: the real rows only,
+        each buffer one host-to-device copy of its shipped width."""
+        rows = [row for row, _ in grp]
+        got = [pkgs[req] for _, req in grp]
+        self.cache, self.logits, self._row_keys = land_kv_rows(
+            self.cache, self.logits, rows, [p.bufs for p in got],
+            [p.length for p in got], [p.logits for p in got],
+            self._row_keys, [p.rng_key for p in got])
+        for row, p in zip(rows, got):
+            self._row_off[row] = self._off0 + p.rng_off
+        self._set_host_len(rows, [p.length for p in got])
+
+    def _validate_package(self, pkg, max_new: int) -> None:
+        """Reject a shipped-KV admission this batcher could not land:
+        wrong buffer set, dtypes or trailing dims against this cache, a
+        width past the cache extent, or frontier + budget past
+        ``max_len`` (linear caches). Raises ``ValueError`` naming the
+        mismatch — request-scoped at the decode server. The buffers and
+        logits become CPU tensors in place."""
+        if not isinstance(pkg, KVPackage):
+            raise ValueError(f"expected a KVPackage, got {type(pkg)}")
+        if max_new <= 0:
+            raise ValueError(f"max_new_tokens must be positive, "
+                             f"got {max_new}")
+        if pkg.length < 1:
+            raise ValueError(f"package frontier must be >= 1, "
+                             f"got {pkg.length}")
+        lg = _host_tensor(pkg.logits)
+        if lg.dim() != 1 or lg.shape[0] != self.cfg.vocab_size:
+            raise ValueError(
+                f"package logits shape {list(lg.shape)} != "
+                f"[{self.cfg.vocab_size}] (vocab mismatch between the "
+                f"prefill and decode gangs?)")
+        want = _kv_bufs(self.cache)
+        if set(pkg.bufs) != set(want):
+            raise ValueError(
+                f"package buffers {sorted(pkg.bufs)} do not match this "
+                f"cache's layout {sorted(want)} (quantization mismatch "
+                f"between the prefill and decode gangs?)")
+        rows = self.cache["k"].shape[2]
+        bufs = {}
+        for n, a in pkg.bufs.items():
+            a = _host_tensor(a)
+            c = want[n]
+            if a.dtype != c.dtype:
+                raise ValueError(f"package buffer {n!r} dtype {a.dtype} "
+                                 f"!= cache dtype {c.dtype}")
+            if (a.dim() != c.dim() or a.shape[0] != c.shape[0]
+                    or a.shape[1] != 1 or a.shape[3:] != c.shape[3:]):
+                raise ValueError(f"package buffer {n!r} shape "
+                                 f"{tuple(a.shape)} does not fit cache "
+                                 f"{tuple(c.shape)}")
+            if a.shape[2] > rows:
+                raise ValueError(f"package width {a.shape[2]} exceeds "
+                                 f"the cache's {rows} rows")
+            bufs[n] = a
+        if len({a.shape[2] for a in bufs.values()}) != 1:
+            raise ValueError("package buffers disagree on their width")
+        pkg.bufs, pkg.logits = bufs, lg
+        if self._ring:
+            if pkg.width != rows:
+                raise ValueError(
+                    f"ring landings must ship the full {rows}-row "
+                    f"capacity, got {pkg.width}")
+        elif pkg.length + max_new > self.max_len:
+            raise ValueError(f"frontier {pkg.length} + {max_new} new "
+                             f"tokens exceeds max_len {self.max_len}")
+        if pkg.length > pkg.width and not self._ring:
+            raise ValueError(f"frontier {pkg.length} exceeds shipped "
+                             f"width {pkg.width}")
+
+    def _admit_prompts(self, pairs, prompts) -> None:
+        """Admit prompt (row, request-index) pairs: group by (resident
+        prefix, length bucket) and land each group with one
+        :func:`admit_rows` — :func:`prefix_admit_rows` for a prefix-hit
+        group, which runs only its suffixes (one admission per pair
+        when bucketing is off) — then rebind the rows' rng streams."""
         with self.phase_times.phase("admit"), self._store_lock:
             if self.bucketed_admission:
                 groups: dict[tuple, list] = {}
@@ -1179,6 +1392,16 @@ class SpeculativeContinuousBatcher(ContinuousBatcher):
                 self.draft_cfg, self.temperature, self.top_k, self.top_p)
         self._set_host_len(rows, lens + p_len)
 
+    def _admit_packages(self, pairs, pkgs) -> None:
+        # refused on purpose: a speculative slot needs the DRAFT model's
+        # per-slot K/V history too, which a KV shipment does not carry
+        raise NotImplementedError(
+            "speculative serving is not supported in disaggregated "
+            "mode (the shipment carries no draft-model cache)")
+
+    def _validate_package(self, pkg, max_new: int) -> None:
+        self._admit_packages(None, None)
+
     def _admit_row(self, row: int, req: int, prompt) -> None:
         key = (to_device(prng.fold_in(self._req_key(req), 0).numpy(),
                          self.device) if self.sampled else None)
@@ -1458,6 +1681,45 @@ class ServeEngine:
             payload = _PrefixHit(entry, prompt[len(entry.tokens):])
             self.b._validate_prefix_hit(payload, max_new_tokens)
             attrs = {"prefix": entry.id}
+        self._enqueue(rid, payload, max_new_tokens, trace_ctx, rng=rng,
+                      cls=request_class, prompt_tokens=len(prompt),
+                      **attrs)
+
+    def submit_prefilled(self, rid, package: KVPackage,
+                         max_new_tokens: int,
+                         trace_ctx: dict | None = None,
+                         request_class: str = "standard") -> None:
+        """Enqueue an ALREADY-PREFILLED request (disaggregated serving):
+        ``package`` is the :class:`KVPackage` a prefill tier shipped;
+        admission lands it with :func:`land_kv_rows` (copies, no model
+        forward), so adopting a row never stalls the in-flight decode
+        chunk behind a prefill. Otherwise :meth:`submit`'s contract:
+        caller-chosen ``rid``, up-front validation
+        (:meth:`ContinuousBatcher._validate_package`), ``RuntimeError``
+        once draining. The shipped rng stream state rides the package,
+        so a sampled stream is the colocated engine's. The class orders
+        the decode tier's queue and floors, but a package is never shed
+        with BUSY: its prefill is already paid (the prefill tier sheds
+        before prefilling)."""
+        max_new_tokens = int(max_new_tokens)
+        if request_class not in QOS_CLASSES:
+            raise ValueError(
+                f"unknown request class {request_class!r} (expected "
+                f"one of {', '.join(QOS_CLASSES)})")
+        self.b._validate_package(package, max_new_tokens)
+        self._enqueue(rid, package, max_new_tokens, trace_ctx,
+                      cls=request_class, prompt_tokens=package.length,
+                      prefilled=True)
+
+    def _enqueue(self, rid, payload, max_new_tokens: int,
+                 trace_ctx: dict | None, *, prompt_tokens: int,
+                 rng: tuple | None = None, cls: str = "standard",
+                 prefilled: bool = False, **span_attrs) -> None:
+        """The admission-queue push behind :meth:`submit` and
+        :meth:`submit_prefilled`: the drain and duplicate checks, the
+        BUSY shed (never for a prefilled package), the request record,
+        its span pair and the wakeup — one place, so the two paths
+        cannot drift."""
         shed = False
         with self._work:
             if self._draining or self._stopped:
@@ -1465,7 +1727,8 @@ class ServeEngine:
                     "engine is draining; not accepting new requests")
             if rid in self._reqs:
                 raise ValueError(f"request id {rid!r} is already active")
-            if (self._max_queue_depth and request_class != "interactive"
+            if (self._max_queue_depth and cls != "interactive"
+                    and not prefilled
                     and self._wait_total_locked() >= self._max_queue_depth):
                 shed = True
                 self.shed += 1
@@ -1474,26 +1737,25 @@ class ServeEngine:
                 req = _EngineRequest(
                     rid, payload, max_new_tokens, stream,
                     time.perf_counter(),
-                    rng_skip=0 if rng is None else int(rng[1]),
-                    cls=request_class)
-                if request_class == "batch":
-                    req.history = []       # evictable
+                    rng_skip=0 if rng is None else int(rng[1]), cls=cls)
+                if cls == "batch" and not prefilled:
+                    req.history = []       # evictable: folds on eviction
                 tr = tracing.get_tracer()
                 req.span = tr.start_span("engine.request", ctx=trace_ctx,
-                                         prompt_tokens=len(prompt),
+                                         prompt_tokens=prompt_tokens,
                                          budget=max_new_tokens,
-                                         request_class=request_class,
-                                         prefilled=False, **attrs)
+                                         request_class=cls,
+                                         prefilled=prefilled, **span_attrs)
                 req.queued_span = tr.start_span("engine.queued",
                                                 parent=req.span)
                 if rng is None:
                     self._next_stream += 1
                 self._reqs[rid] = req
-                self._waitq[request_class].append(rid)
+                self._waitq[cls].append(rid)
                 self._set_qdepth_locked()
                 self._work.notify_all()
         if shed:
-            self._shed_c[request_class].inc()
+            self._shed_c[cls].inc()
             raise EngineBusy(self._busy_retry_ms)
 
     def _wait_total_locked(self) -> int:
@@ -1643,7 +1905,7 @@ class ServeEngine:
                     return req
         return None
 
-    def _preempt_locked(self) -> list:
+    def _preempt_locked(self) -> tuple[list, list]:
         """Evict batch rows for interactive requests still waiting after
         the fill: the victim (fewest emitted tokens — the cheapest
         re-prefill) is marked done like a cancel (its slot frees at the
@@ -1652,13 +1914,15 @@ class ServeEngine:
         prompt, stream offset advanced by the emitted count — so it
         resumes where it stopped (token-identically where the re-prefill
         reproduces the decode steps' arithmetic). Slots already vacating
-        count against
-        the need, and the batch floor is never evicted below. Returns
-        the reincarnations."""
+        count against the need, and the batch floor is never evicted
+        below. A KV-package victim (a decode tier's adopted row) has no
+        prompt to fold: it retires as ``"preempted"`` and the router
+        re-places it. Returns ``(requeued, evicted)``."""
         waiting = len(self._waitq["interactive"])
         requeued: list = []
+        evicted: list = []
         if not waiting:
-            return requeued
+            return requeued, evicted
         vacating = sum(1 for r in self._occupant
                        if r is not None and r.done)
         need = waiting - vacating
@@ -1671,6 +1935,11 @@ class ServeEngine:
             old = min(victims, key=lambda r: r.emitted)
             old.done = True
             old.reason = "preempted"
+            if old.history is None:
+                self._reqs.pop(old.rid, None)
+                evicted.append(old)
+                need -= 1
+                continue
             # fold the WHOLE history into the prompt as submitted: a
             # reincarnation's own prompt already holds its first history.
             # A prefix hit stays a hit on the same resident entry, so its
@@ -1698,7 +1967,7 @@ class ServeEngine:
             need -= 1
         if requeued:
             self._set_qdepth_locked()
-        return requeued
+        return requeued, evicted
 
     def _admit_free(self) -> None:
         """Admit waiting requests into every free slot (row order),
@@ -1728,15 +1997,19 @@ class ServeEngine:
                 admitted.append(req)
             if admitted:
                 self._set_qdepth_locked()
-            requeued = self._preempt_locked()
-            self.preemptions += len(requeued)
-        if requeued:
-            self._preempt_c.inc(len(requeued))
+            requeued, evicted = self._preempt_locked()
+            self.preemptions += len(requeued) + len(evicted)
+        if requeued or evicted:
+            self._preempt_c.inc(len(requeued) + len(evicted))
             tr = tracing.get_tracer()
             for new in requeued:
                 if new.span.recording:
                     new.queued_span = tr.start_span(
                         "engine.queued", parent=new.span, preempted=True)
+            for old in evicted:
+                old.first_span.end()
+                old.span.end(reason="preempted", tokens=old.emitted)
+                self._emit_retired(old)
         if admitted:
             tr = tracing.get_tracer()
             for req in admitted:

@@ -56,14 +56,32 @@ Warm boot: ``--warm_from HOST:PORT`` pulls the params from a running
 replica's weights lane (digest-checked) instead of building them; if the
 pull fails it says so and falls back to the storage load.
 
+A router (no model, no device): one front door over several replicas,
+placing each session by queue depth, failing streams over to a survivor
+with nothing duplicated or dropped; with ``--route_decode`` it places
+DISAGGREGATED — ``--route`` names the prefill tier, ``--route_decode``
+the decode tier. The tiers are ``--role prefill`` (prompts in, KV
+shipments out) and ``--role decode`` (KV shipments in, tokens out)::
+
+    python -m tony_tpu_torch.serve_lm --preset small --slots 8 \
+        --role prefill --listen :7071
+    python -m tony_tpu_torch.serve_lm --preset small --slots 8 \
+        --role decode --listen :7072
+    python -m tony_tpu_torch.serve_lm --listen :7070 --route :7071 \
+        --route_decode :7072
+    python -m tony_tpu_torch.serve_lm --preset small --connect :7070
+
+``--disaggregate`` runs both tiers and a router in this process and
+streams the synthetic workload through them. ``--connect ROUTER --drain
+REPLICA`` fences a replica and live-migrates its sessions to the others
+(planned maintenance), prints the router's summary and exits.
+
 The client speaks to the JAX package's replicas and routers too, and
-theirs to this replica; the prefix and weights lanes cross between the
-packages the same way. ``--ckpt_dir`` serves the params of the port's
-own ``train_lm`` checkpoint. The model runs on the card in bf16 unless
-``--device cpu`` is passed (then f32); with no card and no ``--device
-cpu`` it raises. Flags of the JAX script whose features are not ported
-(disaggregated serving, the router, fleet drains) fail with "not ported
-yet".
+theirs to this replica; the prefix and weights lanes, the KV shipments
+and the router cross between the packages the same way. ``--ckpt_dir``
+serves the params of the port's own ``train_lm`` checkpoint. The model
+runs on the card in bf16 unless ``--device cpu`` is passed (then f32);
+with no card and no ``--device cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -83,12 +101,6 @@ from tony_tpu_torch.models import transformer as T
 from tony_tpu_torch.models.quantize import quantize_weights_int8
 from tony_tpu_torch.models.serve import (QOS_CLASSES, ContinuousBatcher,
                                          SpeculativeContinuousBatcher)
-
-#: flags of the JAX script whose features are not ported, with the value
-#: that leaves them off
-_NOT_PORTED = {"route": "", "route_decode": "", "role": "",
-               "disaggregate": False, "drain": ""}
-
 
 def make_workload(seed: int, requests: int, prompt_len: int,
                   max_new_tokens: int, vocab: int,
@@ -258,6 +270,15 @@ def _install_and_publish(args, server, toks) -> None:
               f"recomputing)", flush=True)
 
 
+def _wait_for_signal() -> None:
+    """Block until SIGINT or SIGTERM."""
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    while not stop.wait(3600):
+        pass
+
+
 def _run_server(args, batcher, shared) -> int:
     """--listen: drive the batcher's engine behind a streaming server
     until SIGINT or SIGTERM, then drain gracefully."""
@@ -271,14 +292,127 @@ def _run_server(args, batcher, shared) -> int:
         _install_and_publish(args, server, shared)
     print(f"serving {args.preset} ({mode_of(batcher)}) on {host}:{bound} "
           f"with {args.slots} slots — ^C drains and exits", flush=True)
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    while not stop.wait(3600):
-        pass
+    _wait_for_signal()
     print("draining in-flight requests ...", flush=True)
     server.stop(drain=True)
     return 0
+
+
+def _addrs(spec: str) -> list[str]:
+    return [a.strip() for a in spec.split(",") if a.strip()]
+
+
+def _run_router(args) -> int:
+    """--listen + --route: the model-free front door. With --route_decode
+    the router places DISAGGREGATED: --route names the prefill tier,
+    --route_decode the decode tier."""
+    from tony_tpu_torch.serving.router import ServingRouter
+
+    host, port = _parse_addr(args.listen)
+    replicas, decodes = _addrs(args.route), _addrs(args.route_decode)
+    router = ServingRouter(replicas, bind_host=host, port=port,
+                           decode_replicas=decodes or None)
+    if args.shared_prefix_file:
+        pid = router.register_prefix(
+            load_prefix_tokens(args.shared_prefix_file))
+        print(f"prefix {pid} registered for tokenized matching",
+              flush=True)
+    bound = router.start()
+    shape = (f"{len(replicas)} prefill + {len(decodes)} decode replicas"
+             if decodes else f"{len(replicas)} replicas")
+    print(f"routing on {host}:{bound} over {shape} — ^C exits",
+          flush=True)
+    _wait_for_signal()
+    router.stop()
+    return 0
+
+
+def _prefill_tier(args, params, cfg, max_len, **kw):
+    from tony_tpu_torch.serving.disagg import PrefillServer
+    return PrefillServer(params, cfg, max_len=max_len, seed=args.seed,
+                         max_batch=args.slots, **kw)
+
+
+def _run_prefill(args, params, cfg, shared) -> int:
+    """--role prefill --listen: the stateless prefill tier — no cache
+    slots, no decode loop; prompts in, KV shipments out."""
+    host, port = _parse_addr(args.listen)
+    server = _prefill_tier(
+        args, params, cfg, len(shared) + args.prompt_len
+        + args.max_new_tokens, bind_host=host, port=port,
+        weights_version=args.weights_version or None)
+    bound = server.start()
+    if shared:
+        _install_and_publish(args, server, shared)
+    print(f"prefill tier ({args.preset}) on {host}:{bound} ({args.slots}"
+          f"-row waves) — ^C exits", flush=True)
+    _wait_for_signal()
+    server.stop()
+    return 0
+
+
+def _run_decode(args, batcher) -> int:
+    """--role decode --listen: the decode tier — admissions arrive as KV
+    shipments on the channel hub, never as prompts."""
+    from tony_tpu_torch.serving.disagg import DecodeServer
+
+    host, port = _parse_addr(args.listen)
+    server = DecodeServer(batcher, bind_host=host, port=port,
+                          weights_version=args.weights_version or None)
+    bound = server.start()
+    print(f"decode tier ({args.preset}, {mode_of(batcher)}) on "
+          f"{host}:{bound} with {args.slots} slots; kv channel on "
+          f":{server.hub.port} — ^C drains and exits", flush=True)
+    _wait_for_signal()
+    print("draining in-flight requests ...", flush=True)
+    server.stop(drain=True)
+    return 0
+
+
+def _run_disaggregate(args, params, cfg, batcher, shared, prompts,
+                      budgets) -> int:
+    """--disaggregate: both tiers and the router in this process, the
+    synthetic workload streamed through the split (--role is the real
+    multi-host shape)."""
+    from tony_tpu_torch.runtime import metrics as M
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.disagg import DecodeServer
+    from tony_tpu_torch.serving.router import ServingRouter
+
+    pre = _prefill_tier(args, params, cfg, batcher.max_len)
+    dec = DecodeServer(batcher)
+    router = ServingRouter([f"127.0.0.1:{pre.start()}"],
+                           decode_replicas=[f"127.0.0.1:{dec.start()}"])
+    try:
+        if shared:
+            pid = pre.install_prefix(shared)
+            if pid is not None:
+                router.register_prefix(shared, prefix_id=pid)
+                print(f"prefix {pid} resident at the prefill tier "
+                      f"({len(shared)} tokens); suffix-only prefill "
+                      f"waves", flush=True)
+        rport = router.start()
+        print(f"disaggregated: prefill :{pre.port} -> decode :{dec.port} "
+              f"(kv channel :{dec.hub.port}), router :{rport}", flush=True)
+        with StreamingClient("127.0.0.1", rport) as client:
+            run = WorkloadStreams(client)
+            for p, n in zip(prompts, budgets):
+                run.submit([p], [n])
+            dt = run.wait()
+    finally:
+        router.stop()
+        pre.stop()
+        dec.stop()
+    useful = sum(len(o) for o in run.outputs if o)
+    print(f"streamed {len(prompts)} requests ({useful} tokens) in "
+          f"{dt:.2f}s — {useful / max(dt, 1e-9):.1f} tok/s")
+    print(latency_line("all", run.latency_ms()))
+    ship = M.get_default().histogram("tony_kv_ship_seconds")
+    if ship.count:
+        print(f"kv handoff: {ship.count} shipments, mean wall "
+              f"{ship.sum / ship.count * 1e3:.1f} ms")
+    print("first request tokens:", (run.outputs[0] or [])[:12])
+    return 0 if all(o is not None for o in run.outputs) else 1
 
 
 def percentile_ms(values, q: float) -> float:
@@ -382,6 +516,13 @@ def _run_client(args) -> int:
     from tony_tpu_torch.serving.client import StreamingClient
 
     host, port = _parse_addr(args.connect)
+    if args.drain:
+        # operator mode: the ROUTER fences the replica and live-migrates
+        # every session off it
+        with StreamingClient(host, port) as client:
+            res = client.drain_replica(args.drain)
+        print(f"drain {args.drain}: {res}", flush=True)
+        return 0 if res.get("ok") else 1
     prompts, budgets = make_workload(args.seed, args.requests,
                                      args.prompt_len, args.max_new_tokens,
                                      T.PRESETS[args.preset].vocab_size,
@@ -503,20 +644,31 @@ def main(argv=None) -> int:
                         help="pull the params from this running replica's "
                              "weights lane instead of building them "
                              "(falls back to the storage load)")
+    parser.add_argument("--route", default="",
+                        metavar="HOST:PORT,HOST:PORT",
+                        help="with --listen: route sessions across these "
+                             "replicas by queue depth (no local model)")
+    parser.add_argument("--route_decode", default="",
+                        metavar="HOST:PORT,HOST:PORT",
+                        help="with --route: DISAGGREGATED placement — "
+                             "--route names the prefill tier, this the "
+                             "decode tier")
+    parser.add_argument("--role", default="", choices=("", "prefill",
+                                                       "decode"),
+                        help="with --listen: run ONE tier of "
+                             "disaggregated serving instead of a "
+                             "colocated replica")
+    parser.add_argument("--disaggregate", action="store_true",
+                        help="run the prefill tier, the decode tier and "
+                             "a router in this process and stream the "
+                             "synthetic workload through them")
+    parser.add_argument("--drain", default="", metavar="HOST:PORT",
+                        help="with --connect to a ROUTER: fence this "
+                             "replica, live-migrate its sessions off it, "
+                             "print the summary and exit")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
-    # the JAX script's flags whose features are not ported yet
-    for name, off in _NOT_PORTED.items():
-        if isinstance(off, bool):
-            parser.add_argument(f"--{name}", action="store_true",
-                                help=argparse.SUPPRESS)
-        else:
-            parser.add_argument(f"--{name}", type=type(off), default=off,
-                                help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for name, off in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            parser.error(f"--{name} is not ported yet")
     if (args.mixed_classes or args.request_class) and not args.connect:
         parser.error("--request_class/--mixed_classes require "
                      "--connect (they shape CLIENT traffic)")
@@ -529,6 +681,24 @@ def main(argv=None) -> int:
                      "--connect")
     if args.weights_version and not args.listen:
         parser.error("--weights_version requires --listen")
+    if args.drain and not args.connect:
+        parser.error("--drain requires --connect (a router address)")
+    if (args.route or args.route_decode) and not args.listen:
+        parser.error("--route requires --listen")
+    if args.route_decode and not args.route:
+        parser.error("--route_decode requires --route")
+    if args.role and not args.listen:
+        parser.error("--role requires --listen")
+    if args.role and (args.route or args.disaggregate):
+        parser.error("--role runs one tier; --route and --disaggregate "
+                     "run others")
+    if (args.role or args.disaggregate) and args.draft_preset:
+        parser.error("speculative serving is not supported "
+                     "disaggregated (the KV shipment carries no "
+                     "draft-model cache)")
+    if args.disaggregate and args.listen:
+        parser.error("--disaggregate serves the synthetic workload in "
+                     "process; --role with --listen serves a tier")
     if args.publish_prefix and not (args.shared_prefix_file
                                     and args.listen):
         parser.error("--publish_prefix requires --listen and "
@@ -541,6 +711,8 @@ def main(argv=None) -> int:
 
     if args.connect:
         return _run_client(args)
+    if args.route:
+        return _run_router(args)
     warm = warm_boot(args.warm_from, args.device) if args.warm_from \
         else None
     cfg, params = build(args.preset, args.device, args.ckpt_dir,
@@ -552,6 +724,8 @@ def main(argv=None) -> int:
         print("serving with weight-only int8 matmul weights", flush=True)
     shared = (load_prefix_tokens(args.shared_prefix_file)
               if args.shared_prefix_file else [])
+    if args.role == "prefill":
+        return _run_prefill(args, params, cfg, shared)
     kw = dict(batch=args.slots,
               max_len=len(shared) + args.prompt_len + args.max_new_tokens,
               temperature=args.temperature, top_k=args.top_k,
@@ -566,11 +740,16 @@ def main(argv=None) -> int:
             num_speculative=args.num_speculative, **kw)
     else:
         batcher = ContinuousBatcher(params, cfg, **kw)
+    if args.role == "decode":
+        return _run_decode(args, batcher)
     if args.listen:
         return _run_server(args, batcher, shared)
     prompts, budgets = make_workload(args.seed, args.requests,
                                      args.prompt_len, args.max_new_tokens,
                                      cfg.vocab_size)
+    if args.disaggregate:
+        return _run_disaggregate(args, params, cfg, batcher, shared,
+                                 [shared + p for p in prompts], budgets)
     if shared:
         # the admission fast path in process: a resident template,
         # suffix-only admissions

@@ -40,9 +40,9 @@ from __future__ import annotations
 import json
 import math
 import struct
+import sys
 
 import numpy as np
-import torch
 
 from tony_tpu_torch.serving.protocol import ProtocolError
 
@@ -75,12 +75,21 @@ def np_dtype(name: str) -> np.dtype:
         raise ProtocolError(f"unknown shipment dtype {name!r}") from e
 
 
+def is_tensor(a) -> bool:
+    """Whether ``a`` is a torch tensor, without importing torch: a host
+    with no model stack (a router) never loads it, and a tensor exists
+    only where torch is loaded already."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(a, torch.Tensor)
+
+
 def wire_array(a) -> tuple[str, list, np.ndarray]:
     """(wire dtype name, shape, C-contiguous numpy payload) of a numpy
     array or a torch tensor (a tensor on the card is copied to the host
     once). bfloat16 — a torch tensor, or a numpy array whose dtype is
     named ``bfloat16`` — ships as its ``int16`` view."""
-    if isinstance(a, torch.Tensor):
+    if is_tensor(a):
+        import torch
         t = a.detach()
         if hasattr(t, "full_tensor"):
             t = t.full_tensor()
@@ -104,6 +113,7 @@ def from_wire(name: str, buf, count: int, offset: int, shape):
     a = np.frombuffer(buf, dtype=np_dtype(name), count=count,
                       offset=offset).reshape(shape)
     if name == BF16:
+        import torch
         return torch.from_numpy(a.copy()).view(torch.bfloat16)
     return a
 

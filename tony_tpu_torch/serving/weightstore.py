@@ -46,7 +46,6 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from tony_tpu_torch.channels.channel import (ChannelClosed, ChannelError,
                                              ChannelHub, ChannelSender)
@@ -126,7 +125,7 @@ def unflatten_tree(flat: dict):
 
 
 def _is_leaf(v) -> bool:
-    return isinstance(v, (np.ndarray, torch.Tensor))
+    return isinstance(v, np.ndarray) or blobcodec.is_tensor(v)
 
 
 def tree_digest(tree) -> str:
@@ -153,17 +152,18 @@ def tree_digest(tree) -> str:
 # ---------------------------------------------------------------------------
 def _f32(a) -> np.ndarray:
     """A float leaf (tensor or array) as a host float32 array."""
-    if isinstance(a, torch.Tensor):
+    if blobcodec.is_tensor(a):
         return a.detach().float().cpu().numpy()
     dtype, _, bits = blobcodec.wire_array(a)
     if dtype == blobcodec.BF16:
+        import torch
         return torch.from_numpy(bits.copy()).view(torch.bfloat16) \
             .float().numpy()
     return np.asarray(a, np.float32)
 
 
 def _is_float(a) -> bool:
-    if isinstance(a, torch.Tensor):
+    if blobcodec.is_tensor(a):
         return a.is_floating_point()
     a = np.asarray(a)
     return a.dtype.kind == "f" or a.dtype.name == blobcodec.BF16
@@ -185,6 +185,7 @@ def _quantize(a) -> tuple:
 def _dequantize(q: np.ndarray, scale: float, dtype_name: str):
     f = q.astype(np.float32) * np.float32(scale)
     if dtype_name == blobcodec.BF16:
+        import torch
         return torch.from_numpy(f).to(torch.bfloat16)
     return f.astype(blobcodec.np_dtype(dtype_name))
 
@@ -198,7 +199,7 @@ def pack_weights(params, *, version: str | None = None,
     Each leaf is copied to the host once."""
     if quantize is None:
         quantize = QUANTIZE_WIRE_DEFAULT
-    flat = {path: leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
+    flat = {path: leaf.detach().cpu() if blobcodec.is_tensor(leaf)
             else leaf for path, leaf in flatten_tree(params).items()}
     scales: dict = {}
     wire: dict = {}
