@@ -190,6 +190,25 @@ result:
    the other drained by ``serve_lm --connect ROUTER --drain``: every
    stream of its budget (bf16), and the same drill in process in f32
    equal to the unfailed run (near-tie rule);
+18. file-fed training: (a) 8 files of 8184 records of 1025 int32 tokens
+   (256 MiB) from ``numpy.random.default_rng``; (b) all of it read
+   shuffled (capacity 1024) through ``FileSplitReader`` on the native
+   engine (built from ``tony_tpu_torch/io/native/datafeed.cc`` in phase
+   2; the default engine must be it) and on the Python one, MB/s and
+   records/s; (c) ``small`` bf16 16 x 1024, 20 steps through
+   ``train_lm``'s ``file_source`` and a DevicePrefetcher of depth 2, in
+   turns with the synthetic source (synthetic, files, files, synthetic):
+   step ms, tokens/s, data wait, K1, K2 and K5 launches as in phase 9;
+   (d) ``--elastic_data 16`` on the two-pass backward, 20 steps with an
+   asynchronous checkpoint at step 10, restored by a new manager and run
+   again from step 10: every batch of steps 10-19 equal by sha256 and
+   every loss bitwise; (e) the ms the step loop blocks on a synchronous
+   and on an asynchronous save of ``small``'s train state, the
+   background write's wall and the bytes; (f) ``python -m
+   tony_tpu_torch.train_lm --data_files`` itself (in process, its
+   runtime on NCCL at world 1, the sharded step), 20 steps, then
+   ``--elastic_data 16`` stopped at step 10 and resumed from its DCP
+   checkpoint to 20: K1, K2 and K5 launches as in phase 9;
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -364,11 +383,30 @@ def _ptxas_rows(log: str) -> list:
 
 
 def phase_build(report):
+    import threading
+
+    from tony_tpu_torch.io import native
     from tony_tpu_torch.ops import _kernels
+    feed = {}
+
+    def build_feed():
+        t0 = time.perf_counter()
+        feed["lib"] = native.load_native()
+        feed["s"] = time.perf_counter() - t0
+
+    feed_build = threading.Thread(target=build_feed)
+    feed_build.start()
     seconds = _kernels.build()
+    feed_build.join()
     names = ", ".join(os.path.relpath(s, HERE) for s in _kernels.SOURCES)
     print(f"[2] built {names} in {seconds:.1f}s (one nvcc each, in "
           f"parallel)", flush=True)
+    if feed["lib"] is None:
+        fail("the native data-feed engine (tony_tpu_torch/io/native/"
+             "datafeed.cc) did not build with g++")
+    print(f"[2] built the native data-feed engine "
+          f"{os.path.relpath(native.library_path(), HERE)} with g++ in "
+          f"{feed['s']:.1f}s, beside the nvcc builds", flush=True)
     for src, log in _kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1215,13 +1253,15 @@ class _TimedData:
 
 def _train_run(cfg, params, steps, *, fused=False, batch=16, seq=1024,
                depth=2, seed=0, checkpoint=None, start=0, state=None,
-               timed=False, mesh=None):
+               timed=False, mesh=None, source=None, on_batch=None):
     """``steps`` train steps (from ``start``) through train_lm's code path:
-    its source, prefetcher, ``default_optimizer`` (one schedule of 100
-    warmup steps for every run, so a resumed run sees the same lr) and
-    ``run_training``; with a ``mesh``, its sharded path (params laid out
-    by ``logical_axes``, the sharded step, global batches assembled from
-    this process's shard); returns (state, losses, step wall seconds,
+    its source (synthetic, or the host-batch ``source`` given: a file
+    source of train_lm), prefetcher, ``default_optimizer`` (one schedule
+    of 100 warmup steps for every run, so a resumed run sees the same lr)
+    and ``run_training``; with a ``mesh``, its sharded path (params laid
+    out by ``logical_axes``, the sharded step, global batches assembled
+    from this process's shard); ``on_batch(step, batch)`` sees each batch
+    as the step receives it; returns (state, losses, step wall seconds,
     data waits)."""
     import torch
     from tony_tpu_torch import train_lm
@@ -1233,15 +1273,18 @@ def _train_run(cfg, params, steps, *, fused=False, batch=16, seq=1024,
                                  opt, mesh)
     if state is None:
         state = TR.init_state(params, opt, mesh, T.logical_axes(cfg))
-    source = train_lm.synthetic_source(seed, batch, seq, cfg.vocab_size)
-    for _ in range(start):
-        next(source)
+    if source is None:
+        source = train_lm.synthetic_source(seed, batch, seq, cfg.vocab_size)
+        for _ in range(start):
+            next(source)
     sharding = (None if mesh is None else
                 TR.batch_sharding(mesh, logical=("batch", "seq")))
     data = _TimedData(train_lm.make_data(source, "cuda", depth, sharding))
     losses, walls = [], []
 
     def timed_step(st, b):
+        if on_batch is not None:
+            on_batch(st["step"], b)
         t0 = time.perf_counter()
         st, m = step_fn(st, b)
         losses.append(m["loss"])
@@ -4194,6 +4237,371 @@ def phase_disagg(report, card, serve):
     return k1, k5
 
 
+# phase 18: file-fed training, elastic resume, asynchronous checkpoints ---
+
+FEED_FILES, FEED_RECORDS = 8, 8184     # 8 x 8184 records of 4100 B: 256 MiB
+
+
+def _write_token_files(directory, seq, vocab, seed=18):
+    """FEED_FILES raw files of FEED_RECORDS int32 records of seq + 1
+    tokens, from ``numpy.random.default_rng(seed)``; returns the paths
+    and the bytes written."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    paths, total = [], 0
+    for i in range(FEED_FILES):
+        path = os.path.join(directory, f"tokens{i}.bin")
+        rng.integers(0, vocab, size=(FEED_RECORDS, seq + 1),
+                     dtype=np.int32).tofile(path)
+        paths.append(path)
+        total += os.path.getsize(path)
+    return paths, total
+
+
+def _read_all(paths, record_size, native):
+    """Every record of ``paths`` through one shuffled FileSplitReader
+    (capacity 1024) on one engine: (records, bytes, seconds)."""
+    from tony_tpu_torch.io import FileSplitReader
+    t0 = time.perf_counter()
+    n = nbytes = 0
+    with FileSplitReader(paths, record_size=record_size, shuffle=True,
+                         seed=0, capacity=1024, use_native=native) as r:
+        if r.is_native != native:
+            fail(f"asked for the {'native' if native else 'python'} "
+                 f"engine, got the other")
+        while batch := r.next_batch(256):
+            n += len(batch)
+            nbytes += sum(map(len, batch))
+    return n, nbytes, time.perf_counter() - t0
+
+
+def _batch_digest(batch) -> str:
+    import hashlib
+    x = batch["inputs"]
+    return hashlib.sha256(x.cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _checkpoint_stall(report, card, state, directory):
+    """(e) The ms the step loop blocks on one save of ``state``,
+    synchronous (save, then wait for the write) and asynchronous (save
+    returns after the snapshot), twice each, and the background write's
+    wall."""
+    import statistics
+
+    import torch
+    from tony_tpu_torch import tree_leaves
+    from tony_tpu_torch.models.checkpoint import CheckpointManager
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state)
+                      if isinstance(t, torch.Tensor))
+    mgr = CheckpointManager(directory, max_to_keep=1)
+    sync, stall, write = [], [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(100 + i, state, force=True)
+        t1 = time.perf_counter()
+        mgr.wait_until_finished()
+        t2 = time.perf_counter()
+        if i % 2:
+            stall.append((t1 - t0) * 1e3)
+            write.append((t2 - t1) * 1e3)
+        else:
+            sync.append((t2 - t0) * 1e3)
+    file_bytes = os.path.getsize(os.path.join(directory, "step_103.pt"))
+    mgr.close()
+    out = dict(state_bytes=state_bytes, file_bytes=file_bytes,
+               sync_ms=sync, async_stall_ms=stall, async_write_ms=write)
+    print(f"[18e] checkpoint of the small bf16 train state on {card}: "
+          f"{state_bytes:,} bytes of tensors ({file_bytes:,} B file); the "
+          f"step loop blocks {statistics.median(sync):.1f} ms on a "
+          f"synchronous save (save + wait: {[round(x, 1) for x in sync]}), "
+          f"{statistics.median(stall):.1f} ms on an asynchronous one (the "
+          f"host snapshot: {[round(x, 1) for x in stall]}); the background "
+          f"write takes {statistics.median(write):.1f} ms "
+          f"({[round(x, 1) for x in write]})", flush=True)
+    report["files_checkpoint"] = out
+    if not max(stall) < min(sync):
+        fail("an asynchronous save blocked the loop as long as a "
+             "synchronous one")
+    return out
+
+
+def _train_lm_cli(argv):
+    """``train_lm.main(argv)`` in this process, its runtime booted from the
+    jax arm's environment at world 1 on a free port (NCCL, mesh
+    ``{"fsdp": -1}``) and shut down after: (exit code, printed lines)."""
+    import contextlib
+    import io
+    import socket
+
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch import train_lm
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      TONY_JAX_PROCESS_ID="0", TONY_JAX_NUM_PROCESSES="1",
+                      TONY_MESH_SPEC=json.dumps({"axes": {"fsdp": -1}}))
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_lm.main(argv)
+    finally:
+        rt.shutdown()
+    return rc, out.getvalue().splitlines()
+
+
+def phase_files(report, card):
+    """[18] File-fed training of `small` bf16 at 16 x 1024: (a) 256 MiB of
+    token files from a seed, (b) the reader on each engine, (c) 20 steps
+    through train_lm's file source and a DevicePrefetcher of depth 2
+    beside phase 9's synthetic run, (d) --elastic_data 16 for 20 steps
+    with an asynchronous checkpoint at step 10, restored by a new manager
+    and run again from step 10 (batches by sha256, losses bitwise, on the
+    two-pass backward), (e) the checkpoint stall, (f) train_lm's entry
+    point itself on the files: the sharded step on a world-1 NCCL mesh,
+    ``--data_files`` for 20 steps, then ``--elastic_data 16`` stopped at
+    step 10 and resumed from its (DCP) checkpoint to 20."""
+    import statistics
+    import tempfile
+
+    import torch
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.io import FileSplitReader
+    from tony_tpu_torch.models import train as TR
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.models.checkpoint import CheckpointManager
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    steps, batch, seq = 20, 16, 1024
+    t_phase = time.perf_counter()
+    cfg, params = train_lm.build("small", "cuda")
+    L = cfg.n_layers
+    base = _copy_tree(params, "cuda")
+    rec_bytes = 4 * (seq + 1)
+    out = {}
+
+    def counts():
+        return dict(k1=A.flash_forward.launches,
+                    k2=A.flash_backward_fused.launches,
+                    k3a=A.flash_backward_dq.launches,
+                    k3b=A.flash_backward_dkv.launches,
+                    k5=N.rms_norm_forward.launches)
+
+    def zero_counts():
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the data
+        t0 = time.perf_counter()
+        paths, total = _write_token_files(tmp, seq, cfg.vocab_size)
+        records = total // rec_bytes
+        print(f"[18a] wrote {FEED_FILES} files of {FEED_RECORDS} records of "
+              f"{seq + 1} int32 tokens ({rec_bytes} B): {total:,} bytes, "
+              f"{records:,} records in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
+        # (b) the reader, each engine over all of it (from the page cache)
+        with FileSplitReader(paths, record_size=rec_bytes) as r:
+            if not r.is_native:
+                fail("the reader's default engine is not the native one")
+        reads = {}
+        for name, native in (("native", True), ("python", False)):
+            n, nbytes, secs = _read_all(paths, rec_bytes, native)
+            if n != records or nbytes != total:
+                fail(f"the {name} engine read {n} records / {nbytes} B, "
+                     f"want {records} / {total}")
+            reads[name] = dict(records=n, bytes=nbytes, seconds=secs,
+                               mb_s=nbytes / secs / 1e6,
+                               records_s=n / secs)
+            print(f"[18b] {name} engine on {card}: {nbytes:,} B shuffled "
+                  f"(capacity 1024) in {secs:.3f}s: "
+                  f"{nbytes / secs / 1e6:,.1f} MB/s, {n / secs:,.0f} "
+                  f"records/s (files in the page cache)", flush=True)
+        out["reader"] = reads
+
+        # (c) 20 steps from the files, in turns with the synthetic source
+        # (synthetic, files, files, synthetic) beside phase 9's run;
+        # launches counted over the first file-fed run
+        runs = {"synthetic": [], "files": []}
+        for i, kind in enumerate(("synthetic", "files", "files",
+                                  "synthetic")):
+            source = (train_lm.file_source(paths, batch, seq, seed=0)
+                      if kind == "files" else None)
+            torch.cuda.synchronize()
+            if i == 1:
+                zero_counts()
+            _, losses, walls, waits = _train_run(
+                cfg, _copy_tree(base, "cuda"), steps, batch=batch, seq=seq,
+                timed=True, source=source)
+            if i == 1:
+                c = counts()
+                _check_tc_variants("bf16 file-fed training")
+                file_losses = losses
+            if not all(abs(x) < float("inf") for x in losses):
+                fail(f"a {kind} training loss is not finite")
+            runs[kind].append(dict(
+                step_ms=statistics.median(walls[-10:]) * 1e3,
+                wait_ms=statistics.median(waits) * 1e3, walls=walls,
+                waits=waits))
+        step_ms = statistics.median(r["step_ms"] for r in runs["files"])
+        syn_ms = statistics.median(r["step_ms"] for r in runs["synthetic"])
+        wait_ms = statistics.median(r["wait_ms"] for r in runs["files"])
+        syn_wait = statistics.median(r["wait_ms"]
+                                     for r in runs["synthetic"])
+        tok_s = batch * seq / (step_ms / 1e3)
+        p9 = report["train"]
+        print(f"[18c] small bf16 from the files on {card}: {steps} steps of "
+              f"{batch}x{seq} in turns synthetic, files, files, synthetic: "
+              f"step {[round(r['step_ms'], 2) for r in runs['files']]} ms "
+              f"from the files against "
+              f"{[round(r['step_ms'], 2) for r in runs['synthetic']]} "
+              f"synthetic (medians of the last 10; {step_ms / syn_ms:.3f}x;"
+              f" phase 9: {p9['step_ms']:.2f} ms), {tok_s:,.0f} tokens/s; "
+              f"data wait median {wait_ms:.3f} ms from the files against "
+              f"{syn_wait:.3f} ms synthetic (phase 9: "
+              f"{p9['data_wait_median_ms']:.3f} ms); losses "
+              f"{file_losses[0]:.4f} -> {file_losses[-1]:.4f}; launches {c}",
+              flush=True)
+        if c["k1"] != 2 * L * steps or c["k2"] != L * steps or \
+                c["k3a"] or c["k3b"] or c["k5"] != (4 * L + 1) * steps:
+            fail(f"file-fed launch counts {c} != K1 {2 * L * steps}, K2 "
+                 f"{L * steps}, K3 0, K5 {(4 * L + 1) * steps}")
+        out["train"] = dict(step_ms=step_ms, tokens_per_s=tok_s,
+                            data_wait_median_ms=wait_ms, runs=runs,
+                            losses=file_losses, launches=c,
+                            synthetic_step_ms=syn_ms,
+                            synthetic_data_wait_median_ms=syn_wait,
+                            phase9_step_ms=p9["step_ms"],
+                            phase9_data_wait_median_ms=p9[
+                                "data_wait_median_ms"])
+        launches = dict(c)
+
+        # (d) --elastic_data 16: an uninterrupted run with an asynchronous
+        # checkpoint at step 10, then a new manager restores step 10 and
+        # runs steps 10-19 again; on the two-pass backward (the partials
+        # budget at 0: no atomics), so the losses can be bitwise
+        budget = A._FUSED_PARTIALS_BYTES
+        A._FUSED_PARTIALS_BYTES = 0
+        try:
+            ckpt = os.path.join(tmp, "ckpt")
+            straight, resumed = {}, {}
+            mgr = CheckpointManager(ckpt, save_interval_steps=10)
+            zero_counts()
+            _, a_losses, _, _ = _train_run(
+                cfg, _copy_tree(base, "cuda"), steps, checkpoint=mgr,
+                source=train_lm.elastic_file_source(paths, batch, seq, 0, 0),
+                on_batch=lambda s, b: straight.__setitem__(
+                    s, _batch_digest(b)))
+            c = counts()
+            _check_tc_variants("bf16 elastic training, two-pass backward")
+            mgr.close()
+            if c["k1"] != 2 * L * steps or c["k3a"] != L * steps or \
+                    c["k3b"] != L * steps or c["k2"] or \
+                    c["k5"] != (4 * L + 1) * steps:
+                fail(f"elastic run launch counts {c}: want K1 "
+                     f"{2 * L * steps}, K3a = K3b = {L * steps}, K2 0, K5 "
+                     f"{(4 * L + 1) * steps}")
+            for k in ("k1", "k5", "k3a", "k3b"):
+                launches[k] += c[k]
+            opt = TR.default_optimizer(lr=3e-4, total_steps=1000)
+            new = CheckpointManager(ckpt, save_interval_steps=10)
+            state = new.restore(template=TR.init_state(
+                _copy_tree(base, "cuda"), opt), step=10)
+            if state["step"] != 10:
+                fail(f"the restore gave step {state['step']}, not 10")
+            _, b_losses, _, _ = _train_run(
+                cfg, None, steps - 10, start=10, state=state,
+                source=train_lm.elastic_file_source(paths, batch, seq, 0,
+                                                    10),
+                on_batch=lambda s, b: resumed.__setitem__(
+                    s, _batch_digest(b)))
+            new.close()
+        finally:
+            A._FUSED_PARTIALS_BYTES = budget
+        same_batches = [resumed.get(s) == straight[s]
+                        for s in range(10, steps)]
+        same_losses = [a == b for a, b in zip(a_losses[10:], b_losses)]
+        print(f"[18d] --elastic_data {batch}, {steps} steps with an "
+              f"asynchronous checkpoint at step 10, restored by a new "
+              f"manager: steps 10-19's batches equal by sha256 "
+              f"{sum(same_batches)}/10, losses bitwise "
+              f"{sum(same_losses)}/10 (two-pass backward); uninterrupted "
+              f"{[round(x, 6) for x in a_losses[10:]]}, resumed "
+              f"{[round(x, 6) for x in b_losses]}; committed "
+              f"{sorted(os.listdir(ckpt))}", flush=True)
+        out["elastic"] = dict(straight=straight, resumed=resumed,
+                              straight_losses=a_losses,
+                              resumed_losses=b_losses)
+        if sorted(resumed) != list(range(10, steps)) or not all(
+                same_batches):
+            fail("the resumed elastic run fed other batches than the "
+                 "uninterrupted one")
+        if not all(same_losses):
+            fail("the resumed elastic run's losses are not bitwise the "
+                 "uninterrupted run's on the two-pass backward")
+
+        # (e) the checkpoint stall
+        _checkpoint_stall(out, card, TR.init_state(
+            _copy_tree(base, "cuda"), TR.default_optimizer()),
+            os.path.join(tmp, "stall"))
+
+        # (f) the entry point a user calls, counted from 0 over its runs
+        common = ["--preset", "small", "--batch_size", str(batch),
+                  "--seq_len", str(seq), "--data_files", *paths]
+        cli_dir = os.path.join(tmp, "cli")
+        runs = [["--steps", str(steps)],
+                ["--steps", "10", "--elastic_data", str(batch),
+                 "--ckpt_dir", cli_dir, "--ckpt_every", "10"],
+                ["--steps", str(steps), "--elastic_data", str(batch),
+                 "--ckpt_dir", cli_dir, "--ckpt_every", "10"]]
+        zero_counts()
+        t0 = time.perf_counter()
+        done = []
+        for i, extra in enumerate(runs):
+            if i == 2:
+                os.environ["ATTEMPT_NUMBER"] = "1"
+            try:
+                rc, lines = _train_lm_cli(common + extra)
+            finally:
+                os.environ.pop("ATTEMPT_NUMBER", None)
+            last = [x for x in lines if x.startswith("done: final loss ")]
+            done.append(last[0] if last else None)
+            if rc != 0 or not last or not abs(
+                    float(last[0].split()[-1])) < float("inf"):
+                fail(f"train_lm {' '.join(extra)} on the files: exit {rc}, "
+                     f"last lines {lines[-3:]}")
+            if i == 2 and any(x.startswith("step 0 ") for x in lines):
+                fail("the resumed --elastic_data run did not start at its "
+                     "checkpoint's step")
+        c = counts()
+        _check_tc_variants("bf16 train_lm on the files")
+        committed = sorted(os.listdir(cli_dir))
+        n = 2 * steps                   # 20 file-fed + 10 + 10 elastic
+        print(f"[18f] python -m tony_tpu_torch.train_lm --preset small "
+              f"--batch_size {batch} --seq_len {seq} --data_files (8 "
+              f"files) on {card}, the sharded step on a world-1 NCCL mesh: "
+              f"{steps} steps, then --elastic_data {batch} stopped at step "
+              f"10 and resumed from its checkpoint to {steps}, in "
+              f"{time.perf_counter() - t0:.1f}s: {done}; checkpoints "
+              f"{committed}; launches {c}", flush=True)
+        out["cli"] = dict(done=done, committed=committed, launches=c)
+        if committed != ["step_1", "step_10", "step_20"]:
+            fail(f"train_lm's elastic checkpoints {committed}")
+        if c["k1"] != 2 * L * n or c["k2"] != L * n or c["k3a"] or \
+                c["k3b"] or c["k5"] != (4 * L + 1) * n:
+            fail(f"train_lm launch counts {c} != K1 {2 * L * n}, K2 "
+                 f"{L * n}, K3 0, K5 {(4 * L + 1) * n}")
+        for k in ("k1", "k2", "k5"):
+            launches[k] += c[k]
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[18] phase wall {out['wall_s']:.1f}s", flush=True)
+    report["files"] = out
+    return launches
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -4234,6 +4642,7 @@ def main() -> int:
     var_k1, var_k5 = phase_variants(report, card, serve)
     pre_k1, pre_k5 = phase_prefix(report, card, serve)
     dis_k1, dis_k5 = phase_disagg(report, card, serve)
+    files = phase_files(report, card)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
     # BERT run (phase 12), the mesh-path run (phase 13), the sampled
@@ -4243,15 +4652,19 @@ def main() -> int:
     # over the three training runs; K3a/K3b over the run with the budget
     # at 0; K4 over the run with the fused optimizer; K5 over the serves
     # of phases 5, 14, 15, 16 and 17 and the two LM training runs; K6
-    # over the BERT run
+    # over the BERT run; and phase 18's file-fed run (K1, K2, K5), its
+    # elastic run on the two-pass backward (K1, K3a, K3b, K5) and
+    # train_lm's runs (K1, K2, K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
-                      + host_k1 + var_k1 + pre_k1 + dis_k1)
-    bwd["fused"]["launches"] = counts["k2"] + bert["k2"] + mesh["k2"]
-    bwd["dq"]["launches"] = counts["k3a"]
-    bwd["dkv"]["launches"] = counts["k3b"]
+                      + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"])
+    bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
+                                + files["k2"])
+    bwd["dq"]["launches"] = counts["k3a"] + files["k3a"]
+    bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"]
     k4["launches"] = counts["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
-                                + host_k5 + var_k5 + pre_k5 + dis_k5)
+                                + host_k5 + var_k5 + pre_k5 + dis_k5
+                                + files["k5"])
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

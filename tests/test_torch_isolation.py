@@ -48,7 +48,9 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "conf.keys", "models.quantize", "models.decode",
                 "models.weights", "generate", "channels.channel",
                 "serving.blobcodec", "serving.kvship", "serving.prefix",
-                "serving.disagg", "serving.router"):
+                "serving.disagg", "serving.router", "storage", "io.split",
+                "io.snappy", "io.framed", "io.avro", "io.native",
+                "io.reader", "io.torch_feed"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -111,6 +113,47 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tony_tpu_torch.resolve_device("cuda")
     assert tony_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_the_copied_data_feed_sources_name_no_jax():
+    """The reader stack is the port's own copy: its sources (docstrings
+    and comments included) do not name JAX or the JAX package."""
+    import re
+    root = os.path.join(REPO, "tony_tpu_torch")
+    names = ["storage/__init__.py", "io/split.py", "io/snappy.py",
+             "io/framed.py", "io/avro.py", "io/reader.py",
+             "io/torch_feed.py", "io/native/__init__.py",
+             "io/native/datafeed.cc"]
+    for name in names:
+        text = open(os.path.join(root, name), encoding="utf-8").read()
+        assert not re.search(r"jax|tony_tpu(?!_torch)", text,
+                             re.IGNORECASE), name
+
+
+def test_datafeed_library_is_built_into_the_repositorys_build_dir():
+    """The reader's C++ engine loads from the repository's build/ (named
+    by a hash of its source and flags), never from the JAX package's
+    cache under ~/.cache/tony_tpu."""
+    from tony_tpu_torch.io import native
+    if native.load_native() is None:
+        pytest.skip("no C++ toolchain (g++) on this host")
+    path = os.path.realpath(native.load_native()._name)
+    assert path == os.path.realpath(native.library_path())
+    assert os.path.dirname(path) == os.path.realpath(
+        os.path.join(REPO, "build"))
+    assert ".cache" not in path and "_tony_datafeed.so" not in path
+
+
+def test_train_lm_data_files_without_device_raises_without_a_card(
+        monkeypatch, tmp_path):
+    from tony_tpu_torch import train_lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = tmp_path / "tokens.bin"
+    data.write_bytes(bytes(4 * 33 * 8))
+    for extra in ([], ["--elastic_data", "4"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_lm.main(["--preset", "tiny", "--steps", "1", "--seq_len",
+                           "32", "--data_files", str(data)] + extra)
 
 
 def test_serve_lm_without_device_raises_without_a_card(monkeypatch):

@@ -23,9 +23,12 @@ The contract is the JAX package's: ``close()`` stops the producer,
 drains the queue and joins the thread; a producer error re-raises in the
 consumer with its traceback; an epochal source is called as
 ``source(0), source(1), …``; every batch must match the first batch's
-structure, shapes and dtypes (:class:`PrefetchShapeError`). The file
-sources (``reader_epochs``, ``elastic_epochs``) need the reader stack,
-which is not ported yet.
+structure, shapes and dtypes (:class:`PrefetchShapeError`).
+
+The file sources are here too: :func:`reader_epochs` (each data-parallel
+rank's byte-range split, reshuffled with ``seed + epoch``) and
+:func:`elastic_epochs` (one canonical stream sliced per process, the same
+global batch at every world size).
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ import numpy as np
 import torch
 
 from tony_tpu_torch import resolve_device, tree_leaves, tree_map
+from tony_tpu_torch.io.reader import FileSplitReader
+from tony_tpu_torch.io.split import full_records_in_split
+from tony_tpu_torch.io.torch_feed import (array_batches, feed_split,
+                                          record_size_for)
+from tony_tpu_torch.storage import ssize
 
 log = logging.getLogger(__name__)
 
@@ -62,16 +70,29 @@ def _tree_spec(tree: Any) -> tuple:
                                 for l in tree_leaves(tree)))
 
 
+def _host_tensor(a: np.ndarray, pinned: bool) -> torch.Tensor:
+    """One numpy leaf as a tensor. A batch decoded from files is a
+    read-only view (``records_to_array``), often strided (``tokens[:,
+    :seq]``): it is copied once, into a contiguous buffer (pinned for the
+    card), never viewed; a writable array is viewed on the CPU."""
+    if not pinned and a.flags.writeable:
+        return torch.as_tensor(a)
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    out = torch.empty(a.shape, dtype=dtype, pin_memory=pinned)
+    np.copyto(out.numpy(), a)
+    return out
+
+
 def _to_device(batch: Any, device: torch.device):
     """Host batch (nested dicts of numpy arrays or tensors) → tensors on
     ``device``; to the card through pinned host copies and non-blocking
     copies on the current stream."""
     def one(x):
-        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
-            np.asarray(x))
-        if device.type != "cuda":
-            return t
-        return t.pin_memory().to(device, non_blocking=True)
+        cuda = device.type == "cuda"
+        if isinstance(x, torch.Tensor):
+            return x.pin_memory().to(device, non_blocking=True) if cuda else x
+        t = _host_tensor(np.asarray(x), pinned=cuda)
+        return t.to(device, non_blocking=True) if cuda else t
     return tree_map(one, batch)
 
 
@@ -304,3 +325,120 @@ class DevicePrefetcher:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _split(process_index, process_count) -> tuple[int, int]:
+    """The split to read: the one given, else this process's rank and the
+    world size of the process group (``torch_feed.feed_split``)."""
+    pid, pcount = feed_split()
+    return (pid if process_index is None else process_index,
+            pcount if process_count is None else process_count)
+
+
+def reader_epochs(paths: list[str], batch_size_per_process: int, dtype,
+                  row_shape: tuple[int, ...], *, shuffle: bool = True,
+                  seed: int = 0, process_index: int | None = None,
+                  process_count: int | None = None,
+                  ) -> tuple[Callable[[int], Iterator], int]:
+    """Epochal host-batch source over the sharded data-feed layer.
+
+    Returns ``(epoch_fn, batches_per_epoch)``: ``epoch_fn(epoch)`` yields
+    this split's LOCAL ``[batch, *row_shape]`` ndarrays for one pass over
+    its byte range, reshuffled deterministically per epoch (reader seed =
+    ``seed + epoch`` — a resumed attempt replays the same stream). Every
+    split yields the SAME ``batches_per_epoch`` — the minimum over all
+    splits' full-batch counts, computed from file sizes with no
+    communication — so the step loop cannot deadlock across processes.
+    The split is ``process_index`` of ``process_count``; a sharded
+    trainer passes its data-parallel rank and size (``torch_feed.
+    feed_split(mesh)``), so processes that share a batch shard read the
+    same rows.
+    """
+    pid, pcount = _split(process_index, process_count)
+    record_size = record_size_for(dtype, row_shape)
+    sizes = [ssize(p) for p in paths]
+    per_epoch = min(
+        full_records_in_split(paths, i, pcount, record_size, sizes=sizes)
+        // batch_size_per_process
+        for i in range(pcount))
+
+    def epoch_fn(epoch: int) -> Iterator:
+        reader = FileSplitReader(
+            paths, task_index=pid, task_num=pcount,
+            record_size=record_size, shuffle=shuffle, seed=seed + epoch,
+            sizes=sizes)
+        try:
+            it = array_batches(reader, batch_size_per_process, dtype,
+                               row_shape)
+            for _ in range(per_epoch):
+                yield next(it)
+        finally:
+            reader.close()
+
+    return epoch_fn, per_epoch
+
+
+def elastic_epochs(paths: list[str], global_batch: int, dtype,
+                   row_shape: tuple[int, ...], *, shuffle: bool = True,
+                   seed: int = 0, start_step: int = 0,
+                   process_index: int | None = None,
+                   process_count: int | None = None,
+                   ) -> tuple[Iterator, int]:
+    """World-size-invariant epochal stream for ELASTIC training.
+
+    :func:`reader_epochs` partitions by byte range, so the per-process
+    stream depends on the process COUNT — after an elastic shrink the
+    survivors' splits change and a mid-epoch resume would drop some
+    examples and feed others twice. This source fixes ONE canonical
+    stream — the single-reader pass over all files (``task_num=1``),
+    reshuffled with ``seed + epoch``, chunked into ``global_batch``-row
+    global batches — and hands split ``p`` of ``P`` rows ``[p*B/P,
+    (p+1)*B/P)`` of every global batch. The global batch at step ``s`` is
+    therefore IDENTICAL at any world size.
+
+    ``start_step`` aligns the stream with a restored checkpoint: the
+    first yielded batch is the one for global step ``start_step``
+    (``epoch = s // batches_per_epoch``, position ``s %
+    batches_per_epoch``; the skipped prefix of the resume epoch is
+    decoded and discarded — shuffled streams have no seek).
+
+    Returns ``(iterator, batches_per_epoch)``; the iterator is infinite
+    (cycles epochs) and yields this split's LOCAL ``[B/P, *row_shape]``
+    ndarray slice. Every process reads the WHOLE dataset (the invariance
+    cost).
+    """
+    pid, pcount = _split(process_index, process_count)
+    if global_batch % pcount != 0:
+        raise ValueError(
+            f"elastic_epochs: global_batch={global_batch} must divide "
+            f"evenly over {pcount} process(es) — choose a global batch "
+            f"divisible by every world size the job can shrink to")
+    local = global_batch // pcount
+    record_size = record_size_for(dtype, row_shape)
+    sizes = [ssize(p) for p in paths]
+    per_epoch = (full_records_in_split(paths, 0, 1, record_size,
+                                       sizes=sizes) // global_batch)
+    if per_epoch == 0:
+        raise ValueError(
+            f"data files hold fewer than one global batch "
+            f"(global_batch={global_batch}) — nothing to train on")
+
+    def stream() -> Iterator:
+        step = start_step
+        for epoch in itertools.count(start_step // per_epoch):
+            reader = FileSplitReader(
+                paths, task_index=0, task_num=1, record_size=record_size,
+                shuffle=shuffle, seed=seed + epoch, sizes=sizes)
+            try:
+                it = array_batches(reader, global_batch, dtype, row_shape)
+                skip = step % per_epoch
+                for pos in range(per_epoch):
+                    g = next(it)
+                    if pos < skip:
+                        continue    # decoded + discarded resume prefix
+                    step += 1
+                    yield g[pid * local:(pid + 1) * local]
+            finally:
+                reader.close()
+
+    return stream(), per_epoch

@@ -8,6 +8,19 @@ none. Tensors are restored onto the devices of a template state (the
 freshly initialized one), as the JAX manager restores arrays onto their
 saved sharding.
 
+Unsharded saves are asynchronous, as the JAX package's orbax saves are:
+``save`` returns once the state is copied to host memory
+(:func:`snapshot`) — a copy, since the optimizers update params and
+moments in place, so the next step cannot write into the checkpoint —
+and a background thread writes and commits the file. Reads
+(``latest_step``, ``all_steps``, ``restore``, ``restore_or_init``) first
+wait for the save in flight, so they see every save this process has
+accepted; a save that failed is logged and leaves them on the latest
+committed step. ``wait_until_finished``, ``close`` and
+the next ``save`` join the save in flight and raise its error. The
+writer thread is not a daemon: a process that exits with a save in
+flight commits it first.
+
 A sharded state (DTensor params and moments over a mesh) is saved and
 restored collectively on every rank through
 ``torch.distributed.checkpoint``: each rank writes its shards into
@@ -19,10 +32,12 @@ directory, and every rank reads its answer (:meth:`latest_step`), so a
 retry resumes every rank at the same step; save, restore and
 ``latest_step`` are then collective calls, as the JAX package's are.
 
-Saves are synchronous: ``wait_until_finished`` has nothing to wait for
-(the JAX package's orbax saves run in the background). Remote URLs
+Sharded saves are synchronous: a commit that is atomic across ranks
+needs every rank's writes finished before rank 0's rename, which an
+asynchronous save would have to agree on collectively later. Remote URLs
 (``gs://…``) raise ``NotImplementedError`` — a remote path must never be
-turned into a local directory.
+turned into a local directory (the JAX package has no working remote
+checkpoint either).
 
     mgr = CheckpointManager(ckpt_dir, save_interval_steps=50)
     state = mgr.restore_or_init(lambda: init_state(params, opt))
@@ -35,12 +50,13 @@ import logging
 import os
 import re
 import shutil
+import threading
 from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
 
-from tony_tpu_torch import tree_leaves
+from tony_tpu_torch import tree_leaves, tree_map
 from tony_tpu_torch.constants import ATTEMPT_NUMBER
 
 log = logging.getLogger(__name__)
@@ -72,6 +88,31 @@ def _barrier() -> None:
         dist.barrier()
 
 
+def snapshot(state: Any) -> Any:
+    """A copy of ``state`` in host memory: every tensor copied, every
+    other leaf as it is. A tensor on the card is copied into pinned host
+    memory on its current stream, after the work that writes it, and the
+    copies are waited for together (a copy into pageable memory runs
+    slower and blocks the caller for each tensor). The pinned buffers go
+    back to torch's pinned-memory cache once the write is done, and the
+    next save reuses them."""
+    cards = set()
+
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.device.type != "cuda":
+            return x.detach().clone()
+        cards.add(x.device)
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x.detach(), non_blocking=True)
+
+    snap = tree_map(copy, state)
+    for card in cards:
+        torch.cuda.current_stream(card).synchronize()
+    return snap
+
+
 def _to_template(x, t):
     """A loaded leaf placed like the template's leaf."""
     if isinstance(t, dict):
@@ -95,6 +136,9 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, save_interval_steps)
         os.makedirs(directory, exist_ok=True)
+        #: the background write of the last unsharded save, and its error
+        self._writer: threading.Thread | None = None
+        self._error: BaseException | None = None
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{int(step)}.pt")
@@ -102,9 +146,35 @@ class CheckpointManager:
     def _dir(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{int(step)}")
 
+    def _join(self) -> None:
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+
+    def _raise_failed_save(self) -> None:
+        """Join the save in flight and raise its error, once."""
+        self._join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def _fence(self) -> None:
+        """Read barrier: a read never runs beside this process's own save
+        in flight. It never raises: a failed save surfaces on the next
+        save, ``wait_until_finished`` or ``close``; reads see the latest
+        committed step."""
+        self._join()
+        if self._error is not None:
+            log.warning("in-flight checkpoint save failed; reading the "
+                        "latest COMMITTED step", exc_info=self._error)
+
     def all_steps(self) -> list[int]:
         """Committed steps in this process's view of the directory:
         ``step_<N>.pt`` files and ``step_<N>/`` directories."""
+        self._fence()
+        return self._committed_steps()
+
+    def _committed_steps(self) -> list[int]:
         steps = []
         for name in os.listdir(self.directory):
             m = _NAME.match(name) or _DIR.match(name)
@@ -115,7 +185,8 @@ class CheckpointManager:
     def latest_step(self) -> int | None:
         """The latest committed step; in a job of several processes,
         rank 0's answer on every rank (a collective call)."""
-        steps = self.all_steps() if _is_rank0() else []
+        self._fence()
+        steps = self._committed_steps() if _is_rank0() else []
         latest = [steps[-1] if steps else None]
         if _multi_process():
             dist.broadcast_object_list(latest, src=0)
@@ -130,7 +201,10 @@ class CheckpointManager:
     def save(self, step: int, state: Any, force: bool = False) -> bool:
         """Save if ``force``, or if ``step`` is past the latest saved step
         and on the interval (or nothing is saved yet). Returns True if
-        saved."""
+        saved. An unsharded state is copied to host memory here and
+        written in the background; the previous save is joined first and
+        its error raised."""
+        self._raise_failed_save()
         latest = self.latest_step()
         if not force:
             if latest is not None and step <= latest:
@@ -140,14 +214,31 @@ class CheckpointManager:
         if _is_sharded(state):
             self._save_sharded(step, state)
             return True
+        self._writer = threading.Thread(
+            target=self._write, args=(int(step), snapshot(state)),
+            name=f"tony-checkpoint-{int(step)}")
+        self._writer.start()
+        return True
+
+    def _write(self, step: int, state: Any) -> None:
+        """The background half of a save: write, commit, prune."""
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)          # atomic: never half a checkpoint
+        try:
+            torch.save(state, tmp)
+            os.replace(tmp, path)      # atomic: never half a checkpoint
+            for old in self._committed_steps()[:-self.max_to_keep]:
+                self._remove(old)
+        except Exception as e:         # kept and re-raised
+            self._error = e            # by the next save/wait/close
+            log.error("checkpoint save at step %d failed", step,
+                      exc_info=e)
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return
         log.info("checkpoint saved at step %d → %s", step, self.directory)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            self._remove(old)
-        return True
 
     def _save_sharded(self, step: int, state: Any) -> None:
         """Every rank writes its shards into ``step_<N>.tmp/``; after a
@@ -164,7 +255,7 @@ class CheckpointManager:
             if os.path.exists(final):  # a forced save of the same step
                 shutil.rmtree(final)
             os.replace(tmp, final)     # atomic: never half a checkpoint
-            for old in self.all_steps()[:-self.max_to_keep]:
+            for old in self._committed_steps()[:-self.max_to_keep]:
                 self._remove(old)
             log.info("sharded checkpoint saved at step %d → %s", step,
                      self.directory)
@@ -174,6 +265,7 @@ class CheckpointManager:
                 step: int | None = None) -> Any:
         """Load the given (or latest) step; with a ``template`` state its
         tensors land on the template's devices and dtypes."""
+        self._fence()
         step = self.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -210,7 +302,15 @@ class CheckpointManager:
         return self.restore(template=state, step=step)
 
     def wait_until_finished(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
+        """Join the save in flight; raise its error if it failed."""
+        self._raise_failed_save()
 
     def close(self) -> None:
-        """Nothing to release."""
+        """Join the save in flight; raise its error if it failed."""
+        self._raise_failed_save()
+
+    def __enter__(self) -> "CheckpointManager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

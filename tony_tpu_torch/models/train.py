@@ -272,6 +272,14 @@ def data_parallel_rank(mesh, axes: tuple[str, ...] = ("dp", "fsdp")) -> int:
     return rank
 
 
+def data_parallel_size(mesh, axes: tuple[str, ...] = ("dp", "fsdp")) -> int:
+    """The number of distinct batch shards over the data-parallel mesh
+    axes: the count :func:`data_parallel_rank` ranges over."""
+    shape = mesh_shape(mesh)
+    return int(np.prod([shape[ax] for ax in axes if ax in shape],
+                       dtype=np.int64))
+
+
 def global_batch(sharding: Sharding, local_tree: Any) -> Any:
     """Each process's LOCAL batch shard as the global DTensors of
     ``sharding``: the global batch is the concatenation of the shards in
