@@ -209,6 +209,26 @@ result:
    runtime on NCCL at world 1, the sharded step), 20 steps, then
    ``--elastic_data 16`` stopped at step 10 and resumed from its DCP
    checkpoint to 20: K1, K2 and K5 launches as in phase 9;
+19. mixture of experts: (a) ``tiny`` with 4 experts in f32, lm_loss, the
+   aux loss (1e-5 relative) and every gradient leaf (1e-3 of its largest
+   entry) on the card against the CPU from one set of weights, K1, K2
+   and K5 counted; (b) ``small`` with 8 experts (top 2, capacity factor
+   1.25) in bf16 through train_lm's code path, 20 steps at 16 x 1024:
+   every loss finite, K1, K2 and K5 launched as in phase 9, step ms,
+   tokens/s, MFU, peak memory, the aux loss and the dropped fraction
+   per layer of one forward, and over 2 profiled steps the device time
+   a step by MoE piece (dispatch/combine einsums, expert products,
+   routing, the rest); then 3 steps with the fused optimizer (K4 once a
+   leaf a step, over the tree whose router is f32 among bf16 leaves);
+   (c) ``python -m tony_tpu_torch.train_lm --preset small --num_experts
+   8`` itself (in process, NCCL world 1, mesh ``{"ep": 1}``), 4 steps,
+   then resumed from its DCP checkpoint to 8; (d) the ContinuousBatcher
+   on the MoE model, 8 of phase 5's requests greedy through 8 slots:
+   tokens/s, K1 and K5 against the admissions and steps, launches,
+   device and wall ms a decode step beside the dense ``small``'s; then
+   in f32 at capacity factor 4.0 (nothing drops, whatever the admission
+   padding) every stream of 16 tokens against ``generate`` of its prompt
+   alone (near-tie rule, 1e-4);
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -4327,10 +4347,11 @@ def _checkpoint_stall(report, card, state, directory):
     return out
 
 
-def _train_lm_cli(argv):
+def _train_lm_cli(argv, axes=None):
     """``train_lm.main(argv)`` in this process, its runtime booted from the
-    jax arm's environment at world 1 on a free port (NCCL, mesh
-    ``{"fsdp": -1}``) and shut down after: (exit code, printed lines)."""
+    jax arm's environment at world 1 on a free port (NCCL, mesh ``axes``,
+    ``{"fsdp": -1}`` by default) and shut down after: (exit code, printed
+    lines)."""
     import contextlib
     import io
     import socket
@@ -4342,7 +4363,8 @@ def _train_lm_cli(argv):
         port = sock.getsockname()[1]
     os.environ.update(TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                       TONY_JAX_PROCESS_ID="0", TONY_JAX_NUM_PROCESSES="1",
-                      TONY_MESH_SPEC=json.dumps({"axes": {"fsdp": -1}}))
+                      TONY_MESH_SPEC=json.dumps(
+                          {"axes": axes or {"fsdp": -1}}))
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
@@ -4602,6 +4624,462 @@ def phase_files(report, card):
     return launches
 
 
+# the mixture-of-experts cell (phase 19): `small` with 8 experts a layer,
+# top 2, capacity factor 1.25 (the JAX package's defaults)
+MOE_EXPERTS = 8
+
+
+def _mm_class(shapes, b, e, c):
+    """The MoE piece of a bmm or mm by its operands' shapes: batched over
+    E (the expert products), batched over B with an E*C dimension (the
+    dispatch and combine einsums), or with an E dimension (the router's
+    product) — None for the model's other products."""
+    if not shapes:
+        return None
+    if len(shapes[0]) == 3 and shapes[0][0] == e:
+        return "experts"
+    if len(shapes[0]) == 3 and shapes[0][0] == b and any(
+            e * c in s for s in shapes):
+        return "dispatch/combine"
+    if any(e in s[-2:] for s in shapes):
+        return "routing"
+    return None
+
+
+def _first_product(node):
+    """The first bmm or mm under a profiled op (depth first), or None."""
+    for child in node.cpu_children:
+        if child.name in ("aten::bmm", "aten::mm"):
+            return child
+        found = _first_product(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _routing_shape(sh, b, seq, e, c, k) -> bool:
+    """A tensor of the routing: [B, S*k, ...] (the token-major slots),
+    [B, S, E] / [B, S, k] (probabilities, gates), [B, S, k, E] /
+    [B, S, E, C] (one-hots, dispatch, combine), or any with a C
+    dimension. Attention's [B, S, H, D] is not one, even at H = E."""
+    if len(sh) < 3 or sh[0] != b:
+        return False
+    return (sh[1] == seq * k or c in sh
+            or (len(sh) == 3 and sh[-1] in (e, k))
+            or (len(sh) == 4 and sh[-1] in (e, c)))
+
+
+def _moe_op_class(ev, b, seq, e, c, k):
+    """The MoE piece a profiled CPU op belongs to: by its nearest bmm, mm
+    or einsum (itself or an ancestor; an einsum by the first product
+    under it, since the profiler records no shapes for its operand list)
+    — ``dispatch/combine``, ``experts`` or ``routing`` by
+    :func:`_mm_class` — else ``experts`` for the activation on [E, B, C,
+    F], ``routing`` when it or an ancestor reads a routing tensor
+    (:func:`_routing_shape`: softmax, top-k, one-hot, cumsum, the slot
+    masks and casts); None for the rest of the step."""
+    chain, node = [], ev
+    while node is not None:
+        chain.append(node)
+        node = node.cpu_parent
+    for node in chain:
+        if node.name in ("aten::bmm", "aten::mm"):
+            return _mm_class([tuple(s) for s in node.input_shapes if s],
+                             b, e, c)
+        if node.name == "aten::einsum":
+            prod = _first_product(node)
+            return None if prod is None else _mm_class(
+                [tuple(s) for s in prod.input_shapes if s], b, e, c)
+    for node in chain:
+        shapes = [tuple(s) for s in (node.input_shapes or []) if s]
+        if any(len(s) == 4 and s[0] == e and s[2] == c for s in shapes):
+            return "experts"
+        if any(_routing_shape(s, b, seq, e, c, k) for s in shapes):
+            return "routing"
+    return None
+
+
+def _moe_pieces(prof, b, seq, e, c, k, attr="self_device_time_total"):
+    """{piece: ms} summed over a profile's CPU ops by ``attr`` (their
+    kernels' device time; another attribute in a CPU rehearsal), each op
+    classed by :func:`_moe_op_class`, the rest under ``rest``."""
+    import torch
+    out = {"dispatch/combine": 0.0, "experts": 0.0, "routing": 0.0,
+           "rest": 0.0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(ev, attr, 0) or 0
+        if us > 0:
+            out[_moe_op_class(ev, b, seq, e, c, k) or "rest"] += us / 1e3
+    return out
+
+
+def _moe_profile(cfg, state, batch, seq):
+    """2 profiled MoE training steps (CPU and CUDA activity, input shapes
+    recorded): (device ms a step by MoE piece, wall ms a step, top
+    kernels by device time)."""
+    steps = 2
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tony_tpu_torch.parallel.moe import default_capacity
+    c = default_capacity(seq, cfg.num_experts, cfg.moe_top_k,
+                         cfg.moe_capacity_factor)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        _train_run(cfg, state["params"], steps, seed=1, batch=batch,
+                   seq=seq)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    pieces = {n: ms / steps for n, ms in _moe_pieces(
+        prof, batch, seq, cfg.num_experts, c, cfg.moe_top_k).items()}
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for kern in getattr(ev, "kernels", []):
+            kernels[kern.name] = kernels.get(kern.name, 0) + kern.duration
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return pieces, wall_ms, c, [(n, us / 1e3 / steps) for n, us in top]
+
+
+def _moe_metrics(cfg, params, tokens):
+    """([(aux loss, dropped fraction)] of each layer, the summed aux) of
+    one forward with no gradient over ``tokens``:
+    ``transformer._moe`` wrapped to record its metrics."""
+    import torch
+    from tony_tpu_torch.models import transformer as T
+    seen, orig = [], T._moe
+
+    def record(h, p, cfg_, lay=None):
+        out, m = orig(h, p, cfg_, lay)
+        seen.append((float(m.aux_loss), float(m.dropped_fraction)))
+        return out, m
+
+    T._moe = record
+    try:
+        with torch.no_grad():
+            _, aux = T.forward(params, tokens, cfg)
+    finally:
+        T._moe = orig
+    return seen, float(aux)
+
+
+def _moe_card_vs_cpu(out):
+    """(19a) `tiny` with 4 experts in f32: lm_loss, the aux loss and every
+    gradient leaf on the card against the CPU from one set of weights
+    and one batch (remat on, so K1 runs twice a layer)."""
+    import numpy as np
+    import torch
+    from tony_tpu_torch import tree_leaves
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    cfg = T.PRESETS["tiny"].scaled(dtype=torch.float32, num_experts=4)
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(19).randint(
+        0, cfg.vocab_size, size=(4, 129)))
+    res = {}
+    for key, dev in (("cpu", "cpu"), ("card", "cuda")):
+        params = _copy_tree(cpu, dev)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        t = toks.to(dev)
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+        loss = T.lm_loss(params, {"inputs": t[:, :-1], "targets": t[:, 1:]},
+                         cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            _, aux = T.forward(params, t[:, :-1], cfg)
+        res[key] = (float(loss.detach()), float(aux),
+                    [g.detach().cpu() for g in grads],
+                    dict(k1=A.flash_forward.launches,
+                         k2=A.flash_backward_fused.launches,
+                         k5=N.rms_norm_forward.launches))
+    (l_cpu, a_cpu, g_cpu, _), (l_dev, a_dev, g_dev, c) = \
+        res["cpu"], res["card"]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    aux_rel = abs(a_dev - a_cpu) / abs(a_cpu)
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(g_dev, g_cpu))
+    L = cfg.n_layers
+    # the no-grad forward adds L K1 and 2L + 1 K5 launches
+    want = dict(k1=3 * L, k2=L, k5=(4 * L + 1) + (2 * L + 1))
+    print(f"[19a] f32 tiny with 4 experts, card vs CPU: loss {l_dev:.6f} vs "
+          f"{l_cpu:.6f} (relative {loss_rel:.2e}, limit 1e-5), aux "
+          f"{a_dev:.6f} vs {a_cpu:.6f} (relative {aux_rel:.2e}, limit "
+          f"1e-5), worst gradient leaf max error / max entry {worst:.2e} "
+          f"(limit 1e-3) over {len(g_cpu)} leaves; card launches {c}",
+          flush=True)
+    out["card_vs_cpu"] = dict(loss=(l_dev, l_cpu), aux=(a_dev, a_cpu),
+                              loss_rel=loss_rel, aux_rel=aux_rel,
+                              worst_grad=worst, launches=c)
+    if not (loss_rel <= 1e-5 and aux_rel <= 1e-5 and worst <= 1e-3):
+        fail("phase 19a: the MoE loss, aux or gradients differ between "
+             "the card and the CPU")
+    if c != want:
+        fail(f"phase 19a: card launches {c} != {want}")
+
+
+def phase_moe(report, card, serve):
+    """[19] Mixture of experts: (a) `tiny` with 4 experts in f32, lm_loss
+    and every gradient on the card against the CPU; (b) `small` with 8
+    experts in bf16 through train_lm's code path, 20 steps at 16 x 1024
+    (step ms, tokens/s, MFU, peak memory, device time by MoE piece, K1,
+    K2 and K5 launches, the aux loss and the dropped fraction), then 3
+    steps with the fused optimizer (K4 over the tree whose router is f32
+    among bf16 leaves); (c) ``train_lm --preset small --num_experts 8``
+    itself on a world-1 NCCL mesh with an ep axis, stopped at step 4 and
+    resumed from its DCP checkpoint to 8; (d) the ContinuousBatcher on
+    the MoE model: 8 greedy requests (tokens/s, and launches, device and
+    wall ms a decode step beside the dense model's), then in f32 at
+    capacity factor 4.0, where nothing drops, each stream of 16 tokens
+    against ``generate`` of its prompt alone (near-tie rule, 1e-4).
+    Returns the main paths' launches (b, c and d's bf16 serve)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tony_tpu_torch import train_lm, tree_leaves, tree_map
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    from tony_tpu_torch.ops import optim as O
+    t_phase = time.perf_counter()
+    out = {"walls": {}}
+    _moe_card_vs_cpu(out)
+    out["walls"]["a"] = time.perf_counter() - t_phase
+
+    def zero_counts():
+        A.reset_launches()
+        for fn in (O.adamw_update, N.rms_norm_forward):
+            fn.launches = 0
+
+    def counts():
+        return dict(k1=A.flash_forward.launches,
+                    k2=A.flash_backward_fused.launches,
+                    k3a=A.flash_backward_dq.launches,
+                    k3b=A.flash_backward_dkv.launches,
+                    k4=O.adamw_update.launches,
+                    k5=N.rms_norm_forward.launches)
+
+    launches = dict(k1=0, k2=0, k4=0, k5=0)
+
+    # (b) training at full width
+    steps, batch, seq = 20, 16, 1024
+    cfg, params = train_lm.build("small", "cuda", num_experts=MOE_EXPERTS)
+    L = cfg.n_layers
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_expert = sum(params["blocks"][n].numel()
+                   for n in ("w_gate", "w_down"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state, losses, walls, _ = _train_run(cfg, params, steps, timed=True,
+                                         batch=batch, seq=seq)
+    c = counts()
+    variants = _check_tc_variants("bf16 small MoE training")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(walls[-10:]) * 1e3
+    tok_s = batch * seq / (step_ms / 1e3)
+    fpt = T.train_flops_per_token(cfg, seq)
+    mfu = tok_s * fpt / BF16_FLOPS
+    tokens = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, size=(batch, seq))).cuda()
+    per_layer, aux = _moe_metrics(cfg, state["params"], tokens)
+    dropped = statistics.mean(d for _, d in per_layer)
+    dense_ms = report.get("train", {}).get("step_ms")
+    print(f"[19b] small with {MOE_EXPERTS} experts (top {cfg.moe_top_k}, "
+          f"capacity factor {cfg.moe_capacity_factor}) bf16 training on "
+          f"{card}: {n_params / 1e6:.1f} M params ({n_expert / 1e6:.1f} M in "
+          f"experts), {steps} steps of {batch}x{seq}; step {step_ms:.2f} ms "
+          f"(median of the last 10; dense small {_ms(dense_ms)} in phase "
+          f"9), {tok_s:,.0f} tokens/s, MFU {mfu:.4f} ({fpt / 1e6:.1f} "
+          f"MFLOP/token vs 989 TFLOP/s), peak memory {peak / 2**30:.2f} "
+          f"GiB; losses {losses[0]:.4f} -> {losses[-1]:.4f}; aux loss "
+          f"{aux:.4f} (sum over {L} layers), dropped fraction "
+          f"{dropped:.4f} (mean over layers; "
+          f"{[round(d, 4) for _, d in per_layer]}); launches {c}",
+          flush=True)
+    out["train"] = dict(step_ms=step_ms, walls=walls, tokens_per_s=tok_s,
+                        mfu=mfu, flops_per_token=fpt, peak_bytes=peak,
+                        losses=losses, launches=c, variants=variants,
+                        aux=aux, per_layer=per_layer, dropped=dropped,
+                        params=n_params, expert_params=n_expert)
+    if not all(abs(x) < float("inf") for x in losses):
+        fail("phase 19b: a training loss is not finite")
+    if c["k1"] != 2 * L * steps or c["k2"] != L * steps or \
+            c["k3a"] or c["k3b"] or c["k5"] != (4 * L + 1) * steps:
+        fail(f"phase 19b: launch counts {c} != K1 {2 * L * steps}, K2 "
+             f"{L * steps}, K3 0, K5 {(4 * L + 1) * steps}")
+    for k in ("k1", "k2", "k5"):
+        launches[k] += c[k]
+    t0 = time.perf_counter()
+    pieces, prof_ms, cap, top = _moe_profile(cfg, state, batch, seq)
+    total = sum(pieces.values())
+    print(f"[19b] 2 profiled MoE steps ({time.perf_counter() - t0:.1f}s with "
+          f"the events' analysis): device {total:.2f} ms a step "
+          f"(wall {prof_ms:.2f} ms under the profiler), by piece: "
+          + ", ".join(f"{n} {ms:.2f} ms" for n, ms in pieces.items())
+          + f" (capacity {cap} a batch row); top kernels: "
+          + "; ".join(f"{n[:40]} {ms:.2f} ms" for n, ms in top), flush=True)
+    out["profile"] = dict(pieces_ms=pieces, device_ms=total,
+                          wall_ms=prof_ms, capacity=cap, top=top)
+    zero_counts()
+    _, fl, _, _ = _train_run(cfg, state["params"], 3, fused=True,
+                             batch=batch, seq=seq)
+    c = counts()
+    n_leaves = len(tree_leaves(state["params"]))
+    print(f"[19b] 3 steps with the fused optimizer over the MoE tree (router "
+          f"f32 among bf16 leaves): K4 launches {c['k4']}, losses "
+          f"{[round(x, 4) for x in fl]}", flush=True)
+    out["fused"] = dict(losses=fl, launches=c)
+    if c["k4"] != 3 * n_leaves or not all(abs(x) < float("inf")
+                                          for x in fl):
+        fail(f"phase 19b: fused run K4 launches {c['k4']} != 3 x "
+             f"{n_leaves} leaves, or a loss is not finite")
+    if state["params"]["blocks"]["router"].dtype != torch.float32:
+        fail("phase 19b: the router is no longer f32")
+    for k in ("k1", "k2", "k4", "k5"):
+        launches[k] += c[k]
+    del state
+    out["walls"]["b"] = time.perf_counter() - t_phase - sum(
+        out["walls"].values())
+
+    # (c) train_lm itself, with a DCP checkpoint and a resume
+    common = ["--preset", "small", "--num_experts", str(MOE_EXPERTS),
+              "--batch_size", str(batch), "--seq_len", str(seq)]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [["--steps", "4", "--ckpt_dir", tmp, "--ckpt_every", "4"],
+                ["--steps", "8", "--ckpt_dir", tmp, "--ckpt_every", "4"]]
+        zero_counts()
+        t0 = time.perf_counter()
+        done, mesh_lines = [], []
+        for i, extra in enumerate(runs):
+            if i == 1:
+                os.environ["ATTEMPT_NUMBER"] = "1"
+            try:
+                rc, lines = _train_lm_cli(common + extra, {"ep": -1})
+            finally:
+                os.environ.pop("ATTEMPT_NUMBER", None)
+            last = [x for x in lines if x.startswith("done: final loss ")]
+            mesh_lines += [x for x in lines if " mesh=" in x]
+            done.append(last[0] if last else None)
+            if rc != 0 or not last or not abs(
+                    float(last[0].split()[-1])) < float("inf"):
+                fail(f"phase 19c: train_lm {' '.join(extra)}: exit {rc}, "
+                     f"last lines {lines[-3:]}")
+            if i == 1 and any(x.startswith("step 0 ") for x in lines):
+                fail("phase 19c: the resumed run did not start at its "
+                     "checkpoint's step")
+        c = counts()
+        _check_tc_variants("bf16 train_lm --num_experts")
+        committed = sorted(os.listdir(tmp))
+    n = 8
+    print(f"[19c] python -m tony_tpu_torch.train_lm {' '.join(common)} on "
+          f"{card}, the sharded step on a world-1 NCCL mesh "
+          f"({mesh_lines[0].split(' mesh=')[1] if mesh_lines else '?'}): 4 "
+          f"steps, then resumed from its DCP checkpoint to 8, in "
+          f"{time.perf_counter() - t0:.1f}s: {done}; checkpoints "
+          f"{committed}; launches {c}", flush=True)
+    out["cli"] = dict(done=done, committed=committed, launches=c,
+                      mesh=mesh_lines)
+    if committed != ["step_1", "step_4", "step_8"]:
+        fail(f"phase 19c: train_lm's checkpoints {committed}")
+    if not mesh_lines or "'ep': 1" not in mesh_lines[0]:
+        fail(f"phase 19c: no ep axis in train_lm's mesh line {mesh_lines}")
+    if c["k1"] != 2 * L * n or c["k2"] != L * n or c["k3a"] or \
+            c["k3b"] or c["k5"] != (4 * L + 1) * n:
+        fail(f"phase 19c: launch counts {c} != K1 {2 * L * n}, K2 "
+             f"{L * n}, K3 0, K5 {(4 * L + 1) * n}")
+    for k in ("k1", "k2", "k5"):
+        launches[k] += c[k]
+    out["walls"]["c"] = time.perf_counter() - t_phase - sum(
+        out["walls"].values())
+
+    # (d) serving the MoE model (19b's trained weights): the batcher,
+    # greedy, 8 requests
+    prompts, budgets = serve["prompts"][:8], serve["budgets"][:8]
+
+    def batcher(p, c_):
+        return S.ContinuousBatcher(p, c_, batch=8, max_len=1024, chunk=8,
+                                   pipeline=True)
+
+    t_d = time.perf_counter()
+    b = batcher(params, cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    S.CALL_COUNTS.clear()
+    t0 = time.perf_counter()
+    outs = b.serve(prompts, budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    _check_tc_variants("the bf16 MoE serve")
+    k1_want, k5_want, admits = _expected_launches(cfg, None, 0)
+    n_tok = sum(len(o) for o in outs)
+    if [len(o) for o in outs] != budgets or not all(
+            0 <= t < cfg.vocab_size for o in outs for t in o):
+        fail("phase 19d: a request did not get its budget of in-vocabulary "
+             "tokens")
+    if c["k1"] != k1_want or c["k5"] != k5_want or c["k2"]:
+        fail(f"phase 19d: launches {c} != K1 {k1_want}, K5 {k5_want} "
+             f"({admits} admissions), K2 0")
+    launches["k1"] += c["k1"]
+    launches["k5"] += c["k5"]
+    t_step = time.perf_counter()
+    moe_step = _per_step(batcher(params, cfg), prompts, budgets)
+    # phase 14g's greedy per-step figures are the dense model's on these
+    # 8 requests and this batcher; measured here when phase 14 did not run
+    dense_step = report.get("serving_host", {}).get("per_step", {}).get(
+        "greedy") or _per_step(batcher(serve["params"], serve["cfg"]),
+                               prompts, budgets)
+    print(f"[19d] small with {MOE_EXPERTS} experts bf16 on {card}: 8 "
+          f"requests, {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
+          f"tokens/s), K1 {c['k1']} and K5 {c['k5']} launches over "
+          f"{admits} admissions; per decode step (admission included): "
+          f"MoE {moe_step['launches']:.1f} launches, device "
+          f"{moe_step['device_ms']:.3f} ms, wall {moe_step['wall_ms']:.3f} "
+          f"ms; dense small (phase 5's model) {dense_step['launches']:.1f} "
+          f"launches, device {dense_step['device_ms']:.3f} ms, wall "
+          f"{dense_step['wall_ms']:.3f} ms (serve {t_step - t_d:.1f}s, "
+          f"profiled per-step serves {time.perf_counter() - t_step:.1f}s)",
+          flush=True)
+    out["serve"] = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                        launches=c, per_step=moe_step,
+                        dense_per_step=dense_step)
+    # f32 at capacity factor 4.0 (no drops, whatever the padding):
+    # every stream of 16 tokens against generate of its prompt alone
+    t_hold = time.perf_counter()
+    cfg32 = cfg.scaled(dtype=torch.float32, moe_capacity_factor=4.0)
+    params32 = tree_map(lambda v: v.float(), params)
+    got = batcher(params32, cfg32).serve(prompts, 16)
+    solo = [D.generate(params32, torch.tensor([p], device="cuda"), cfg32,
+                       16).tokens[0, len(p):].tolist() for p in prompts]
+    equal, diffs = _near_ties("phase 19d", params32, cfg32, prompts, got,
+                              solo, 1e-4)
+    print(f"[19d] f32, capacity factor 4.0: the batcher's 8 streams of 16 "
+          f"tokens vs generate per request: {equal}/8 identical, first "
+          f"differences at near-ties (request, step, logit gap) {diffs} "
+          f"({time.perf_counter() - t_hold:.1f}s)", flush=True)
+    out["serve"]["f32_vs_generate"] = dict(equal=equal, diffs=diffs)
+    out["walls"]["d"] = time.perf_counter() - t_phase - sum(
+        out["walls"].values())
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[19] phase wall {out['wall_s']:.1f}s ("
+          + ", ".join(f"19{k} {v:.1f}s" for k, v in out["walls"].items())
+          + ")", flush=True)
+    report["moe"] = out
+    return launches
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -4643,6 +5121,7 @@ def main() -> int:
     pre_k1, pre_k5 = phase_prefix(report, card, serve)
     dis_k1, dis_k5 = phase_disagg(report, card, serve)
     files = phase_files(report, card)
+    moe = phase_moe(report, card, serve)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
     # BERT run (phase 12), the mesh-path run (phase 13), the sampled
@@ -4652,19 +5131,22 @@ def main() -> int:
     # over the three training runs; K3a/K3b over the run with the budget
     # at 0; K4 over the run with the fused optimizer; K5 over the serves
     # of phases 5, 14, 15, 16 and 17 and the two LM training runs; K6
-    # over the BERT run; and phase 18's file-fed run (K1, K2, K5), its
+    # over the BERT run; phase 18's file-fed run (K1, K2, K5), its
     # elastic run on the two-pass backward (K1, K3a, K3b, K5) and
-    # train_lm's runs (K1, K2, K5)
+    # train_lm's runs (K1, K2, K5); and phase 19's MoE runs: training
+    # (K1, K2, K5), its fused-optimizer steps (K4 too), train_lm
+    # --num_experts (K1, K2, K5) and the MoE serve (K1, K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
-                      + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"])
+                      + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
+                      + moe["k1"])
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
-                                + files["k2"])
+                                + files["k2"] + moe["k2"])
     bwd["dq"]["launches"] = counts["k3a"] + files["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"]
-    k4["launches"] = counts["k4"]
+    k4["launches"] = counts["k4"] + moe["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
-                                + files["k5"])
+                                + files["k5"] + moe["k5"])
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

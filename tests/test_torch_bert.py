@@ -33,6 +33,7 @@ from tony_tpu_torch import pretrain_bert, tree_leaves
 from tony_tpu_torch.models import bert as TB
 from tony_tpu_torch.models import train as TR
 from tony_tpu_torch.models.weights import params_from_numpy, params_to_numpy
+from tony_tpu_torch.parallel.sharding import param_shardings
 
 torch.set_num_threads(2)
 
@@ -211,13 +212,16 @@ def test_synthetic_mlm_batches_equal_the_examples():
 def test_unported_sharding_arguments_raise(jax_params):
     params = params_from_numpy(jax_params, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    # dp, fsdp and tp are ported; cp, pp and ep still raise
-    for axis in ("cp", "pp", "ep"):
+    # dp, fsdp, tp and ep are ported; cp and pp still raise
+    for axis in ("cp", "pp"):
         with pytest.raises(NotImplementedError):
             TB.forward(params, toks, TCFG, mesh={"fsdp": 1, axis: 2})
         with pytest.raises(NotImplementedError):
             TB.mlm_loss(params, {"tokens": toks, "targets": toks}, TCFG,
                         mesh={axis: 2})
+    # BERT has no experts: on an ep axis every parameter replicates
+    shardings = param_shardings(TB.logical_axes(TCFG), {"ep": 2})
+    assert all(e is None for s in tree_leaves(shardings) for e in s.spec)
 
 
 def test_pretrain_bert_cli_on_the_cpu(capsys):

@@ -3,7 +3,10 @@
 JAX ``tiny`` in f32 with its parameters converted to torch: prefill,
 bucketed ``prefill_rows`` and ``decode_step`` logits agree to atol 1e-4
 / rtol 1e-4, the blockwise cache walk (max_len >= 512) included, and
-greedy ``generate`` is token-identical.
+greedy ``generate`` is token-identical — for MoE configs too (4 experts,
+capacity per call as in the JAX package); MoE cached generation equals
+the port's own full-forward greedy loop at capacity factor 4.0, where
+nothing drops.
 """
 
 import jax
@@ -107,8 +110,8 @@ def test_blockwise_window_decode_matches_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
-@pytest.mark.parametrize("kw", [{}, {"n_kv_heads": 2}],
-                         ids=["mha", "gqa"])
+@pytest.mark.parametrize("kw", [{}, {"n_kv_heads": 2}, {"num_experts": 4}],
+                         ids=["mha", "gqa", "moe"])
 def test_greedy_generate_token_identical(kw):
     jcfg, tcfg, jp, tp = _setup(**kw)
     prompt = _toks((2, 7), seed=3)
@@ -119,6 +122,49 @@ def test_greedy_generate_token_identical(kw):
                                   np.asarray(want.tokens))
     np.testing.assert_allclose(got.logprobs.numpy(),
                                np.asarray(want.logprobs), atol=1e-4)
+
+
+def test_moe_prefill_rows_and_decode_match_jax():
+    """Bucketed MoE prefill (capacity from the padded bucket length, in
+    both packages) and per-row decode steps at the default factor."""
+    jcfg, tcfg, jp, tp = _setup(num_experts=4)
+    lens = np.array([5, 16, 9], np.int32)
+    toks = _toks((3, 16), seed=4)
+    jl, jmini = JD.prefill_rows(jp, jnp.asarray(toks, jnp.int32),
+                                jnp.asarray(lens), jcfg)
+    tl, tmini = TD.prefill_rows(tp, torch.from_numpy(toks),
+                                torch.from_numpy(lens), tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    jc, tc = dict(jmini), dict(tmini)
+    for _ in range(3):
+        nxt = np.argmax(np.asarray(jl), axis=-1)
+        jl, jc = JD.decode_step(jp, jnp.asarray(nxt, jnp.int32), jc,
+                                jc["length"], jcfg)
+        tl, tc = TD.decode_step(tp, torch.from_numpy(nxt), tc,
+                                tc["length"], tcfg, pos_range=(
+                                    int(tc["length"].min()),
+                                    int(tc["length"].max())))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+def _full_forward_greedy(params, prompt, steps, cfg):
+    """Reference decode: the whole forward again for every token."""
+    tokens = prompt
+    for _ in range(steps):
+        logits, _ = TT.forward(params, tokens, cfg)
+        nxt = logits[:, -1].argmax(-1)
+        tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+    return tokens
+
+
+def test_moe_greedy_generate_matches_full_forward():
+    """Cached MoE generation equals the full-forward loop at a capacity
+    factor where neither the S=1 decode dispatch nor the growing-S full
+    forward drops (the twin of tests/test_decode.py's)."""
+    _, tcfg, _, tp = _setup(num_experts=2, moe_capacity_factor=4.0)
+    prompt = torch.from_numpy(_toks((2, 4), seed=6))
+    out = TD.generate(tp, prompt, tcfg, 4)
+    assert torch.equal(out.tokens, _full_forward_greedy(tp, prompt, 4, tcfg))
 
 
 def test_out_of_range_per_row_writes_drop():
@@ -133,11 +179,11 @@ def test_out_of_range_per_row_writes_drop():
 
 def test_unported_cache_kinds_raise():
     """int8 and rolling caches are ported (tests/test_torch_decode_variants.py)
-    and so are shared-prefix templates (tests/test_torch_prefix.py); MoE
-    decode still raises."""
+    and so are shared-prefix templates (tests/test_torch_prefix.py) and
+    MoE decode, whose cache is the dense model's."""
     cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, num_experts=4)
-    with pytest.raises(NotImplementedError):
-        TD.init_kv_cache(cfg, 1, 8, device="cpu")
+    assert TD.init_kv_cache(cfg, 1, 8, device="cpu")["k"].shape == \
+        (cfg.n_layers, 1, 8, cfg.kv_heads, cfg.head_dim)
     for kw in ({"kv_cache_dtype": "int8"},
                {"attn_window": 4, "kv_cache_capacity": 8}):
         cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, **kw)

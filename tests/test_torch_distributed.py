@@ -15,7 +15,8 @@ rows through ``global_batch``:
   JAX package at rtol 1e-4 (the bound of
   ``test_torch_train.py::test_five_step_trajectory_matches_jax``), for
   dp, fsdp, tp (MHA, and GQA with kv_heads 2 and 1) and fsdp × tp at
-  world 2 and 4, and BERT under fsdp and tp;
+  world 2 and 4, an MoE LM (4 experts) under ep, dp × ep and ep × tp,
+  and BERT under fsdp and tp;
 - the final params, gathered to full arrays, against the port's
   unsharded step (that test's bounds: all but 1% of each leaf within
   1e-5, each leaf within 1e-3 in relative L2), and the gathered initial
@@ -26,8 +27,11 @@ rows through ``global_batch``:
   data-parallel rank order, and ``constrain`` replicating it;
 - a sharded checkpoint saved at step 2 restored by a new group
   (``restore_or_init`` at attempt 1) resumes to the same params, bit for
-  bit;
-- the fused optimizer refuses a mesh.
+  bit; an ep-sharded MoE checkpoint of world 2 restored by a group of 4
+  on dp × ep resumes to the uninterrupted run's losses and params at
+  the bounds above;
+- the fused optimizer refuses a mesh, and experts that do not split over
+  ep are refused.
 """
 
 import dataclasses
@@ -263,6 +267,9 @@ LM_CASES = [
     Case("tp4_gqa2", 4, {"tp": 4}, kw={"n_kv_heads": 2}),
     Case("fsdp2_tp2", 4, {"fsdp": 2, "tp": 2}),
     Case("fsdp2_tp2_gqa1", 4, {"fsdp": 2, "tp": 2}, kw={"n_kv_heads": 1}),
+    Case("ep2", 2, {"ep": 2}, kw={"num_experts": 4}),
+    Case("dp2_ep2", 4, {"dp": 2, "ep": 2}, kw={"num_experts": 4}),
+    Case("ep2_tp2", 4, {"ep": 2, "tp": 2}, kw={"num_experts": 4}),
 ]
 BERT_CASES = [
     Case("bert_fsdp2", 2, {"fsdp": 2}, model="bert"),
@@ -335,6 +342,39 @@ def test_sharded_checkpoint_resumes_in_a_new_group(group_results,
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_1", "step_2"]
     for name, want in _gathered(straight[0], "p/").items():
         np.testing.assert_array_equal(outs[0]["p/" + name], want, name)
+
+
+def test_ep_checkpoint_restores_at_another_world_size(group_results,
+                                                     tmp_path):
+    """An MoE state sharded over ep=2 (world 2), saved at step 2, is
+    restored by a group of 4 on dp=2 x ep=2 (the experts resharded by the
+    restore) and trains on to the uninterrupted ep2 run: its last loss
+    and grad_norm at rtol 1e-4 and its params at the trajectory bounds
+    (the batch now splits over dp, another summation order)."""
+    straight = group_results(2)["ep2"]
+    moe = {"num_experts": 4}
+    try:
+        run_group([Case("ckpt_ep", 2, {"ep": 2}, kw=moe, steps=2,
+                        ckpt="save")], 2, tmp_path)
+        outs = run_group([Case("ckpt_ep", 4, {"dp": 2, "ep": 2}, kw=moe,
+                               ckpt="resume")], 4, tmp_path)["ckpt_ep"]
+    except RuntimeError as e:
+        pytest.fail(str(e))
+    for o in outs:
+        assert int(o["start"]) == 2 and int(o["count"]) == STEPS
+        np.testing.assert_allclose(o["loss"], straight[0]["loss"][2:],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(o["grad_norm"],
+                                   straight[0]["grad_norm"][2:], rtol=1e-4)
+    _assert_params_close(_gathered(outs[0], "p/"),
+                         _gathered(straight[0], "p/"))
+
+
+def test_experts_must_split_over_ep():
+    cfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, num_experts=3)
+    toks = torch.zeros(2, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="not divisible over ep=2"):
+        TT.lm_loss({}, {"tokens": toks}, cfg, mesh={"dp": 1, "ep": 2})
 
 
 def test_fused_optimizer_refuses_a_mesh():

@@ -192,10 +192,17 @@ def test_spec_placements_follow_mesh_order():
 
 
 def test_layout_refuses_unported_axes_and_rules():
-    for axis in ("cp", "pp", "ep"):
+    for axis in ("cp", "pp"):
         with pytest.raises(NotImplementedError):
             spmd.Layout({"dp": 2, axis: 2})
     rules = dict(PS.DEFAULT_RULES)
+    # ep is ported: "expert" resolves to it beside the batch's axes, and
+    # must not share the model axis
+    assert PS.logical_to_spec(("batch", "expert"), {"dp": 2, "ep": 2}) \
+        == ("dp", "ep")
+    with pytest.raises(NotImplementedError, match="expert"):
+        spmd.Layout({"ep": 2, "tp": 2}, tuple({**rules,
+                                               "expert": "tp"}.items()))
     with pytest.raises(NotImplementedError, match="one mesh axis"):
         spmd.Layout({"dp": 2, "tp": 2}, tuple({**rules,
                                                 "mlp": None}.items()))

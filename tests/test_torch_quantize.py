@@ -208,3 +208,35 @@ def test_bf16_prefill_route_casts_the_weight_to_bf16():
         * w.scale
     torch.testing.assert_close(TD._weinsum("bsd,df->bsf", short_x, w,
                                            f32_out=True), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_tree_quantizes_like_jax(dtype):
+    """An MoE tree: the attention products and the lm_head quantize
+    bitwise as JAX's; the experts, the router (f32) and the norms pass
+    through unchanged, as in the JAX package; quantized MoE ``generate``
+    is JAX's token for token (f32)."""
+    cfg = JT.PRESETS["tiny"].scaled(dtype=jnp.dtype(dtype), remat=False,
+                                    num_experts=4)
+    jp = JT.init_params(jax.random.PRNGKey(0), cfg)
+    want = jax.device_get(JQ.quantize_weights_int8(jp))
+    tp = params_from_numpy(jax.device_get(jp), device="cpu")
+    got = quantize_weights_int8(tp)
+    for n in ("wq", "wk", "wv", "wo"):
+        np.testing.assert_array_equal(got["blocks"][n].q.numpy(),
+                                      np.asarray(want["blocks"][n].q))
+        np.testing.assert_array_equal(got["blocks"][n].scale.numpy(),
+                                      np.asarray(want["blocks"][n].scale))
+    for n in ("router", "w_gate", "w_down", "attn_norm", "mlp_norm"):
+        assert got["blocks"][n] is tp["blocks"][n], n
+        assert not isinstance(want["blocks"][n], tuple), n
+    assert got["blocks"]["router"].dtype == torch.float32
+    if dtype == "float32":
+        prompt = _toks((2, 9), 8)
+        tcfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, remat=False,
+                                         num_experts=4)
+        jt = JD.generate(want, jnp.asarray(prompt, jnp.int32), cfg, 8,
+                         jax.random.PRNGKey(0))
+        tt = TD.generate(got, torch.from_numpy(prompt), tcfg, 8)
+        np.testing.assert_array_equal(tt.tokens.numpy(),
+                                      np.asarray(jt.tokens))

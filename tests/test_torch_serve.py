@@ -228,3 +228,35 @@ def test_engine_counters_cancel_and_validation(params):
     assert b.phase_times.count("admit") >= 2
     assert TS.CALL_COUNTS[("admit_rows", (2, 16))] >= 2
 
+
+
+def test_moe_serve_token_identical_to_jax_and_generate():
+    """An MoE config (4 experts) through the batcher, pipelined: the JAX
+    batcher's tokens and steps, and each request equal to the port's
+    ``generate`` of its prompt alone. Admission pads a prompt to its
+    bucket and capacity follows the padded length, so the factor is
+    4.0, where nothing drops (as tests/test_decode.py's MoE test runs);
+    then the same requests through a ``ServeEngine`` over the batcher."""
+    jcfg = JCFG.scaled(num_experts=4, moe_capacity_factor=4.0)
+    tcfg = TCFG.scaled(num_experts=4, moe_capacity_factor=4.0)
+    jp = JT.init_params(jax.random.PRNGKey(1), jcfg)
+    tp = params_from_numpy(jax.device_get(jp), device="cpu")
+    jb = JS.ContinuousBatcher(jp, jcfg, batch=3, max_len=48, chunk=4)
+    want = jb.serve(PROMPTS, BUDGETS)
+    tb = TS.ContinuousBatcher(tp, tcfg, batch=3, max_len=48, chunk=4)
+    assert tb.serve(PROMPTS, BUDGETS) == want
+    assert tb.steps_executed == jb.steps_executed
+    for p, n, o in zip(PROMPTS, BUDGETS, want):
+        solo = TD.generate(tp, torch.tensor([p]), tcfg, n)
+        assert o == solo.tokens[0, len(p):].tolist()
+    got = {}
+    eng = TS.ServeEngine(
+        TS.ContinuousBatcher(tp, tcfg, batch=3, max_len=48, chunk=4),
+        on_delta=lambda rid, toks: got.setdefault(rid, []).extend(toks),
+        on_retired=lambda rid, reason, n, final: got.setdefault(
+            rid, []).extend(final or []))
+    for rid, (p, n) in enumerate(zip(PROMPTS, BUDGETS)):
+        eng.submit(rid, p, n)
+    eng.drain()
+    eng.run()
+    assert [got[rid] for rid in range(len(PROMPTS))] == want

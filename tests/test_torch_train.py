@@ -12,7 +12,9 @@ numpy, and the same seeded token batches through both packages:
   atol 1e-5 for all but 1% of each leaf's elements and 1e-3 in relative
   L2 norm per leaf (f32, different summation orders, which Adam's
   per-element normalization magnifies where a gradient element is small);
-- ``train_flops_per_token``, the same formula.
+- ``train_flops_per_token``, the same formula;
+- the same three for an MoE config (4 experts, the aux loss in the loss),
+  at the same bounds.
 """
 
 import jax
@@ -75,9 +77,8 @@ def _port_loss_and_grads(np_params, tcfg, batch):
     return float(loss.detach()), flat
 
 
-@pytest.fixture(scope="module")
-def jax_loss_and_grads():
-    jcfg, _, jp = _setup()
+def _jax_loss_and_grads(**kw):
+    jcfg, _, jp = _setup(**kw)
     batch = _batches(jcfg.vocab_size, 1)[0]
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     loss, grads = jax.value_and_grad(
@@ -85,17 +86,37 @@ def jax_loss_and_grads():
     return float(loss), _flat(jax.device_get(grads))
 
 
-@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
-def test_loss_and_every_gradient_leaf_match_jax(remat, jax_loss_and_grads):
-    jcfg, tcfg, jp = _setup(remat=remat)
+@pytest.fixture(scope="module")
+def jax_loss_and_grads():
+    return _jax_loss_and_grads()
+
+
+@pytest.fixture(scope="module")
+def jax_moe_loss_and_grads():
+    return _jax_loss_and_grads(num_experts=4)
+
+
+def _check_loss_and_grads(remat, want_loss, want, **kw):
+    jcfg, tcfg, jp = _setup(remat=remat, **kw)
     batch = _batches(jcfg.vocab_size, 1)[0]
-    want_loss, want = jax_loss_and_grads
     loss, got = _port_loss_and_grads(jp, tcfg, batch)
     assert abs(loss - want_loss) <= 1e-5
     assert sorted(got) == sorted(want)
     for name in want:
         np.testing.assert_allclose(got[name], want[name], atol=1e-5,
                                    rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_loss_and_every_gradient_leaf_match_jax(remat, jax_loss_and_grads):
+    _check_loss_and_grads(remat, *jax_loss_and_grads)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_moe_loss_and_every_gradient_leaf_match_jax(remat,
+                                                    jax_moe_loss_and_grads):
+    """The aux loss comes back out of every checkpointed block."""
+    _check_loss_and_grads(remat, *jax_moe_loss_and_grads, num_experts=4)
 
 
 def test_remat_gives_the_same_gradient():
@@ -125,9 +146,8 @@ def test_unported_remat_policies_raise():
             t.requires_grad_(False)
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_five_step_trajectory_matches_jax(fused):
-    jcfg, tcfg, jp = _setup()
+def _check_five_step_trajectory(fused, **kw):
+    jcfg, tcfg, jp = _setup(**kw)
     batches = _batches(jcfg.vocab_size, 5, seed=2)
     opt_kw = dict(lr=1e-2, warmup_steps=2, total_steps=10, fused=fused)
 
@@ -165,6 +185,16 @@ def test_five_step_trajectory_matches_jax(fused):
         assert rel <= 1e-3, (name, rel)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_five_step_trajectory_matches_jax(fused):
+    _check_five_step_trajectory(fused)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_moe_five_step_trajectory_matches_jax(fused):
+    _check_five_step_trajectory(fused, num_experts=4)
+
+
 def test_eval_step_records_no_gradient():
     _, tcfg, jp = _setup()
     params = params_from_numpy(jp, device="cpu")
@@ -178,7 +208,8 @@ def test_eval_step_records_no_gradient():
 
 @pytest.mark.parametrize("preset,kw", [("tiny", {}), ("small", {}),
                                        ("small", {"attn_window": 128}),
-                                       ("base", {"n_kv_heads": 4})])
+                                       ("base", {"n_kv_heads": 4}),
+                                       ("small", {"num_experts": 8})])
 def test_train_flops_per_token_matches_jax(preset, kw):
     jcfg = JT.PRESETS[preset].scaled(**kw)
     tcfg = TT.PRESETS[preset].scaled(**kw)

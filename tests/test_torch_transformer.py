@@ -3,7 +3,8 @@
 The JAX ``tiny`` preset in f32, its parameters converted to torch
 through numpy, and the same seeded tokens through both ``forward``s:
 logits agree to atol 1e-4 / rtol 1e-4 (f32, different matmul
-summation orders), for MHA, GQA and a sliding window.
+summation orders), for MHA, GQA and a sliding window, and for an MoE
+config (4 experts), whose aux loss agrees to 1e-5 relative.
 """
 
 import jax
@@ -85,14 +86,53 @@ def test_config_validation_and_unported_branches():
     assert cfg.logits_storage_dtype == torch.float32
     assert TT.PRESETS["small"].logits_storage_dtype == torch.bfloat16
     assert TT.PRESETS["small"].head_dim == 64
-    with pytest.raises(NotImplementedError):
-        TT.init_params(torch.Generator(), cfg.scaled(num_experts=4),
-                       device="cpu")
+    # MoE is ported: an f32 router and two expert matrices, no w_up
+    moe_cfg = cfg.scaled(num_experts=3)
+    moe = TT.init_params(torch.Generator(), moe_cfg, device="cpu")
+    assert "w_up" not in moe["blocks"]
+    assert moe["blocks"]["router"].dtype == torch.float32
+    assert tuple(moe["blocks"]["w_gate"].shape) == (2, 3, 128, 512)
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
-    # cp, pp and ep are not ported: a mesh with any of them live raises
-    # before it is read further (its sizes are all the check needs)
-    for axis in ("cp", "pp", "ep"):
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    # cp and pp are not ported: a mesh with either live raises before it
+    # is read further (its sizes are all the check needs)
+    for axis in ("cp", "pp"):
         with pytest.raises(NotImplementedError):
-            TT.forward(params, torch.zeros(1, 4, dtype=torch.long), cfg,
-                       mesh={"dp": 1, axis: 2})
+            TT.forward(params, toks, cfg, mesh={"dp": 1, axis: 2})
+    # ep is: experts that do not split evenly over it are refused first
+    with pytest.raises(ValueError, match="not divisible over ep=2"):
+        TT.forward(moe, toks, moe_cfg, mesh={"dp": 1, "ep": 2})
+
+
+def test_moe_params_and_axes_match_jax():
+    """The MoE tree's keys, shapes and dtypes (the router f32 in a bf16
+    model) and its logical axes are the JAX package's."""
+    for dtype in ("float32", "bfloat16"):
+        jcfg = JT.PRESETS["tiny"].scaled(dtype=jnp.dtype(dtype),
+                                         num_experts=4)
+        tcfg = TT.PRESETS["tiny"].scaled(dtype=getattr(torch, dtype),
+                                         num_experts=4)
+        jp = jax.device_get(JT.init_params(jax.random.PRNGKey(0), jcfg))
+        tp = TT.init_params(torch.Generator().manual_seed(0), tcfg,
+                            device="cpu")
+        assert set(tp["blocks"]) == set(jp["blocks"])
+        for name, a in jp["blocks"].items():
+            t = tp["blocks"][name]
+            assert tuple(t.shape) == a.shape, name
+            assert str(t.dtype).split(".")[-1] == a.dtype.name, name
+        assert TT.logical_axes(tcfg) == JT.logical_axes(jcfg)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_moe_forward_logits_and_aux_match_jax(remat):
+    jcfg, tcfg = _configs(num_experts=4)
+    jcfg, tcfg = jcfg.scaled(remat=remat), tcfg.scaled(remat=remat)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.device_get(jp), device="cpu")
+    toks = np.random.RandomState(0).randint(0, jcfg.vocab_size, size=(2, 23))
+    want, want_aux = JT.forward(jp, jnp.asarray(toks, jnp.int32), jcfg)
+    got, aux = TT.forward(tp, torch.from_numpy(toks), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)

@@ -77,3 +77,24 @@ def test_dtype_cast_on_load_matches_jax_cast():
     want = np.asarray(jnp.asarray(tree["lm_head"]).astype(jnp.bfloat16))
     got = params_to_numpy(tp, bf16_dtype=jnp.bfloat16)["lm_head"]
     np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_tree_crosses_with_an_f32_router(dtype):
+    """An MoE tree keeps its keys, shapes and dtypes (the router f32 in a
+    bf16 tree) both ways, bit for bit, with the JAX tree's digest; a cast
+    to bf16 on load leaves the router f32, as the model keeps it."""
+    tree = _jax_tree(jnp.dtype(dtype), num_experts=4)
+    assert tree["blocks"]["router"].dtype == np.float32
+    tp = params_from_numpy(tree, device="cpu")
+    assert tp["blocks"]["router"].dtype == torch.float32
+    for name, a in _leaves(tree):
+        assert tuple(dict(_leaves(tp))[name].shape) == a.shape, name
+    back = params_to_numpy(tp, bf16_dtype=jnp.bfloat16)
+    for (name, a), (_, b) in zip(_leaves(tree), _leaves(back)):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    assert tree_digest(back) == tree_digest(tree)
+    cast = params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)
+    assert cast["blocks"]["router"].dtype == torch.float32
+    assert cast["blocks"]["w_gate"].dtype == torch.bfloat16

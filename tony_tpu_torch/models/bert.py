@@ -23,7 +23,8 @@ each rank runs its local shard, as the LM does
 (:mod:`tony_tpu_torch.parallel.spmd`): the batch over the data axes,
 heads and the MLP hidden over tp, the tied head and the MLM bias split
 by vocab, the loss combined across the vocab split without gathering
-the logits. cp, pp and ep raise ``NotImplementedError``.
+the logits. BERT has no experts: on an ep axis every leaf and activation
+replicates. cp and pp raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -38,7 +38,9 @@ bound its loop; the JAX package traced it on the device, the port takes
 it from the caller's host-side bookkeeping (``pos_range``) so a serving
 step never waits on the card.
 
-Not ported yet (it raises ``NotImplementedError``): MoE.
+MoE configs decode through the same paths: the block's MLP is the
+training block's mixture of experts (:func:`_mlp`), whose capacity
+follows each call's own sequence length.
 """
 
 from __future__ import annotations
@@ -143,7 +145,6 @@ def init_kv_cache(cfg: T.TransformerConfig, batch: int, max_len: int,
     ``max_len``, or ``cfg.kv_cache_capacity`` for a rolling cache (which
     warns at 4x the window or more: its attention reads every row each
     step, so the cost per token is O(capacity), not O(window))."""
-    T._check_dense(cfg)
     dev = resolve_device(device)
     cap = _ring_capacity(cfg)
     rows = cap or max_len
@@ -401,14 +402,28 @@ def _project_qkv(x, p, rope):
     return T.apply_rope(q, cos, sin), T.apply_rope(k, cos, sin), v
 
 
-def _finish_block(x, o, p):
-    """The output projection and residual, then RMSNorm, the SwiGLU MLP
-    and its residual — the training block's, through :func:`_weinsum`."""
-    x = x + _weinsum("bshk,hkd->bsd", o, p["wo"])
-    h = rms_norm(x, p["mlp_norm"])
+def _mlp(h, p, cfg: T.TransformerConfig):
+    """Dense SwiGLU (through :func:`_weinsum`) or MoE feed-forward on
+    ``[B, S, D]`` — the training block's params.
+
+    MoE caveat: routing capacity scales with the LOCAL sequence length,
+    so single-position decode (S=1, capacity >= top_k) never drops
+    tokens while a full forward at low ``moe_capacity_factor`` may —
+    cached generation can then diverge from the training forward on
+    overflow tokens. This is the standard gshard trade; raise the
+    capacity factor if you need exact equivalence."""
+    if "router" in p:
+        return T._moe(h, p, cfg)[0]
     gate = _weinsum("bsd,df->bsf", h, p["w_gate"])
     up = _weinsum("bsd,df->bsf", h, p["w_up"])
-    return x + _weinsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
+    return _weinsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
+
+
+def _finish_block(x, o, p, cfg: T.TransformerConfig):
+    """The output projection and residual, then RMSNorm, the MLP and its
+    residual — the training block's, through :func:`_weinsum`."""
+    x = x + _weinsum("bshk,hkd->bsd", o, p["wo"])
+    return x + _mlp(rms_norm(x, p["mlp_norm"]), p, cfg)
 
 
 def _layer_params(params: dict, li: int) -> dict:
@@ -445,7 +460,7 @@ def _decode_block(x, p, bufs, li, pos, cfg, rope, q_range, window=None):
             _write_kv_chunk(bufs[n], c, li, pos, fits, window)
         o = _cached_attention(q, bufs, li, pos, cfg.attn_window or None,
                               q_range)
-    return _finish_block(x, o, p)
+    return _finish_block(x, o, p, cfg)
 
 
 def _blocks_forward(params: dict, tokens, cache: dict, pos,
@@ -454,7 +469,6 @@ def _blocks_forward(params: dict, tokens, cache: dict, pos,
     K/V into the cache. Returns (block output ``[B, K, D]``, cache with
     the frontier advanced by K) — the body of :func:`extend_step`, and
     the head-free K/V write of the speculative rounds."""
-    T._check_dense(cfg)
     b, n_q = tokens.shape
     if _ring_capacity(cfg) and n_q > 1:
         raise ValueError(
@@ -535,7 +549,7 @@ def _prompt_forward(params, tokens, cfg, bufs):
         p = _layer_params(params, li)
         q, k, v = _project_qkv(x, p, rope)
         o = T._attention(q, k, v, window=cfg.attn_window or None)
-        x = _finish_block(x, o, p)
+        x = _finish_block(x, o, p, cfg)
         if cap:
             s0 = max(s - cap, 0)
             idx = torch.arange(s0, s, device=tokens.device) % cap

@@ -730,7 +730,6 @@ class ContinuousBatcher:
                  top_p: float = 0.0, seed: int = 0, shared_prefix=None,
                  pipeline: bool = True,
                  bucketed_admission: bool = True) -> None:
-        T._check_dense(cfg)
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         self.params = params

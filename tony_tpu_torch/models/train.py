@@ -8,8 +8,8 @@ step path reads the card. PyTorch runs eagerly: no compile, no donation.
 Instead the optimizers update params and moments in place, which is what
 donation buys the JAX package, and the step returns the same dicts.
 
-With a mesh (dp, fsdp, tp) the params and moments are DTensors laid out
-by the logical-axis rules (:func:`init_state`), each process feeds its
+With a mesh (dp, fsdp, tp, ep) the params and moments are DTensors laid
+out by the logical-axis rules (:func:`init_state`), each process feeds its
 local shard of the batch (:func:`global_batch`, :func:`batch_sharding`,
 :func:`data_parallel_rank`), and the loss function runs each rank's
 local shard (:mod:`tony_tpu_torch.parallel.spmd`); the gradients come

@@ -18,7 +18,7 @@ SwiGLU MLP are plain torch with the JAX package's f32 points: RoPE in
 f32 math, the lm_head accumulated in f32 and stored in
 ``cfg.logits_storage_dtype``.
 
-With a ``mesh`` (dp, fsdp, tp; :func:`logical_axes` and the rule table
+With a ``mesh`` (dp, fsdp, tp, ep; :func:`logical_axes` and the rule table
 lay the params out as DTensors), :func:`forward` and :func:`lm_loss` run
 each rank's local shard (:mod:`tony_tpu_torch.parallel.spmd`): the batch
 split over the data axes, heads, the MLP hidden and the vocab split over
@@ -27,9 +27,16 @@ tensors. Under GQA with tp the K/V projections are replicated, as in the
 JAX package; each rank cuts K and V to the kv heads its query heads read
 (:func:`~tony_tpu_torch.ops.attention.tp_kv_heads`).
 
-Not ported yet (they raise ``NotImplementedError``): MoE layers,
-pipeline (pp), context (cp) and expert (ep) parallelism, and the remat
-policies ``"dots"`` and ``"attn"``.
+With ``cfg.num_experts`` the MLP is a mixture of experts
+(:func:`~tony_tpu_torch.parallel.moe.moe_ffn`, silu experts with no
+``w_up``, an f32 router): each block returns its load-balance loss, the
+forward returns their sum over layers and :func:`lm_loss` adds it with
+``cfg.moe_aux_weight``. Under a mesh the experts split over ``ep`` (the
+``"expert"`` rule), the activations replicated over it.
+
+Not ported yet (they raise ``NotImplementedError``): pipeline (pp) and
+context (cp) parallelism, and the remat policies ``"dots"`` and
+``"attn"``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from tony_tpu_torch.models.train import masked_cross_entropy
 from tony_tpu_torch.ops.attention import flash_attention, tp_kv_heads
 from tony_tpu_torch.ops.norms import rms_norm
 from tony_tpu_torch.parallel import spmd
+from tony_tpu_torch.parallel.mesh import mesh_shape
+from tony_tpu_torch.parallel.moe import moe_ffn
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
 
 
@@ -144,19 +153,16 @@ PRESETS = {
 }
 
 
-def _check_dense(cfg: TransformerConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
-
-
 def init_params(gen: torch.Generator, cfg: TransformerConfig,
                 device=None) -> dict:
     """Initialize the parameter tree (layer params stacked ``[L, ...]``)
     from ``gen``, a CPU ``torch.Generator``, on ``device`` (the card
     unless the caller passes ``"cpu"``). Same tree and scaling as the JAX
     ``init_params``; the draws differ (another generator), so a parity
-    test converts one package's weights into the other."""
-    _check_dense(cfg)
+    test converts one package's weights into the other. An MoE config
+    (``num_experts``) gets ``router`` ``[L, d, E]`` (f32, rounded through
+    ``cfg.dtype`` first, as the JAX package draws it), ``w_gate`` ``[L,
+    E, d, f]`` and ``w_down`` ``[L, E, f, d]``, and no ``w_up``."""
     dev = resolve_device(device)
     d, h, hd, f, L = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                       cfg.n_layers)
@@ -177,10 +183,21 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
         "wv": normal((L, d, kv, hd), d),
         "wo": normal((L, h, hd, d), d),
         "mlp_norm": ones((L, d)),
-        "w_gate": normal((L, d, f), d),
-        "w_up": normal((L, d, f), d),
-        "w_down": normal((L, f, d), f),
     }
+    if cfg.num_experts:
+        e = cfg.num_experts
+        # experts are 2-matrix MLPs (silu), as in the JAX package
+        blocks.update({
+            "router": normal((L, d, e), d).float(),
+            "w_gate": normal((L, e, d, f), d),
+            "w_down": normal((L, e, f, d), f),
+        })
+    else:
+        blocks.update({
+            "w_gate": normal((L, d, f), d),
+            "w_up": normal((L, d, f), d),
+            "w_down": normal((L, f, d), f),
+        })
     return {"embed": embed, "blocks": blocks,
             "final_norm": ones((d,)), "lm_head": normal((d, cfg.vocab_size),
                                                         d)}
@@ -189,22 +206,32 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
 def logical_axes(cfg: TransformerConfig) -> dict:
     """Logical-axis tree matching :func:`init_params` (the JAX package's:
     leading ``"stage"`` on the stacked leaves). Under GQA the K/V
-    projections replicate over tp instead of claiming ``"heads"``."""
-    _check_dense(cfg)
+    projections replicate over tp instead of claiming ``"heads"``; MoE
+    experts lead with ``"expert"``, the router replicates."""
     kv_head_axis = "heads" if cfg.kv_heads == cfg.n_heads else None
-    return {
-        "embed": ("vocab", "embed"),
-        "blocks": {
-            "attn_norm": ("stage", "norm"),
-            "wq": ("stage", "embed", "heads", "kv"),
-            "wk": ("stage", "embed", kv_head_axis, "kv"),
-            "wv": ("stage", "embed", kv_head_axis, "kv"),
-            "wo": ("stage", "heads", "kv", "embed"),
-            "mlp_norm": ("stage", "norm"),
+    blocks = {
+        "attn_norm": ("stage", "norm"),
+        "wq": ("stage", "embed", "heads", "kv"),
+        "wk": ("stage", "embed", kv_head_axis, "kv"),
+        "wv": ("stage", "embed", kv_head_axis, "kv"),
+        "wo": ("stage", "heads", "kv", "embed"),
+        "mlp_norm": ("stage", "norm"),
+    }
+    if cfg.num_experts:
+        blocks.update({
+            "router": ("stage", "embed", None),
+            "w_gate": ("stage", "expert", "embed", "mlp"),
+            "w_down": ("stage", "expert", "mlp", "embed"),
+        })
+    else:
+        blocks.update({
             "w_gate": ("stage", "embed", "mlp"),
             "w_up": ("stage", "embed", "mlp"),
             "w_down": ("stage", "mlp", "embed"),
-        },
+        })
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": blocks,
         "final_norm": ("norm",),
         "lm_head": ("embed", "vocab"),
     }
@@ -260,8 +287,10 @@ def _attention(q, k, v, cp_strategy: str = "ring",
 
 
 def _mlp(h, p, lay=None):
-    """Dense SwiGLU feed-forward on ``[B, S, D]``; under tp the hidden is
-    this rank's slice and the output sums over the ranks."""
+    """Dense SwiGLU feed-forward on ``[B, S, D]`` (``h`` already passed
+    through :func:`~tony_tpu_torch.parallel.spmd.copy_to_model`); under
+    tp the hidden is this rank's slice and the output sums over the
+    ranks."""
     gate = torch.einsum("bsd,df->bsf", h, p["w_gate"])
     up = torch.einsum("bsd,df->bsf", h, p["w_up"])
     out = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
@@ -290,21 +319,36 @@ def _local_kv(k, v, cfg: TransformerConfig, lay):
     return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
-def _finish_block(x, o, p, lay=None):
+def _moe(h, p, cfg: TransformerConfig, lay=None):
+    """The MoE feed-forward on ``[B, S, D]`` with silu experts: (output,
+    :class:`~tony_tpu_torch.parallel.moe.MoEMetrics`). Under a layout
+    the experts are this rank's (its ep shard, their hidden its tp
+    slice) and the output sums over ep and tp inside."""
+    return moe_ffn(h, p["router"], p["w_gate"], p["w_down"],
+                   top_k=cfg.moe_top_k,
+                   capacity_factor=cfg.moe_capacity_factor,
+                   activation=F.silu, lay=lay)
+
+
+def _finish_block(x, o, p, cfg: TransformerConfig, lay=None):
     """The rest of a block after attention: the output projection and
-    the residual, then RMSNorm, the MLP and its residual."""
+    the residual, then RMSNorm, the MLP (dense or MoE) and its residual.
+    Returns (x, the block's aux loss, or None for a dense MLP)."""
     x = x + spmd.reduce_from_model(
         torch.einsum("bshk,hkd->bsd", o, p["wo"]), lay)
-    h = spmd.copy_to_model(rms_norm(x, p["mlp_norm"]), lay)
-    return x + _mlp(h, p, lay)
+    h = rms_norm(x, p["mlp_norm"])
+    if "router" in p:
+        out, metrics = _moe(h, p, cfg, lay)
+        return x + out, metrics.aux_loss
+    return x + _mlp(spmd.copy_to_model(h, lay), p, lay), None
 
 
 def _block(x, p, cfg: TransformerConfig, rope=None, lay=None):
     """One decoder block. x: ``[B, S, D]``; p: this layer's params
     (unstacked; this rank's shards); ``rope``: precomputed (cos, sin)
     tables; ``lay``: the :class:`~tony_tpu_torch.parallel.spmd.Layout`
-    of a sharded step, or None."""
-    _check_dense(cfg)
+    of a sharded step, or None. Returns (x, the block's aux loss or
+    None)."""
     b, s, _ = x.shape
     if rope is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -312,7 +356,7 @@ def _block(x, p, cfg: TransformerConfig, rope=None, lay=None):
     q, k, v = _project_qkv(x, p, rope, lay)
     k, v = _local_kv(k, v, cfg, lay)
     o = _attention(q, k, v, cfg.cp_strategy, cfg.attn_window or None)
-    return _finish_block(x, o, p, lay)
+    return _finish_block(x, o, p, cfg, lay)
 
 
 def lm_head_logits(x, w, cfg: TransformerConfig):
@@ -332,8 +376,7 @@ def _forward_local(params: dict, tokens: torch.Tensor,
                    cfg: TransformerConfig, lay=None) -> tuple:
     """The forward on local tensors: ``params`` and ``tokens`` are this
     rank's (the whole tree and batch without a mesh); returns this
-    rank's logits and the aux loss."""
-    _check_dense(cfg)
+    rank's logits and the aux loss (the blocks' summed over layers)."""
     x = spmd.embed_lookup(params["embed"], tokens, lay,
                           cfg.vocab_size).to(cfg.dtype)
     b, s = tokens.shape
@@ -348,14 +391,16 @@ def _forward_local(params: dict, tokens: torch.Tensor,
     if remat and cfg.remat_policy != "full":
         raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not "
                                   f"ported yet (only 'full')")
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for vals in layers:
         p = dict(zip(names, vals))
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, layer_aux = torch.utils.checkpoint.checkpoint(
                 _block, x, p, cfg, rope, lay, use_reentrant=False)
         else:
-            x = _block(x, p, cfg, rope=rope, lay=lay)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            x, layer_aux = _block(x, p, cfg, rope=rope, lay=lay)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return _lm_head(params, x, cfg, lay), aux
 
 
@@ -363,7 +408,12 @@ def _local_step_inputs(params: dict, tokens, cfg: TransformerConfig,
                        mesh, rules) -> tuple:
     """(local params, local tokens, layout) of a sharded step: the
     params gathered over the data axes (GQA's replicated K/V projections
-    marked partial over tp), the batch cut to this rank."""
+    marked partial over tp), the batch cut to this rank. An MoE config
+    whose experts do not split evenly over ep raises ``ValueError``."""
+    ep = mesh_shape(mesh).get("ep", 1)
+    if cfg.num_experts and cfg.num_experts % ep:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible "
+                         f"over ep={ep}")
     lay = spmd.Layout(mesh, rules)
     partial = (frozenset({("blocks", "wk"), ("blocks", "wv")})
                if cfg.kv_heads != cfg.n_heads else frozenset())

@@ -13,7 +13,9 @@ the port's :class:`~tony_tpu_torch.models.quantize.QuantizedWeight`, and
 back as the port's NamedTuple of numpy arrays. A tree may also hold
 torch tensors (a weight artifact landed by
 :func:`~tony_tpu_torch.serving.weightstore.pull_weights` keeps its
-bfloat16 leaves as tensors); they are moved as they are.
+bfloat16 leaves as tensors); they are moved as they are. An MoE tree's
+router is f32 in a model of any dtype (``transformer.init_params``): it
+crosses as f32, and a cast to the model's dtype leaves it f32.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ import torch
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models.quantize import QuantizedWeight
+
+#: leaves a model keeps in f32 whatever its dtype (the MoE router): a
+#: cast of the tree leaves them f32
+_F32_LEAVES = frozenset({"router"})
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -57,10 +63,13 @@ def _leaf_from_numpy(a, device, dtype):
 def params_from_numpy(tree, device=None, dtype=None):
     """numpy tree (or torch leaves) → torch tree on ``device`` (the card
     unless the caller passes ``"cpu"``). ``dtype`` casts floating leaves
-    (None keeps each leaf's dtype). Nested dicts keep their keys."""
+    but the f32 router (None keeps each leaf's dtype). Nested dicts keep
+    their keys."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(
+            v, dev, None if k in _F32_LEAVES else dtype)
+            for k, v in tree.items()}
     if getattr(tree, "_fields", None) == QuantizedWeight._fields:
         # int8 q and f32 scale keep their dtypes
         return QuantizedWeight(*(_leaf_from_numpy(a, dev, None)

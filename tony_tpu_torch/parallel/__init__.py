@@ -1,11 +1,14 @@
 """Parallelism layer of the port: meshes, logical-axis sharding rules,
-and the local-shard execution of a sharded step (dp, fsdp, tp).
+the local-shard execution of a sharded step (dp, fsdp, tp, ep) and
+mixture-of-experts routing.
 
-Port of ``tony_tpu/parallel/`` as far as dp, fsdp and tp go: a mesh is a
-``DeviceMesh`` over every process, parameters are DTensors laid out by
-the rules, and a step runs on local shards with explicit collectives
-(:mod:`tony_tpu_torch.parallel.spmd`). cp (ring and Ulysses attention),
-pp (pipelines) and ep (MoE) are not ported.
+Port of ``tony_tpu/parallel/`` as far as dp, fsdp, tp and ep go: a mesh
+is a ``DeviceMesh`` over every process, parameters are DTensors laid out
+by the rules, and a step runs on local shards with explicit collectives
+(:mod:`tony_tpu_torch.parallel.spmd`); MoE dispatch is
+:mod:`tony_tpu_torch.parallel.moe`. cp (ring and Ulysses attention) and
+pp (pipelines, and the MoE arm they run, ``moe_ffn_manual``) are not
+ported.
 """
 
 from tony_tpu_torch.parallel.mesh import (AXIS_ORDER, PRESETS,

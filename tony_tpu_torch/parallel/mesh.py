@@ -2,9 +2,9 @@
 
 Port of ``tony_tpu/parallel/mesh.py``. A mesh names the parallelism axes
 of a job — ``dp`` (batch split), ``fsdp`` (batch and params split),
-``tp`` (heads and MLP split inside a layer), and ``cp``, ``pp``, ``ep``,
-which the port does not run yet — and lays every process of the job out
-on them. Here it is a ``torch.distributed.device_mesh.DeviceMesh`` with
+``tp`` (heads and MLP split inside a layer), ``ep`` (MoE experts split),
+and ``cp``, ``pp``, which the port does not run yet — and lays every
+process of the job out on them. Here it is a ``torch.distributed.device_mesh.DeviceMesh`` with
 those dimension names over all ranks, one card (or one CPU process) per
 rank; the JAX package builds a ``jax.sharding.Mesh`` over all devices.
 
@@ -198,7 +198,7 @@ def preset_pipeline(pp: int, tp: int = 1) -> dict[str, int]:
 
 
 def preset_moe(ep: int, tp: int = 1) -> dict[str, int]:
-    """Experts over ep, dense internals over tp (ep is not ported yet)."""
+    """Expert parallelism: experts over ep, dense internals over tp."""
     return {"dp": -1, "ep": ep, "tp": tp}
 
 

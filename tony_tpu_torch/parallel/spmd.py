@@ -23,8 +23,14 @@ vocab-parallel embedding lookup and a vocab-parallel cross-entropy
 come back through DTensor: partial over the data axes, they are summed
 (dp) or reduce-scattered (fsdp) onto each leaf's own placements.
 
-cp, pp and ep (and rule tables that would split the residual stream)
-raise ``NotImplementedError``.
+Expert parallelism (``ep``): ``"expert"`` resolves to a mesh axis of
+its own, the batch stays on the data axes, so every activation is
+replicated over ep, and a rank keeps its ep shard of the expert leaves
+(:meth:`Layout.local_params`); :func:`~tony_tpu_torch.parallel.moe.moe_ffn`
+runs this rank's experts and sums their outputs over ep.
+
+cp and pp (and rule tables that would split the residual stream) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
 
 #: mesh axes whose strategies are not ported: any of them of size > 1
 #: raises
-_UNPORTED = {"pp": "pipeline", "cp": "context", "ep": "expert"}
+_UNPORTED = {"pp": "pipeline", "cp": "context"}
 
 
 def _all_reduce(x: torch.Tensor, groups, op=dist.ReduceOp.SUM):
@@ -85,7 +91,9 @@ class Layout:
     - ``data_axes``: the live mesh axes ``"batch"`` splits over;
     - ``model_axis``: the live axis ``"heads"``, ``"mlp"`` and ``"vocab"``
       all resolve to, or None;
-    - ``model_rank`` / ``model_size``: this rank's coordinate on it.
+    - ``model_rank`` / ``model_size``: this rank's coordinate on it;
+    - ``expert_axis`` / ``expert_rank``: the same for ``"expert"``
+      (experts over ep), an axis of its own.
     """
 
     def __init__(self, mesh, rules: Rules = DEFAULT_RULES):
@@ -94,7 +102,7 @@ class Layout:
             if shape.get(ax, 1) > 1:
                 raise NotImplementedError(
                     f"{what} parallelism ({ax}={shape[ax]}) is not ported "
-                    f"yet; the port runs dp, fsdp and tp")
+                    f"yet; the port runs dp, fsdp, tp and ep")
         self.mesh, self.rules = mesh, rules
         self.data_axes = spec_axes(logical_to_spec(("batch",), mesh,
                                                    rules)[0])
@@ -107,6 +115,14 @@ class Layout:
                 f"heads, mlp and vocab must resolve to one mesh axis (or "
                 f"none), got {model}")
         self.model_axis = model["heads"]
+        self.expert_axis = logical_to_spec(("batch", "expert"), mesh,
+                                           rules)[1]
+        if isinstance(self.expert_axis, tuple) or (
+                self.expert_axis is not None
+                and self.expert_axis == self.model_axis):
+            raise NotImplementedError(
+                f"expert must resolve to one mesh axis of its own (or "
+                f"none), got {self.expert_axis}")
         for name in ("embed", "seq", "kv", "norm", "stage"):
             entry = logical_to_spec(("batch", name), mesh, rules)[1]
             if entry is not None:
@@ -130,6 +146,12 @@ class Layout:
         self._data_groups = [mesh.get_group(a) for a in self.data_axes]
         self._model_groups = ([mesh.get_group(self.model_axis)]
                               if self.model_axis else [])
+        self.expert_rank = (self._coord[self.expert_axis]
+                            if self.expert_axis else 0)
+        #: the groups an MoE block's partial outputs sum over: ep, then tp
+        self.expert_model_groups = (
+            ([mesh.get_group(self.expert_axis)] if self.expert_axis
+             else []) + self._model_groups)
         self.data_size = 1
         self.data_rank = 0
         for a in self.data_axes:
@@ -139,9 +161,10 @@ class Layout:
     # -- parameters and inputs ----------------------------------------
     def local_params(self, tree, partial=frozenset(), _path=()):
         """Each DTensor leaf of ``tree`` as a local tensor for the step:
-        gathered over every axis but the model axis, its model-axis shard
-        kept. Its gradient comes back partial over the data axes (the
-        batch is split there) and, over the model axis, as its shard
+        gathered over every axis but the model and expert axes, its
+        shards there kept. Its gradient comes back partial over the data
+        axes (the batch is split there), on its own placement over the
+        expert axis and, over the model axis, as its shard
         where it is sharded, else replicated — or partial for the leaves
         whose paths (key tuples) are in ``partial``, those a rank reads
         only in part (GQA's K/V projections under tp). Plain tensors pass
@@ -158,6 +181,9 @@ class Layout:
                 compute.append(p)
                 grad.append(Partial() if _path in partial and not
                             p.is_shard() else p)
+            elif name == self.expert_axis:
+                compute.append(p)
+                grad.append(p)
             else:
                 compute.append(Replicate())
                 grad.append(Partial() if name in self.data_axes
@@ -223,6 +249,22 @@ def reduce_from_model(x, lay):
     """Sum over the model axis, identity backward (Megatron's g). No-op
     without a live model axis."""
     return _SumOver.apply(x, lay._model_groups) if _model_live(lay) else x
+
+
+def copy_to_experts(x, lay):
+    """Identity forward; the gradient is summed over the expert and model
+    axes: an input that each rank's experts (or their hidden slice) read
+    only in part. No-op without either axis live."""
+    groups = [] if lay is None else lay.expert_model_groups
+    return _CopyTo.apply(x, groups) if groups else x
+
+
+def reduce_from_experts(x, lay):
+    """Sum over the expert and model axes, identity backward: the
+    partial outputs of each rank's experts. No-op without either axis
+    live."""
+    groups = [] if lay is None else lay.expert_model_groups
+    return _SumOver.apply(x, groups) if groups else x
 
 
 def _vocab_range(lay, local: int, total: int) -> tuple[int, int]:

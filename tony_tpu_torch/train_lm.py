@@ -3,7 +3,8 @@ the port's counterpart of ``examples/lm/train_lm.py``.
 
     python -m tony_tpu_torch.train_lm --preset small --steps 100 \\
         --batch_size 16 --seq_len 1024 [--ckpt_dir DIR --ckpt_every N] \\
-        [--data_files F ... [--elastic_data GLOBAL_BATCH]]
+        [--data_files F ... [--elastic_data GLOBAL_BATCH]] \\
+        [--num_experts E]
 
 Under the orchestrator (``tony_tpu.client.cli submit --executes 'python
 -m tony_tpu_torch.train_lm ...'``, mesh from ``tony.application.mesh``)
@@ -28,8 +29,11 @@ JAX script's lines: ``[job:index] attempt=… mesh={…} devices=N``, ``step
 {s} loss {l} tok/s {r}`` (global tokens) every 20 steps and ``done:
 final loss {l}``.
 
-Options of later slices (``--cp_strategy``, ``--num_experts``,
-``--pp_schedule``) are not ported.
+``--num_experts E`` trains a mixture-of-experts model (the preset's
+widths, E silu experts a layer); the experts split over the mesh's ``ep``
+axis (``tony.application.mesh=ep=2,dp=-1``), which the batch replicates
+over. Options of later slices (``--cp_strategy``, ``--pp_schedule``) are
+not ported.
 """
 
 from __future__ import annotations
@@ -108,13 +112,15 @@ def file_source(paths, batch: int, seq: int, seed: int, mesh=None):
     return epochs
 
 
-def build(preset: str, device=None, attn_window: int = 0):
+def build(preset: str, device=None, attn_window: int = 0,
+          num_experts: int = 0):
     """(cfg, params) for ``preset`` at full width on ``device``: bf16 on
-    the card, f32 on the CPU, random weights from seed 0."""
+    the card, f32 on the CPU, random weights from seed 0; MoE with
+    ``num_experts`` experts a layer when it is not 0."""
     dev = resolve_device(device)
     cfg = T.PRESETS[preset].scaled(
         dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
-        attn_window=attn_window)
+        attn_window=attn_window, num_experts=num_experts)
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device=dev)
     return cfg, params
@@ -142,6 +148,10 @@ def main(argv=None) -> int:
     parser.add_argument("--attn_window", type=int, default=0,
                         help="sliding-window attention: each token attends "
                              "its N most recent positions (0 = full causal)")
+    parser.add_argument("--num_experts", type=int, default=0,
+                        help="mixture-of-experts FFN with this many experts "
+                             "(0 = dense); experts shard over the mesh's ep "
+                             "axis")
     parser.add_argument("--prefetch_depth", type=int, default=2,
                         help="device-prefetch queue depth; 0 = synchronous "
                              "inline feed (A/B contrast)")
@@ -166,7 +176,8 @@ def main(argv=None) -> int:
     mesh = rt.mesh(device=dev)
     print(f"[{info.job_name}:{info.task_index}] attempt={info.attempt} "
           f"mesh={mesh_shape(mesh)} devices={mesh.size()}", flush=True)
-    cfg, params = build(args.preset, dev, args.attn_window)
+    cfg, params = build(args.preset, dev, args.attn_window,
+                        args.num_experts)
     print(f"device={dev} preset={args.preset} dtype={cfg.dtype}", flush=True)
     params = shard_pytree(params, T.logical_axes(cfg), mesh)
     opt = default_optimizer(lr=args.lr, total_steps=args.steps)
