@@ -229,6 +229,24 @@ result:
    in f32 at capacity factor 4.0 (nothing drops, whatever the admission
    padding) every stream of 16 tokens against ``generate`` of its prompt
    alone (near-tie rule, 1e-4);
+20. context parallelism on one card: (a) the ring and (b) Ulysses over
+   4 simulated ranks (the distributed bodies' hop and layout functions,
+   the pass and the all-to-all replaced by a list rotation and a
+   reshuffle) at small's widths, [4, 4096, 8, 64] bf16 causal, MHA and
+   kv_heads 2: o (phase 3's bf16 limit) and dq/dk/dv (phase 6's: 2% of
+   the largest entry) against the plain full-sequence attention, K1 and
+   K2 10 launches each for the ring (4 diagonal and 6 full chunks of
+   [4, 1024, 8, 64]; the 6 future chunks launch nothing), 9 backward
+   launches with a non-zero lse cotangent, 4 each for Ulysses at [4,
+   4096, 2, 64], and the time of the forward and backward beside the
+   unsplit K1 + K2; (c) ``small`` bf16 at 16 x 1024 under the remat
+   policies "full", "dots" and "attn": one step's loss and grad norm
+   against "full" (1e-3 relative), K1 16, 16 and 8 a step, K2 8, then
+   6 steps each: step ms, device ms a step (2 profiled) and peak
+   memory; (d) ``python -m tony_tpu_torch.train_lm --preset small
+   --cp_strategy ring`` and ``ulysses``, 3 steps each through the
+   runtime on a world-1 NCCL mesh ``{"cp": 1}`` (several cp ranks need
+   a host with more cards);
 then a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -5080,6 +5098,357 @@ def phase_moe(report, card, serve):
     return launches
 
 
+# context parallelism: the simulated ranks of phase 20 and small's widths
+CP = 4
+CP_SHAPE = (4, 4096, 8, 64)
+
+
+def _cp_inputs(kv, seed):
+    """q, k, v and an output cotangent at CP_SHAPE in bf16 (k, v with
+    ``kv`` heads)."""
+    import torch
+    b, s, h, d = CP_SHAPE
+    q, k, v = _qkv(b, s, h, kv, d, torch.bfloat16, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7919)
+    do = torch.randn(q.shape, device="cuda", generator=g).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def _cp_plain(q, k, v, do):
+    """The plain full-sequence causal attention of the same bf16 inputs
+    in f32: (o, dq, dk, dv)."""
+    from tony_tpu_torch.ops import attention as A
+    f32 = [x.float() for x in (q, k, v)]
+    o, lse = A._dense_with_lse(*f32, causal=True, scale=None)
+    return (o,) + A._dense_backward(*f32, o, lse, do.float(), None,
+                                    causal=True, scale=None)
+
+
+def _cp_emulated(strategy, q, k, v, do):
+    """``strategy`` ("ring" or "ulysses") over CP simulated ranks on the
+    card, each holding 1/CP of the sequence, the shared hop and layout
+    functions of the distributed bodies: (o, dq, dk, dv) of the whole
+    sequence. Ulysses expands K/V whose heads do not split over CP, as
+    the model does."""
+    import torch
+    from tony_tpu_torch.parallel import ring_attention as R
+    from tony_tpu_torch.parallel import ulysses as U
+    ins = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    qs, ks, vs = ([c.contiguous() for c in x.chunk(CP, dim=1)]
+                  for x in ins)
+    if strategy == "ring":
+        outs = R.ring_attention_emulated(qs, ks, vs, causal=True)
+    else:
+        pairs = [R.expand_kv_unless(a, b, q.shape[2], CP)
+                 for a, b in zip(ks, vs)]
+        outs = U.ulysses_attention_emulated(qs, [p[0] for p in pairs],
+                                            [p[1] for p in pairs],
+                                            causal=True)
+    o = torch.cat(outs, dim=1)
+    return (o.detach(),) + torch.autograd.grad(o, ins, do)
+
+
+class _CpProbe:
+    """While active: the q shapes of K1's launches through the ring and
+    Ulysses modules' attention calls, and how many backward launches got
+    a non-zero lse cotangent."""
+
+    def __enter__(self):
+        from tony_tpu_torch.ops import attention as A
+        from tony_tpu_torch.parallel import ring_attention as R
+        self.shapes, self.dlse, self.bwd = [], 0, 0
+        self._saved = (R.flash_attention_with_lse, R.flash_attention,
+                       A._bwd_inputs)
+
+        def with_lse(q, *a, **kw):
+            self.shapes.append(tuple(q.shape))
+            return self._saved[0](q, *a, **kw)
+
+        def plain(q, *a, **kw):
+            self.shapes.append(tuple(q.shape))
+            return self._saved[1](q, *a, **kw)
+
+        def bwd_inputs(q, k, v, o, lse, do, dlse):
+            self.bwd += 1
+            if dlse is not None and bool((dlse != 0).any()):
+                self.dlse += 1
+            return self._saved[2](q, k, v, o, lse, do, dlse)
+
+        R.flash_attention_with_lse, R.flash_attention = with_lse, plain
+        A._bwd_inputs = bwd_inputs
+        return self
+
+    def __exit__(self, *exc):
+        from tony_tpu_torch.ops import attention as A
+        from tony_tpu_torch.parallel import ring_attention as R
+        (R.flash_attention_with_lse, R.flash_attention,
+         A._bwd_inputs) = self._saved
+
+
+def _cp_attention_checks(out):
+    """(20a, 20b) the ring and Ulysses over CP simulated ranks at
+    CP_SHAPE bf16 causal, MHA and kv_heads 2: o and the gradients against
+    the plain full-sequence attention, K1/K2 launches, the chunk shapes,
+    the lse cotangents, and the time of a forward and backward beside
+    the unsplit kernels'. Returns the launches (k1, k2)."""
+    import torch
+    from tony_tpu_torch.ops import attention as A
+    lo, _ = _k1_limits()[torch.bfloat16]
+    b, s, h, d = CP_SHAPE
+    sl = s // CP
+    # K1 and K2 launches a strategy makes for causal attention over CP
+    # ranks: the ring 4 diagonal + 6 full hops (6 future hops launch
+    # nothing), Ulysses one whole-sequence call a rank
+    want = {"ring": CP * (CP + 1) // 2, "ulysses": CP}
+    shape = {"ring": (b, sl, h, d), "ulysses": (b, s, h // CP, d)}
+    # backward launches whose lse feeds the merge: all but rank 0's
+    # single hop (the ring), none (Ulysses)
+    want_dlse = {"ring": want["ring"] - 1, "ulysses": 0}
+    total = dict(k1=0, k2=0)
+    rows = {}
+    for kv in (h, 2):
+        q, k, v, do = _cp_inputs(kv, seed=2000 + kv)
+        ref = _cp_plain(q, k, v, do)
+        for strategy, tag in (("ring", "20a"), ("ulysses", "20b")):
+            A.reset_launches()
+            with _CpProbe() as probe:
+                got = _cp_emulated(strategy, q, k, v, do)
+                torch.cuda.synchronize()
+            c = dict(k1=A.flash_forward.launches,
+                     k2=A.flash_backward_fused.launches,
+                     k3=A.flash_backward_dq.launches
+                     + A.flash_backward_dkv.launches)
+            _check_tc_variants(f"phase {tag} {strategy} kv={kv}")
+            errs = {}
+            for name, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+                err = (g.float() - r).abs().max().item()
+                lim = lo if name == "o" else 2e-2 * r.abs().max().item()
+                errs[name] = (err, lim)
+            kw = dict(causal=True, scale=d ** -0.5, window=None)
+
+            def unsplit():
+                o, lse = A.flash_forward(q, k, v, **kw)
+                A.flash_backward_fused(q, k, v, o, lse, do, **kw)
+
+            split_ms = time_ms(lambda: _cp_emulated(strategy, q, k, v, do),
+                               iters=5)
+            whole_ms = time_ms(unsplit, iters=5)
+            kv_seen = sorted(set(probe.shapes))
+            print(f"[{tag}] {strategy} over {CP} simulated ranks, q "
+                  f"{list(CP_SHAPE)} k/v kv_heads {kv} bf16 causal: K1 "
+                  f"{c['k1']} and K2 {c['k2']} launches (want {want[strategy]}"
+                  f" each) at q {kv_seen}, {probe.dlse} of {probe.bwd} "
+                  f"backward launches with a non-zero lse cotangent; max abs "
+                  f"err vs the plain full-sequence attention: "
+                  + ", ".join(f"{n} {e:.3e} (limit {lim:.3e})"
+                              for n, (e, lim) in errs.items())
+                  + f"; forward + backward {split_ms:.3f} ms (CUDA events, "
+                  f"every rank on this card) against the unsplit K1 + K2 "
+                  f"{whole_ms:.3f} ms", flush=True)
+            rows[f"{strategy}_kv{kv}"] = dict(
+                launches=c, shapes=kv_seen, dlse=probe.dlse,
+                backward=probe.bwd, errs=errs, ms=split_ms,
+                unsplit_ms=whole_ms)
+            for n, (e, lim) in errs.items():
+                if not e <= lim:
+                    fail(f"phase {tag}: {strategy} kv={kv} {n} err {e:.3e} "
+                         f"> {lim:.3e} against the plain attention")
+            if c["k1"] != want[strategy] or c["k2"] != want[strategy] or \
+                    c["k3"]:
+                fail(f"phase {tag}: {strategy} kv={kv} launches {c}, want K1 "
+                     f"= K2 = {want[strategy]}, K3 0")
+            if kv_seen != [shape[strategy]]:
+                fail(f"phase {tag}: {strategy} K1 at {kv_seen}, want "
+                     f"{shape[strategy]}")
+            if probe.dlse != want_dlse[strategy]:
+                fail(f"phase {tag}: {strategy} {probe.dlse} backward launches "
+                     f"with an lse cotangent, want {want_dlse[strategy]}")
+            total["k1"] += c["k1"]
+            total["k2"] += c["k2"]
+        del q, k, v, do, ref, got
+        torch.cuda.empty_cache()
+    out["attention"] = rows
+    return total
+
+
+def _policy_step(cfg, params, tokens):
+    """(loss, grad norm) of one lm_loss step of ``cfg``'s remat policy on
+    ``tokens`` (the gradient of every leaf; nothing updated)."""
+    import torch
+    from tony_tpu_torch import tree_leaves
+    from tony_tpu_torch.models import transformer as T
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = T.lm_loss(params, {"tokens": tokens}, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    return float(loss.detach()), float(norm)
+
+
+def _policy_device_ms(cfg, params, steps=2):
+    """Device milliseconds a training step over ``steps`` profiled steps
+    (None if the profiler recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _train_run(cfg, _copy_tree(params, "cuda"), steps, seed=1)
+        torch.cuda.synchronize()
+    dev, _ = _device_times(prof)
+    total = sum(dev.values())
+    return total / steps / 1e3 if total else None
+
+
+def phase_cp(report, card):
+    """[20] Context parallelism on one card: (a) the ring and (b) Ulysses
+    over 4 simulated ranks at small's widths, [4, 4096, 8, 64] bf16
+    causal, MHA and kv_heads 2 — o and dq/dk/dv against the plain
+    full-sequence attention at phase 3's and 6's bf16 limits, K1 and K2
+    launches a hop (the ring: 4 diagonal and 6 full chunks, each backward
+    but rank 0's single hop with a non-zero lse cotangent), the chunk
+    shapes, and the time beside the unsplit kernels; (c) the `small`
+    training step at 16 x 1024 under the remat policies "full", "dots"
+    and "attn": loss and grad norm of one step against "full" (1e-3
+    relative, phase 9's limit), K1 launches a step (16, 16, 8), step ms,
+    device ms a step and peak memory; (d) ``python -m
+    tony_tpu_torch.train_lm --preset small --cp_strategy ring`` and
+    ``ulysses``, 3 steps each on a world-1 NCCL mesh ``{"cp": 1}``.
+    Several ranks of cp need a host with more cards. Returns the
+    launches (K1, K2, K5)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    t_phase = time.perf_counter()
+    out = {"walls": {}}
+    launches = _cp_attention_checks(out)
+    launches["k5"] = 0
+    out["walls"]["ab"] = time.perf_counter() - t_phase
+
+    def zero_counts():
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+
+    def counts():
+        return dict(k1=A.flash_forward.launches,
+                    k2=A.flash_backward_fused.launches,
+                    k3=A.flash_backward_dq.launches
+                    + A.flash_backward_dkv.launches,
+                    k5=N.rms_norm_forward.launches)
+
+    # (c) the remat policies at full width
+    steps, batch, seq = 6, 16, 1024
+    cfg, params = train_lm.build("small", "cuda")
+    L = cfg.n_layers
+    tokens = torch.from_numpy(np.random.RandomState(20).randint(
+        0, cfg.vocab_size, size=(batch, seq + 1))).cuda()
+    k1_step = {"full": 2 * L, "dots": 2 * L, "attn": L}
+    pol = {}
+    for policy in ("full", "dots", "attn"):
+        pcfg = cfg.scaled(remat_policy=policy)
+        zero_counts()
+        loss, norm = _policy_step(pcfg, params, tokens)
+        c1 = counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        _, losses, walls, _ = _train_run(pcfg, _copy_tree(params, "cuda"),
+                                         steps, timed=True)
+        c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        _check_tc_variants(f"phase 20c remat {policy!r}")
+        dev_ms = _policy_device_ms(pcfg, params)
+        pol[policy] = dict(loss=loss, grad_norm=norm, parity_launches=c1,
+                           launches=c, peak_bytes=peak, losses=losses,
+                           step_ms=statistics.median(walls[-3:]) * 1e3,
+                           device_ms=dev_ms)
+        if c1["k1"] != k1_step[policy] or c1["k2"] != L or \
+                c["k1"] != k1_step[policy] * steps or c["k2"] != L * steps \
+                or c["k3"]:
+            fail(f"phase 20c: remat {policy!r} launches {c1} (one step), {c} "
+                 f"({steps} steps), want K1 {k1_step[policy]} and K2 {L} a "
+                 f"step, K3 0")
+        if not (2 * L + 1) * steps <= c["k5"] <= (4 * L + 1) * steps:
+            fail(f"phase 20c: remat {policy!r} K5 launches {c['k5']}")
+        if not all(abs(x) < float("inf") for x in losses):
+            fail(f"phase 20c: remat {policy!r} a loss is not finite")
+        for k in ("k1", "k2", "k5"):
+            launches[k] += c1[k] + c[k]
+        torch.cuda.empty_cache()
+    full = pol["full"]
+    for policy, r in pol.items():
+        r["loss_rel"] = abs(r["loss"] - full["loss"]) / abs(full["loss"])
+        r["norm_rel"] = (abs(r["grad_norm"] - full["grad_norm"])
+                         / abs(full["grad_norm"]))
+        print(f"[20c] small bf16 {batch}x{seq} remat {policy!r} on {card}: "
+              f"loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f} "
+              f"(relative to 'full' {r['loss_rel']:.2e}, {r['norm_rel']:.2e};"
+              f" limit 1e-3); K1 {r['parity_launches']['k1']} and K2 "
+              f"{r['parity_launches']['k2']} a step; {steps} steps: step "
+              f"{r['step_ms']:.2f} ms (median of the last 3), device "
+              f"{_ms(r['device_ms'])} a step (2 profiled), peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; launches {r['launches']}",
+              flush=True)
+        if not (r["loss_rel"] <= 1e-3 and r["norm_rel"] <= 1e-3):
+            fail(f"phase 20c: remat {policy!r} loss or grad norm differs "
+                 f"from 'full'")
+    out["remat"] = pol
+    del params
+    torch.cuda.empty_cache()
+    out["walls"]["c"] = time.perf_counter() - t_phase - sum(
+        out["walls"].values())
+
+    # (d) train_lm --cp_strategy on a world-1 mesh with a cp axis
+    out["cli"] = {}
+    n = 3
+    for strategy in ("ring", "ulysses"):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, lines = _train_lm_cli(
+            ["--preset", "small", "--steps", str(n), "--batch_size",
+             str(batch), "--seq_len", str(seq), "--cp_strategy", strategy],
+            {"cp": -1})
+        c = counts()
+        _check_tc_variants(f"train_lm --cp_strategy {strategy}")
+        done = [x for x in lines if x.startswith("done: final loss ")]
+        mesh_lines = [x for x in lines if " mesh=" in x]
+        print(f"[20d] python -m tony_tpu_torch.train_lm --preset small "
+              f"--cp_strategy {strategy} on {card}, NCCL world 1 "
+              f"({mesh_lines[0].split(' mesh=')[1] if mesh_lines else '?'}):"
+              f" {n} steps in {time.perf_counter() - t0:.1f}s: "
+              f"{done[0] if done else None}; launches {c}", flush=True)
+        out["cli"][strategy] = dict(done=done, mesh=mesh_lines, launches=c)
+        if rc != 0 or not done or not abs(float(done[0].split()[-1])) < \
+                float("inf"):
+            fail(f"phase 20d: train_lm --cp_strategy {strategy}: exit {rc}, "
+                 f"last lines {lines[-3:]}")
+        if not mesh_lines or "'cp': 1" not in mesh_lines[0]:
+            fail(f"phase 20d: no cp axis in train_lm's mesh line "
+                 f"{mesh_lines}")
+        if c["k1"] != 2 * L * n or c["k2"] != L * n or c["k3"] or \
+                c["k5"] != (4 * L + 1) * n:
+            fail(f"phase 20d: launch counts {c} != K1 {2 * L * n}, K2 "
+                 f"{L * n}, K3 0, K5 {(4 * L + 1) * n}")
+        for k in ("k1", "k2", "k5"):
+            launches[k] += c[k]
+    out["walls"]["d"] = time.perf_counter() - t_phase - sum(
+        out["walls"].values())
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[20] phase wall {out['wall_s']:.1f}s ("
+          + ", ".join(f"20{k} {v:.1f}s" for k, v in out["walls"].items())
+          + "); several cp ranks need a host with more cards", flush=True)
+    report["cp"] = out
+    return launches
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -5122,6 +5491,7 @@ def main() -> int:
     dis_k1, dis_k5 = phase_disagg(report, card, serve)
     files = phase_files(report, card)
     moe = phase_moe(report, card, serve)
+    cp = phase_cp(report, card)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
     # BERT run (phase 12), the mesh-path run (phase 13), the sampled
@@ -5135,18 +5505,21 @@ def main() -> int:
     # elastic run on the two-pass backward (K1, K3a, K3b, K5) and
     # train_lm's runs (K1, K2, K5); and phase 19's MoE runs: training
     # (K1, K2, K5), its fused-optimizer steps (K4 too), train_lm
-    # --num_experts (K1, K2, K5) and the MoE serve (K1, K5)
+    # --num_experts (K1, K2, K5) and the MoE serve (K1, K5); phase 20's
+    # ring and Ulysses over simulated ranks (K1, K2), the training steps
+    # under the three remat policies and train_lm --cp_strategy (K1, K2,
+    # K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
                       + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
-                      + moe["k1"])
+                      + moe["k1"] + cp["k1"])
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
-                                + files["k2"] + moe["k2"])
+                                + files["k2"] + moe["k2"] + cp["k2"])
     bwd["dq"]["launches"] = counts["k3a"] + files["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"]
     k4["launches"] = counts["k4"] + moe["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
-                                + files["k5"] + moe["k5"])
+                                + files["k5"] + moe["k5"] + cp["k5"])
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -16,7 +16,8 @@ rows through ``global_batch``:
   ``test_torch_train.py::test_five_step_trajectory_matches_jax``), for
   dp, fsdp, tp (MHA, and GQA with kv_heads 2 and 1) and fsdp × tp at
   world 2 and 4, an MoE LM (4 experts) under ep, dp × ep and ep × tp,
-  and BERT under fsdp and tp;
+  the LM under cp (ring and Ulysses; cp × tp, dp × cp, GQA with one kv
+  head), and BERT under fsdp and tp;
 - the final params, gathered to full arrays, against the port's
   unsharded step (that test's bounds: all but 1% of each leaf within
   1e-5, each leaf within 1e-3 in relative L2), and the gathered initial
@@ -29,7 +30,8 @@ rows through ``global_batch``:
   (``restore_or_init`` at attempt 1) resumes to the same params, bit for
   bit; an ep-sharded MoE checkpoint of world 2 restored by a group of 4
   on dp × ep resumes to the uninterrupted run's losses and params at
-  the bounds above;
+  the bounds above; a dp × cp checkpoint resumes bit for bit in a new
+  group;
 - the fused optimizer refuses a mesh, and experts that do not split over
   ep are refused.
 """
@@ -106,17 +108,19 @@ def _setup(case: Case):
     return _lm_setup(case.kw)
 
 
-def run_group(cases, world: int, out_dir) -> dict:
+def run_group(cases, world: int, out_dir, setup=None) -> dict:
     """Run ``cases`` in turn on ``world`` worker processes (one gloo
     group, the jax arm's environment); returns ``{case name: [each
-    rank's results]}``. The group gets GROUP_TIMEOUT_S seconds, then
-    every worker is killed and the cases fail."""
+    rank's results]}``. ``setup(case)`` gives each case's (JAX config,
+    port config, weights, inputs), :func:`_setup` by default. The group
+    gets GROUP_TIMEOUT_S seconds, then every worker is killed and the
+    cases fail."""
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     inputs = {"plan": json.dumps({"opt": OPT,
                                   "cases": [c.plan() for c in cases]})}
     for c in cases:
-        _, _, jp, batches = _setup(c)
+        _, _, jp, batches = (setup or _setup)(c)
         inputs.update({f"{c.name}/{k}": v for k, v in batches.items()})
         inputs.update({f"{c.name}/p/{k}": v for k, v in _flat(jp).items()})
     in_npz = os.path.join(out_dir, "in.npz")
@@ -270,6 +274,13 @@ LM_CASES = [
     Case("ep2", 2, {"ep": 2}, kw={"num_experts": 4}),
     Case("dp2_ep2", 4, {"dp": 2, "ep": 2}, kw={"num_experts": 4}),
     Case("ep2_tp2", 4, {"ep": 2, "tp": 2}, kw={"num_experts": 4}),
+    Case("cp2", 2, {"cp": 2}),
+    Case("cp2_ulysses", 2, {"cp": 2}, kw={"cp_strategy": "ulysses"}),
+    Case("cp2_gqa1", 2, {"cp": 2}, kw={"n_kv_heads": 1}),
+    Case("cp4", 4, {"cp": 4}),
+    Case("cp2_tp2", 4, {"cp": 2, "tp": 2}, kw={"remat_policy": "attn"}),
+    Case("dp2_cp2_ulysses", 4, {"dp": 2, "cp": 2},
+         kw={"cp_strategy": "ulysses", "remat_policy": "dots"}),
 ]
 BERT_CASES = [
     Case("bert_fsdp2", 2, {"fsdp": 2}, model="bert"),
@@ -366,6 +377,30 @@ def test_ep_checkpoint_restores_at_another_world_size(group_results,
                                    rtol=1e-4)
         np.testing.assert_allclose(o["grad_norm"],
                                    straight[0]["grad_norm"][2:], rtol=1e-4)
+    _assert_params_close(_gathered(outs[0], "p/"),
+                         _gathered(straight[0], "p/"))
+
+
+def test_cp_checkpoint_resumes_in_a_new_group(group_results, tmp_path):
+    """A dp × cp state (params replicated over cp) saved at step 2 by a
+    group of 4 is restored by a new group and trains on: the first loss
+    equals the uninterrupted dp2_cp2_ulysses run's bit for bit (the
+    restored params are its params), and the params after the step are
+    held at the trajectory bounds. Not bit for bit there: MKL's CPU
+    products round by the buffers' alignment, which a new process
+    changes; under ``MKL_CBWR=COMPATIBLE`` the resume is bitwise."""
+    straight = group_results(4)["dp2_cp2_ulysses"]
+    kw = {"cp_strategy": "ulysses", "remat_policy": "dots"}
+    try:
+        run_group([Case("ckpt_cp", 4, {"dp": 2, "cp": 2}, kw=kw, steps=2,
+                        ckpt="save")], 4, tmp_path)
+        outs = run_group([Case("ckpt_cp", 4, {"dp": 2, "cp": 2}, kw=kw,
+                               ckpt="resume")], 4, tmp_path)["ckpt_cp"]
+    except RuntimeError as e:
+        pytest.fail(str(e))
+    for o in outs:
+        assert int(o["start"]) == 2 and int(o["count"]) == STEPS
+        np.testing.assert_array_equal(o["loss"], straight[0]["loss"][2:])
     _assert_params_close(_gathered(outs[0], "p/"),
                          _gathered(straight[0], "p/"))
 

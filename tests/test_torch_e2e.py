@@ -11,8 +11,10 @@ local backend). Two arms: the default (jax) framework with
 (``INIT_METHOD``/``RANK``/``WORLD``), which gets a dp mesh, and an MoE
 job (``--num_experts 4``) on ``tony.application.mesh=ep=2,dp=-1``, the
 twin of ``tests/test_e2e.py::test_distributed_moe_lm_trains``: each
-worker holds half the experts. Both workers' stdout must show the
-world-2 mesh line (``'ep': 2`` for the MoE job) and ``done:``, and the
+worker holds half the experts, and a context-parallel job
+(``--cp_strategy ulysses``) on ``tony.application.mesh=cp=2,dp=-1``:
+each worker trains on half of every sequence. Both workers' stdout must
+show the world-2 mesh line (``'ep': 2``, ``'cp': 2``) and ``done:``, and the
 job must exit 0. The job's executors run through
 :func:`_executor_launcher`, so the machine-wide executor sweeps of the
 TPU backend's tests (see ``_killed_from_outside``) cannot reach them; a
@@ -70,6 +72,7 @@ def _killed_from_outside(job_dir: str) -> bool:
     ("jax", "fsdp=-1", "mesh={'fsdp': 2} devices=2"),
     ("pytorch", None, "mesh={'dp': 2} devices=2"),
     ("jax", "ep=2,dp=-1", "mesh={'dp': 1, 'ep': 2} devices=2"),
+    ("jax", "cp=2,dp=-1", "mesh={'dp': 1, 'cp': 2} devices=2"),
 ])
 def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
                                                 tmp_path):
@@ -86,6 +89,8 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
                f"--preset tiny --steps 3 --batch_size 2 --seq_len 32")
     if mesh and "ep" in mesh:
         command += " --num_experts 4"
+    if mesh and "cp" in mesh:
+        command += " --cp_strategy ulysses"
     for attempt in range(4):
         conf["tony.staging.dir"] = str(tmp_path / f"staging{attempt}")
         client = TonyClient(TonyConfig(conf), command,

@@ -51,7 +51,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "serving.disagg", "serving.router", "storage", "io.split",
                 "io.snappy", "io.framed", "io.avro", "io.native",
                 "io.reader", "io.torch_feed", "parallel.moe",
-                "parallel.spmd"):
+                "parallel.spmd", "parallel.ring_attention",
+                "parallel.ulysses"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))

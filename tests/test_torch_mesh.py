@@ -192,10 +192,18 @@ def test_spec_placements_follow_mesh_order():
 
 
 def test_layout_refuses_unported_axes_and_rules():
-    for axis in ("cp", "pp"):
-        with pytest.raises(NotImplementedError):
-            spmd.Layout({"dp": 2, axis: 2})
+    with pytest.raises(NotImplementedError):
+        spmd.Layout({"dp": 2, "pp": 2})
     rules = dict(PS.DEFAULT_RULES)
+    # cp is ported: "seq" resolves to it beside the batch's axes, and
+    # must not share the model axis
+    assert PS.logical_to_spec(("batch", "seq"), {"dp": 2, "cp": 2}) \
+        == ("dp", "cp")
+    assert spmd.seq_parallel_size({"dp": 2, "cp": 4}) == 4
+    assert spmd.seq_parallel_size({"dp": 2, "tp": 4}) == 1
+    with pytest.raises(NotImplementedError, match="seq"):
+        spmd.Layout({"dp": 2, "tp": 2}, tuple({**rules,
+                                               "seq": "tp"}.items()))
     # ep is ported: "expert" resolves to it beside the batch's axes, and
     # must not share the model axis
     assert PS.logical_to_spec(("batch", "expert"), {"dp": 2, "ep": 2}) \

@@ -130,20 +130,27 @@ def test_remat_gives_the_same_gradient():
 
 
 def test_unported_remat_policies_raise():
-    """Training with remat "dots" or "attn" raises; inference, which
-    checkpoints nothing, runs under any policy."""
+    """Every remat policy is ported: "dots" and "attn" train (their
+    checkpointed forward gives the logits of inference, which checkpoints
+    nothing; gradients against "full" and JAX in test_torch_cp.py), and
+    only an unknown policy raises, at config time."""
     _, tcfg, jp = _setup(remat=True)
     params = params_from_numpy(jp, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.long)
     for policy in ("dots", "attn"):
         cfg = tcfg.scaled(remat_policy=policy)
-        TT.forward(params, toks, cfg)
+        with torch.no_grad():
+            want = TT.forward(params, toks, cfg)[0]
         for t in tree_leaves(params):
             t.requires_grad_(True)
-        with pytest.raises(NotImplementedError):
-            TT.forward(params, toks, cfg)
-        for t in tree_leaves(params):
-            t.requires_grad_(False)
+        try:
+            got = TT.forward(params, toks, cfg)[0]
+        finally:
+            for t in tree_leaves(params):
+                t.requires_grad_(False)
+        torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tcfg.scaled(remat_policy="selective")
 
 
 def _check_five_step_trajectory(fused, **kw):

@@ -95,11 +95,14 @@ def test_config_validation_and_unported_branches():
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.long)
-    # cp and pp are not ported: a mesh with either live raises before it
-    # is read further (its sizes are all the check needs)
-    for axis in ("cp", "pp"):
-        with pytest.raises(NotImplementedError):
-            TT.forward(params, toks, cfg, mesh={"dp": 1, axis: 2})
+    # pp is not ported: a mesh with it live raises before it is read
+    # further (its sizes are all the check needs); cp is, but not with a
+    # window or experts (tests/test_torch_cp.py)
+    with pytest.raises(NotImplementedError):
+        TT.forward(params, toks, cfg, mesh={"dp": 1, "pp": 2})
+    with pytest.raises(NotImplementedError, match="attn_window"):
+        TT.forward(params, toks, cfg.scaled(attn_window=2),
+                   mesh={"dp": 1, "cp": 2})
     # ep is: experts that do not split evenly over it are refused first
     with pytest.raises(ValueError, match="not divisible over ep=2"):
         TT.forward(moe, toks, moe_cfg, mesh={"dp": 1, "ep": 2})

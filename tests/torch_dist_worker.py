@@ -8,10 +8,10 @@ exports it: the process boots its gloo group through
 in turn, each on a mesh of its own over that group.
 
 ``IN_NPZ`` holds a JSON ``plan`` (the optimizer's arguments and a list of
-cases: ``name``, ``model`` — ``lm`` or ``bert`` —, mesh ``axes``, the
-model's ``kw``, ``steps`` and ``ckpt``) and, per case, the weights
-(``<name>/p/<path>``) and the global token batches (``<name>/<leaf>``,
-``[steps, B, S]``). Each rank feeds its local rows of a step's batch (by
+cases: ``name``, ``model`` — ``lm``, ``bert`` or ``attn`` —, mesh
+``axes``, the model's ``kw``, ``steps`` and ``ckpt``) and, per case, the
+weights (``<name>/p/<path>``) and the global token batches
+(``<name>/<leaf>``, ``[steps, B, S]``). Each rank feeds its local rows of a step's batch (by
 ``data_parallel_rank``) through ``global_batch``, runs the sharded train
 step, and writes ``<name>.rank<r>.npz``: the loss and grad_norm of every
 step, the assembled global batch of the first step next to its own
@@ -19,6 +19,13 @@ shard and data rank, the max error of the sharded forward's logits
 against the unsharded forward (``logits_err``), and the params gathered
 to full arrays (``p/<path>``; the sharded initial params under
 ``init/<path>``).
+
+An ``attn`` case holds global ``q``, ``k``, ``v`` and an output
+cotangent ``do`` (``[B, S, H, D]``) instead of weights and batches: each
+rank runs the ring and the Ulysses bodies over the mesh's cp group on its
+chunk (``Layout.local``), with the dense and the flash per-chunk
+engines, causal and not, and writes its outputs and q/k/v gradients
+under ``<engine>/<strategy>/<causal>/{o,dq,dk,dv}``.
 
 ``ckpt`` is ``save`` (a sharded checkpoint every 2 steps under
 ``OUT_DIR/<name>``) or ``resume`` (``restore_or_init`` from that
@@ -45,6 +52,9 @@ from tony_tpu_torch.models.checkpoint import CheckpointManager  # noqa: E402
 from tony_tpu_torch.models.weights import (params_from_numpy,  # noqa: E402
                                            params_to_numpy)
 from tony_tpu_torch.parallel import constrain, mesh_shape  # noqa: E402
+from tony_tpu_torch.parallel import ring_attention as R  # noqa: E402
+from tony_tpu_torch.parallel import spmd  # noqa: E402
+from tony_tpu_torch.parallel import ulysses as U  # noqa: E402
 
 
 def _unflat(flat: dict) -> dict:
@@ -68,8 +78,39 @@ def _flat(tree, prefix) -> dict:
     return out
 
 
+def run_attention(case: dict, data) -> dict:
+    name = case["name"]
+    lay = spmd.Layout(rt.mesh(case["axes"], device="cpu"))
+    q, k, v, do = (torch.from_numpy(data[f"{name}/{n}"])
+                   for n in ("q", "k", "v", "do"))
+    out = {}
+    for engine in ("dense", "flash"):
+        R._USE_FLASH_CHUNKS = engine == "flash"
+        for strategy in ("ring", "ulysses"):
+            for causal in (True, False):
+                ql, kl, vl = (lay.local(x).clone().requires_grad_(True)
+                              for x in (q, k, v))
+                if strategy == "ring":
+                    o = R.ring_attention_local(ql, kl, vl, lay.cp_group,
+                                               causal=causal)
+                else:
+                    ke, ve = R.expand_kv_unless(kl, vl, q.shape[2],
+                                                lay.cp_size)
+                    o = U.ulysses_attention_local(ql, ke, ve, lay.cp_group,
+                                                  causal=causal)
+                grads = torch.autograd.grad(o, (ql, kl, vl), lay.local(do))
+                key = f"{engine}/{strategy}/{int(causal)}"
+                out[f"{key}/o"] = o.detach().numpy()
+                for n, g in zip(("dq", "dk", "dv"), grads):
+                    out[f"{key}/{n}"] = g.numpy()
+    R._USE_FLASH_CHUNKS = None
+    return out
+
+
 def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     name = case["name"]
+    if case["model"] == "attn":
+        return run_attention(case, data)
     mesh = rt.mesh(case["axes"], device="cpu")
     weights = _unflat({k[len(name) + 3:]: data[k] for k in data.files
                        if k.startswith(f"{name}/p/")})

@@ -198,7 +198,12 @@ def _forward_local(params: dict, tokens: torch.Tensor, cfg: BertConfig,
 
 
 def _local_inputs(params, batch: dict, mesh, rules):
-    """(local params, local batch, layout) of a sharded step."""
+    """(local params, local batch, layout) of a sharded step. A live cp
+    axis raises ``NotImplementedError``: BERT's attention is not
+    context-parallel in the port (its cp meshes are the LM's)."""
+    if spmd.seq_parallel_size(mesh, rules) > 1:
+        raise NotImplementedError("BERT has no context parallelism (cp > "
+                                  "1) in the port")
     lay = spmd.Layout(mesh, rules)
     local = {k: (lay.local(v) if v is not None else None)
              for k, v in batch.items()}

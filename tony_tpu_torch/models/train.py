@@ -8,8 +8,8 @@ step path reads the card. PyTorch runs eagerly: no compile, no donation.
 Instead the optimizers update params and moments in place, which is what
 donation buys the JAX package, and the step returns the same dicts.
 
-With a mesh (dp, fsdp, tp, ep) the params and moments are DTensors laid
-out by the logical-axis rules (:func:`init_state`), each process feeds its
+With a mesh (dp, fsdp, tp, ep, cp) the params and moments are DTensors
+laid out by the logical-axis rules (:func:`init_state`), each process feeds its
 local shard of the batch (:func:`global_batch`, :func:`batch_sharding`,
 :func:`data_parallel_rank`), and the loss function runs each rank's
 local shard (:mod:`tony_tpu_torch.parallel.spmd`); the gradients come
@@ -41,7 +41,7 @@ from tony_tpu_torch.ops.optim import FusedAdamW, _global_norm
 from tony_tpu_torch.parallel.mesh import mesh_shape
 from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
                                               Sharding, logical_sharding,
-                                              shard_pytree)
+                                              shard_pytree, spec_placements)
 from tony_tpu_torch.runtime import metrics as metrics_mod
 
 TrainState = dict
@@ -285,9 +285,12 @@ def global_batch(sharding: Sharding, local_tree: Any) -> Any:
     ``sharding``: the global batch is the concatenation of the shards in
     data-parallel rank order (:func:`data_parallel_rank`), and processes
     that share a data rank must pass the same shard. Leaves are tensors
-    already on the mesh's device; the spec covers the leading dims."""
+    already on the mesh's device; only the spec's batch entry is read:
+    a shard holds its rows whole, so under cp (``("batch", "seq")``) the
+    leaves replicate over cp and the step cuts each rank's chunk of the
+    sequence."""
     from torch.distributed.tensor import DTensor
-    placements = sharding.placements
+    placements = spec_placements(sharding.spec[:1], sharding.mesh)
     return tree_map(lambda x: DTensor.from_local(
         x, sharding.mesh, placements, run_check=False), local_tree)
 

@@ -9,9 +9,15 @@ parameter tree — plain dicts with the same keys, the same stacked
 Attention runs the CUDA flash kernels on the card (K1 forward; K2, or
 K3a + K3b, backward) and their plain versions on the CPU, through the
 differentiable :func:`~tony_tpu_torch.ops.attention.flash_attention`.
-With ``cfg.remat`` (policy ``"full"``) each block runs under
-``torch.utils.checkpoint``: only its input is kept, and the backward
-recomputes the block (K1 included) before differentiating it. RMSNorm
+With ``cfg.remat`` each block runs under ``torch.utils.checkpoint`` by
+``cfg.remat_policy``, the JAX package's three: ``"full"`` keeps only the
+block's input, and the backward recomputes the block (K1 included)
+before differentiating it; ``"dots"`` also keeps the outputs of the
+products with no batch dimension (the projections and the MLP's; a
+selective checkpoint policy) and recomputes the elementwise work and
+attention; ``"attn"`` keeps only K1's o and lse of each attention call
+(:class:`~tony_tpu_torch.ops.attention.ForwardStash`), so the
+recompute re-runs the projections and RoPE but not K1. RMSNorm
 runs the CUDA kernel K5 on the card and its plain version on the CPU
 (:func:`~tony_tpu_torch.ops.norms.rms_norm`, f32 math). RoPE and the
 SwiGLU MLP are plain torch with the JAX package's f32 points: RoPE in
@@ -27,6 +33,15 @@ tensors. Under GQA with tp the K/V projections are replicated, as in the
 JAX package; each rank cuts K and V to the kv heads its query heads read
 (:func:`~tony_tpu_torch.ops.attention.tp_kv_heads`).
 
+With a live ``cp`` axis (``"seq"`` → cp) each rank holds its chunk of
+the sequence: RoPE takes the chunk's global positions, attention is the
+ring (:func:`~tony_tpu_torch.parallel.ring_attention.ring_attention_local`)
+or Ulysses (:func:`~tony_tpu_torch.parallel.ulysses.ulysses_attention_local`)
+by ``cfg.cp_strategy``, and the loss sums over data and cp ranks. As in
+the JAX package, a sliding window (``attn_window``) and cp raise
+``NotImplementedError``; so do MoE and cp here (the reference routes over
+the global sequence, and capacity follows its length).
+
 With ``cfg.num_experts`` the MLP is a mixture of experts
 (:func:`~tony_tpu_torch.parallel.moe.moe_ffn`, silu experts with no
 ``w_up``, an f32 router): each block returns its load-balance loss, the
@@ -34,9 +49,8 @@ forward returns their sum over layers and :func:`lm_loss` adds it with
 ``cfg.moe_aux_weight``. Under a mesh the experts split over ``ep`` (the
 ``"expert"`` rule), the activations replicated over it.
 
-Not ported yet (they raise ``NotImplementedError``): pipeline (pp) and
-context (cp) parallelism, and the remat policies ``"dots"`` and
-``"attn"``.
+Not ported yet (it raises ``NotImplementedError``): pipeline (pp)
+parallelism.
 """
 
 from __future__ import annotations
@@ -50,12 +64,16 @@ import torch.utils.checkpoint
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models.train import masked_cross_entropy
-from tony_tpu_torch.ops.attention import flash_attention, tp_kv_heads
+from tony_tpu_torch.ops.attention import (ForwardStash, _check_kv_heads,
+                                          flash_attention, tp_kv_heads)
 from tony_tpu_torch.ops.norms import rms_norm
 from tony_tpu_torch.parallel import spmd
 from tony_tpu_torch.parallel.mesh import mesh_shape
 from tony_tpu_torch.parallel.moe import moe_ffn
+from tony_tpu_torch.parallel.ring_attention import (expand_kv_unless,
+                                                    ring_attention_local)
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
+from tony_tpu_torch.parallel.ulysses import ulysses_attention_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,23 +285,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 def expand_kv(q, k, v):
     """GQA → full heads: each K/V head repeated across its query group
     (blocked layout: query head h reads kv head h // (H/KV))."""
-    h, hk = q.shape[2], k.shape[2]
-    if h == hk:
-        return k, v
-    if hk <= 0 or h % hk:
-        raise ValueError(f"kv heads ({hk}) must divide heads ({h})")
-    rep = h // hk
-    return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    h = q.shape[2]
+    _check_kv_heads(h, k.shape[2])
+    return expand_kv_unless(k, v, h, h)
 
 
 def _attention(q, k, v, cp_strategy: str = "ring",
-               window: int | None = None):
+               window: int | None = None, lay=None,
+               stash: ForwardStash | None = None):
     """Causal GQA attention, differentiable: the CUDA flash kernels for
-    CUDA tensors, their plain versions for CPU tensors."""
+    CUDA tensors, their plain versions for CPU tensors. Under a layout
+    with a live cp axis, q/k/v are this rank's sequence chunk and the
+    ranks attend together by ``cp_strategy``: the ring rides GQA K/V
+    unexpanded (they are already this rank's kv heads), Ulysses expands
+    them when they do not split over cp (the JAX package's rule applied
+    to the local heads)."""
     if cp_strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown cp_strategy {cp_strategy!r}; "
                          f"expected 'ring' or 'ulysses'")
-    return flash_attention(q, k, v, causal=True, window=window)
+    if lay is not None and lay.cp_size > 1:
+        if window is not None:
+            raise NotImplementedError(_CP_WINDOW)
+        if cp_strategy == "ulysses":
+            k, v = expand_kv_unless(k, v, q.shape[2], lay.cp_size)
+            return ulysses_attention_local(q, k, v, lay.cp_group,
+                                           causal=True, stash=stash)
+        return ring_attention_local(q, k, v, lay.cp_group, causal=True,
+                                    stash=stash)
+    return flash_attention(q, k, v, causal=True, window=window, stash=stash)
+
+
+_CP_WINDOW = ("attn_window is not supported with context parallelism "
+              "(cp > 1) yet; shard long sequences with cp OR bound "
+              "attention with a window, not both")
 
 
 def _mlp(h, p, lay=None):
@@ -343,20 +377,71 @@ def _finish_block(x, o, p, cfg: TransformerConfig, lay=None):
     return x + _mlp(spmd.copy_to_model(h, lay), p, lay), None
 
 
-def _block(x, p, cfg: TransformerConfig, rope=None, lay=None):
+def _positions(b: int, s: int, device, lay=None) -> torch.Tensor:
+    """The global positions ``[B, S]`` of a local sequence of ``s``:
+    under cp, this rank's chunk of the whole."""
+    off = lay.cp_rank * s if lay is not None else 0
+    return torch.arange(off, off + s, device=device).expand(b, s)
+
+
+def _block(x, p, cfg: TransformerConfig, rope=None, lay=None,
+           stash: ForwardStash | None = None):
     """One decoder block. x: ``[B, S, D]``; p: this layer's params
     (unstacked; this rank's shards); ``rope``: precomputed (cos, sin)
     tables; ``lay``: the :class:`~tony_tpu_torch.parallel.spmd.Layout`
-    of a sharded step, or None. Returns (x, the block's aux loss or
-    None)."""
+    of a sharded step, or None; ``stash``: the ``"attn"`` policy's
+    record of the attention forward. Returns (x, the block's aux loss
+    or None)."""
     b, s, _ = x.shape
     if rope is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        rope = rope_tables(positions, cfg.head_dim)
+        rope = rope_tables(_positions(b, s, x.device, lay), cfg.head_dim)
     q, k, v = _project_qkv(x, p, rope, lay)
     k, v = _local_kv(k, v, cfg, lay)
-    o = _attention(q, k, v, cfg.cp_strategy, cfg.attn_window or None)
+    o = _attention(q, k, v, cfg.cp_strategy, cfg.attn_window or None, lay,
+                   stash)
     return _finish_block(x, o, p, cfg, lay)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """The ``"dots"`` policy (``dots_with_no_batch_dims_saveable``): keep
+    the outputs of matrix products with no batch dimension, recompute
+    the rest. ``torch.einsum`` lowers such a product (``bsd,df->bsf``,
+    ``bsd,dhk->bshk``, ``bshk,hkd->bsd``) to ``bmm`` over a batch of one,
+    and a product with batch dimensions (attention's) to a larger
+    batch."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if func is aten.mm.default or (func is aten.bmm.default
+                                   and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat_block(x, p, cfg: TransformerConfig, rope, lay=None):
+    """:func:`_block` under ``torch.utils.checkpoint`` by
+    ``cfg.remat_policy`` (the JAX package's ``_remat_policy``): ``"full"``
+    saves nothing inside the block, ``"dots"`` the products with no batch
+    dimension (:func:`_save_dots`), ``"attn"`` only each attention call's
+    o and lse (a :class:`~tony_tpu_torch.ops.attention.ForwardStash`,
+    replayed by the recompute)."""
+    if cfg.remat_policy == "attn":
+        stash = ForwardStash()
+
+        def run(x, p):
+            stash.begin()
+            return _block(x, p, cfg, rope, lay, stash)
+
+        return torch.utils.checkpoint.checkpoint(run, x, p,
+                                                 use_reentrant=False)
+    kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" \
+        else {}
+    return torch.utils.checkpoint.checkpoint(_block, x, p, cfg, rope, lay,
+                                             use_reentrant=False, **kw)
 
 
 def lm_head_logits(x, w, cfg: TransformerConfig):
@@ -380,23 +465,19 @@ def _forward_local(params: dict, tokens: torch.Tensor,
     x = spmd.embed_lookup(params["embed"], tokens, lay,
                           cfg.vocab_size).to(cfg.dtype)
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    rope = rope_tables(positions, cfg.head_dim)   # hoisted out of the loop
+    # hoisted out of the loop
+    rope = rope_tables(_positions(b, s, tokens.device, lay), cfg.head_dim)
     names = list(params["blocks"])
     # one unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing each layer would scatter into a zeroed [L, ...]
     layers = zip(*(params["blocks"][n].unbind(0) for n in names))
     remat = cfg.remat and torch.is_grad_enabled() and any(
         a.requires_grad for a in params["blocks"].values())
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not "
-                                  f"ported yet (only 'full')")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for vals in layers:
         p = dict(zip(names, vals))
         if remat:
-            x, layer_aux = torch.utils.checkpoint.checkpoint(
-                _block, x, p, cfg, rope, lay, use_reentrant=False)
+            x, layer_aux = _remat_block(x, p, cfg, rope, lay)
         else:
             x, layer_aux = _block(x, p, cfg, rope=rope, lay=lay)
         if layer_aux is not None:
@@ -408,12 +489,22 @@ def _local_step_inputs(params: dict, tokens, cfg: TransformerConfig,
                        mesh, rules) -> tuple:
     """(local params, local tokens, layout) of a sharded step: the
     params gathered over the data axes (GQA's replicated K/V projections
-    marked partial over tp), the batch cut to this rank. An MoE config
-    whose experts do not split evenly over ep raises ``ValueError``."""
+    marked partial over tp), the batch cut to this rank (its rows, and
+    its chunk of the sequence under cp). An MoE config whose experts do
+    not split evenly over ep raises ``ValueError``; a window or MoE with
+    a live cp axis ``NotImplementedError``."""
     ep = mesh_shape(mesh).get("ep", 1)
     if cfg.num_experts and cfg.num_experts % ep:
         raise ValueError(f"num_experts={cfg.num_experts} not divisible "
                          f"over ep={ep}")
+    if spmd.seq_parallel_size(mesh, rules) > 1:
+        if cfg.attn_window:
+            raise NotImplementedError(_CP_WINDOW)
+        if cfg.num_experts:
+            raise NotImplementedError(
+                "mixture of experts with context parallelism (cp > 1) is "
+                "not ported: the reference routes over the global "
+                "sequence, and capacity follows its length")
     lay = spmd.Layout(mesh, rules)
     partial = (frozenset({("blocks", "wk"), ("blocks", "wv")})
                if cfg.kv_heads != cfg.n_heads else frozenset())
@@ -468,7 +559,9 @@ def lm_loss(params: dict, batch: dict, cfg: TransformerConfig,
     """Next-token cross-entropy. batch: ``{"tokens": [B, S]}`` (shifted
     inside) or ``{"inputs", "targets"}``; targets == -1 are ignored. With
     a ``mesh``, the mean over the global batch, the same plain 0-d tensor
-    on every rank."""
+    on every rank. Tokens are shifted on the global rows before a rank
+    cuts its cp chunk, so a chunk's last position takes its target from
+    the next chunk."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:

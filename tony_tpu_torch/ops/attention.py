@@ -323,14 +323,51 @@ def _backward(q, k, v, o, lse, do, dlse, causal, scale, window):
     return (_launch_dq(inputs, **kw),) + _launch_dkv(inputs, **kw)
 
 
+class ForwardStash:
+    """The forward's (o, lse) of every attention call in one checkpointed
+    region, kept for its recompute: the ``"attn"`` remat policy, the
+    counterpart of the JAX package's ``save_only_these_names("flash_out",
+    "flash_lse")``. The region calls :meth:`begin` on entry. On its first
+    run each call computes (K1 on the card) and is recorded in call
+    order; on every later run (checkpoint's recompute) the calls replay
+    the records in that order, so the backward gets the recomputed q, k,
+    v beside the forward's o and lse and K1 is not launched again. The
+    kernel launch is invisible to ``torch.utils.checkpoint``'s selective
+    policies, hence the explicit record."""
+
+    def __init__(self):
+        self._saved: list = []
+        self._runs = 0
+        self._next = 0
+
+    def begin(self) -> None:
+        self._runs += 1
+        self._next = 0
+
+    def __call__(self, compute):
+        if self._runs <= 1:
+            out = compute()
+            self._saved.append(tuple(t.detach() for t in out))
+            return out
+        out = self._saved[self._next]
+        self._next += 1
+        # fresh tensor objects over the kept storage: autograd.Function
+        # marks its outputs, and a record may be replayed again
+        return tuple(t.detach() for t in out)
+
+
 class _FlashAttention(torch.autograd.Function):
     """(o, lse), both differentiated; lse's cotangent folds into delta
     (what cross-chunk softmax merging needs). An unused lse gets no
-    cotangent (None), so plain attention pays nothing for it."""
+    cotangent (None), so plain attention pays nothing for it. With a
+    :class:`ForwardStash` the forward is recorded or replayed by it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
-        o, lse = _forward(q, k, v, causal, scale, window)
+    def forward(ctx, q, k, v, causal, scale, window, stash):
+        if stash is None:
+            o, lse = _forward(q, k, v, causal, scale, window)
+        else:
+            o, lse = stash(lambda: _forward(q, k, v, causal, scale, window))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, scale, window)
         ctx.set_materialize_grads(False)
@@ -342,28 +379,31 @@ class _FlashAttention(torch.autograd.Function):
         if do is None:
             do = torch.zeros_like(o)
         dq, dk, dv = _backward(q, k, v, o, lse, do, dlse, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              scale: float | None = None,
-                             window: int | None = None):
+                             window: int | None = None,
+                             stash: ForwardStash | None = None):
     """Fused attention over ``[B, S, H, D]`` inputs, returning
     ``(o, lse)`` with lse ``[B, H, S]`` f32 natural log. GQA K/V (fewer
     heads than Q) and sliding windows as in the module docstring. A CUDA
     tensor runs the kernels, a CPU tensor the plain versions.
-    Differentiable in q, k, v through o and lse."""
+    Differentiable in q, k, v through o and lse. ``stash`` records the
+    forward for a checkpointed region's recompute (:class:`ForwardStash`)."""
     window = _resolve_window(window, causal, q.shape[1])
     _check_kv_heads(q.shape[2], k.shape[2])
     scale = (q.shape[-1] ** -0.5) if scale is None else scale
-    return _FlashAttention.apply(q, k, v, causal, scale, window)
+    return _FlashAttention.apply(q, k, v, causal, scale, window, stash)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None, window: int | None = None):
+                    scale: float | None = None, window: int | None = None,
+                    stash: ForwardStash | None = None):
     """Like :func:`flash_attention_with_lse`, returning o only."""
     o, _ = flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
-                                    window=window)
+                                    window=window, stash=stash)
     return o
 
 

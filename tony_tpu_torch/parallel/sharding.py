@@ -14,8 +14,9 @@ becomes DTensor placements over the mesh (:func:`spec_placements`):
 ``Shard(dim)`` on each mesh dimension the spec names for ``dim``,
 ``Replicate()`` elsewhere. :func:`shard_pytree` lays a parameter tree out
 that way with ``distribute_tensor``; :func:`constrain` redistributes a
-DTensor to a logical layout. ``psum_rep`` and ``attention_spec`` (cp and
-pp) are not ported.
+DTensor to a logical layout; :func:`attention_spec` names the live axes
+of the context-parallel attention operands. ``psum_rep`` (pp) is not
+ported.
 """
 
 from __future__ import annotations
@@ -162,3 +163,18 @@ def constrain(x, logical_axes: Sequence[str | None], mesh=None,
     mesh = x.device_mesh if mesh is None else mesh
     return x.redistribute(mesh, logical_sharding(logical_axes, mesh,
                                                  rules).placements)
+
+
+def attention_spec(mesh, batch_axes: Sequence[str], seq_axis: str | None,
+                   head_axis: str | None) -> tuple:
+    """The live axes of ``[B, S, H, D]`` attention operands: ``(batch
+    axes, seq axis, head axis)`` — the live subset of ``batch_axes`` (a
+    tuple, maybe empty), then ``seq_axis`` and ``head_axis`` or None
+    where absent from the mesh or of size 1. The JAX package returns
+    these as a ``PartitionSpec`` for ``shard_map``; the port's ring and
+    Ulysses wrappers cut their operands by them."""
+    shape = mesh_shape(mesh)
+    live = lambda a: a is not None and shape.get(a, 1) > 1
+    return (tuple(a for a in batch_axes if live(a)),
+            seq_axis if live(seq_axis) else None,
+            head_axis if live(head_axis) else None)

@@ -29,7 +29,18 @@ replicated over ep, and a rank keeps its ep shard of the expert leaves
 (:meth:`Layout.local_params`); :func:`~tony_tpu_torch.parallel.moe.moe_ffn`
 runs this rank's experts and sums their outputs over ep.
 
-cp and pp (and rule tables that would split the residual stream) raise
+Context parallelism (``cp``): ``"seq"`` resolves to a mesh axis of its
+own, and a rank holds its data rows' chunk of the sequence
+(:meth:`Layout.local`: rank ``i`` of ``cp`` holds positions ``[i·S/cp,
+(i+1)·S/cp)``). Every layer but attention is position-wise, so it runs on
+the chunk as it is; attention exchanges K/V around the cp ring
+(:mod:`~tony_tpu_torch.parallel.ring_attention`) or re-shards heads by
+all-to-all (:mod:`~tony_tpu_torch.parallel.ulysses`). Parameters
+replicate over cp, and each rank's gradient is the partial sum over its
+chunk, summed over cp as over the data axes; the loss sums over the data
+and cp ranks.
+
+pp (and rule tables that would split the residual stream) raises
 ``NotImplementedError``.
 """
 
@@ -45,7 +56,7 @@ from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
 
 #: mesh axes whose strategies are not ported: any of them of size > 1
 #: raises
-_UNPORTED = {"pp": "pipeline", "cp": "context"}
+_UNPORTED = {"pp": "pipeline"}
 
 
 def _all_reduce(x: torch.Tensor, groups, op=dist.ReduceOp.SUM):
@@ -93,7 +104,10 @@ class Layout:
       all resolve to, or None;
     - ``model_rank`` / ``model_size``: this rank's coordinate on it;
     - ``expert_axis`` / ``expert_rank``: the same for ``"expert"``
-      (experts over ep), an axis of its own.
+      (experts over ep), an axis of its own;
+    - ``cp_axis`` / ``cp_rank`` / ``cp_size`` / ``cp_group``: the same
+      for ``"seq"`` (the sequence over cp), an axis of its own; the
+      group is None without a live axis.
     """
 
     def __init__(self, mesh, rules: Rules = DEFAULT_RULES):
@@ -102,7 +116,7 @@ class Layout:
             if shape.get(ax, 1) > 1:
                 raise NotImplementedError(
                     f"{what} parallelism ({ax}={shape[ax]}) is not ported "
-                    f"yet; the port runs dp, fsdp, tp and ep")
+                    f"yet; the port runs dp, fsdp, tp, ep and cp")
         self.mesh, self.rules = mesh, rules
         self.data_axes = spec_axes(logical_to_spec(("batch",), mesh,
                                                    rules)[0])
@@ -123,7 +137,14 @@ class Layout:
             raise NotImplementedError(
                 f"expert must resolve to one mesh axis of its own (or "
                 f"none), got {self.expert_axis}")
-        for name in ("embed", "seq", "kv", "norm", "stage"):
+        self.cp_axis = logical_to_spec(("batch", "seq"), mesh, rules)[1]
+        if isinstance(self.cp_axis, tuple) or (
+                self.cp_axis is not None
+                and self.cp_axis in (self.model_axis, self.expert_axis)):
+            raise NotImplementedError(
+                f"seq must resolve to one mesh axis of its own (or none), "
+                f"got {self.cp_axis}")
+        for name in ("embed", "kv", "norm", "stage"):
             entry = logical_to_spec(("batch", name), mesh, rules)[1]
             if entry is not None:
                 raise NotImplementedError(
@@ -157,13 +178,21 @@ class Layout:
         for a in self.data_axes:
             self.data_size *= shape[a]
             self.data_rank = self.data_rank * shape[a] + self._coord[a]
+        self.cp_size = shape[self.cp_axis] if self.cp_axis else 1
+        self.cp_rank = self._coord[self.cp_axis] if self.cp_axis else 0
+        self.cp_group = (mesh.get_group(self.cp_axis) if self.cp_axis
+                         else None)
+        #: the groups a loss sums over: the data axes, then cp
+        self._loss_groups = self._data_groups + (
+            [self.cp_group] if self.cp_axis else [])
 
     # -- parameters and inputs ----------------------------------------
     def local_params(self, tree, partial=frozenset(), _path=()):
         """Each DTensor leaf of ``tree`` as a local tensor for the step:
         gathered over every axis but the model and expert axes, its
         shards there kept. Its gradient comes back partial over the data
-        axes (the batch is split there), on its own placement over the
+        axes and cp (the batch and the sequence are split there), on its
+        own placement over the
         expert axis and, over the model axis, as its shard
         where it is sharded, else replicated — or partial for the leaves
         whose paths (key tuples) are in ``partial``, those a rank reads
@@ -187,24 +216,33 @@ class Layout:
             else:
                 compute.append(Replicate())
                 grad.append(Partial() if name in self.data_axes
-                            else Replicate())
+                            or name == self.cp_axis else Replicate())
         return tree.redistribute(self.mesh, compute).to_local(
             grad_placements=grad)
 
     def local(self, x):
-        """This rank's shard of a batch leaf split by ``"batch"``: a
-        DTensor's local tensor in the batch layout, or rows of a plain
-        tensor, which is taken as the global batch."""
+        """This rank's shard of a batch leaf laid out by ``("batch",
+        "seq")``: its rows and, under cp, its chunk of the sequence
+        (dimension 1). A DTensor's local tensor in that layout, or a
+        slice of a plain tensor, which is taken as the global batch."""
         from torch.distributed.tensor import DTensor
+        logical = ("batch", "seq")[:x.dim()]
         if isinstance(x, DTensor):
-            spec = logical_to_spec(("batch",), self.mesh, self.rules)
+            spec = logical_to_spec(logical, self.mesh, self.rules)
             return x.redistribute(self.mesh, spec_placements(
                 spec, self.mesh)).to_local()
         if x.shape[0] % self.data_size:
             raise ValueError(f"a batch of {x.shape[0]} rows does not split "
                              f"over {self.data_size} data ranks")
         rows = x.shape[0] // self.data_size
-        return x[self.data_rank * rows:(self.data_rank + 1) * rows]
+        x = x[self.data_rank * rows:(self.data_rank + 1) * rows]
+        if self.cp_size == 1 or x.dim() < 2:
+            return x
+        if x.shape[1] % self.cp_size:
+            raise ValueError(f"a sequence of {x.shape[1]} does not split "
+                             f"over {self.cp_axis}={self.cp_size}")
+        n = x.shape[1] // self.cp_size
+        return x[:, self.cp_rank * n:(self.cp_rank + 1) * n]
 
     def wrap(self, x: torch.Tensor, logical_axes):
         """A local activation as the global DTensor of its layout."""
@@ -223,16 +261,27 @@ class Layout:
         return reduce_from_model(x, self)
 
     def sum_data(self, x):
-        """Sum over the data ranks, identity backward."""
-        if not self._data_groups:
+        """Sum over the data and cp ranks, identity backward."""
+        if not self._loss_groups:
             return x
-        return _SumOver.apply(x, self._data_groups)
+        return _SumOver.apply(x, self._loss_groups)
 
     def count_data(self, x):
-        """Sum over the data ranks, outside autograd."""
-        if not self._data_groups:
+        """Sum over the data and cp ranks, outside autograd."""
+        if not self._loss_groups:
             return x
-        return _all_reduce(x.detach(), self._data_groups)
+        return _all_reduce(x.detach(), self._loss_groups)
+
+
+def seq_parallel_size(mesh, rules: Rules = DEFAULT_RULES) -> int:
+    """The number of chunks ``"seq"`` splits a sequence into on ``mesh``
+    (a ``DeviceMesh`` or its sizes): 1 without a live cp axis."""
+    shape = mesh_shape(mesh)
+    entry = logical_to_spec(("batch", "seq"), mesh, rules)[1]
+    n = 1
+    for a in spec_axes(entry):
+        n *= shape[a]
+    return n
 
 
 def _model_live(lay) -> bool:

@@ -4,7 +4,7 @@ the port's counterpart of ``examples/lm/train_lm.py``.
     python -m tony_tpu_torch.train_lm --preset small --steps 100 \\
         --batch_size 16 --seq_len 1024 [--ckpt_dir DIR --ckpt_every N] \\
         [--data_files F ... [--elastic_data GLOBAL_BATCH]] \\
-        [--num_experts E]
+        [--num_experts E] [--cp_strategy ring|ulysses]
 
 Under the orchestrator (``tony_tpu.client.cli submit --executes 'python
 -m tony_tpu_torch.train_lm ...'``, mesh from ``tony.application.mesh``)
@@ -21,7 +21,7 @@ int32 ids): each data-parallel rank's byte-range split, reshuffled per
 epoch from seed ``attempt_number()``, or with ``--elastic_data B`` the
 world-size-invariant stream of global batch B from seed 0, resumed at the
 restored step. The split is by data-parallel rank, so processes that
-share a batch shard (pure tp) feed the same rows.
+share a batch shard (tp, cp) feed the same rows.
 bf16 on the card, f32 on the CPU (``--device cpu``, gloo); with no card
 and no ``--device cpu`` it raises. With ``--ckpt_dir`` holding a
 checkpoint the run resumes from it (sharded, collectively). Prints the
@@ -32,8 +32,14 @@ final loss {l}``.
 ``--num_experts E`` trains a mixture-of-experts model (the preset's
 widths, E silu experts a layer); the experts split over the mesh's ``ep``
 axis (``tony.application.mesh=ep=2,dp=-1``), which the batch replicates
-over. Options of later slices (``--cp_strategy``, ``--pp_schedule``) are
-not ported.
+over.
+
+On a mesh with a ``cp`` axis (``tony.application.mesh=cp=2,dp=-1``) the
+sequence splits over cp, and ``--cp_strategy`` picks the attention: the
+ring (K/V passed around the cp group, the default) or Ulysses (two
+all-to-alls re-sharding heads). The processes of one cp group feed the
+same rows (the split is by data-parallel rank); each trains on its chunk
+of the sequence. ``--pp_schedule`` (pipelines) is not ported.
 """
 
 from __future__ import annotations
@@ -113,14 +119,16 @@ def file_source(paths, batch: int, seq: int, seed: int, mesh=None):
 
 
 def build(preset: str, device=None, attn_window: int = 0,
-          num_experts: int = 0):
+          num_experts: int = 0, cp_strategy: str = "ring"):
     """(cfg, params) for ``preset`` at full width on ``device``: bf16 on
     the card, f32 on the CPU, random weights from seed 0; MoE with
-    ``num_experts`` experts a layer when it is not 0."""
+    ``num_experts`` experts a layer when it is not 0; ``cp_strategy``
+    for a mesh with a cp axis."""
     dev = resolve_device(device)
     cfg = T.PRESETS[preset].scaled(
         dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
-        attn_window=attn_window, num_experts=num_experts)
+        attn_window=attn_window, num_experts=num_experts,
+        cp_strategy=cp_strategy)
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device=dev)
     return cfg, params
@@ -152,6 +160,12 @@ def main(argv=None) -> int:
                         help="mixture-of-experts FFN with this many experts "
                              "(0 = dense); experts shard over the mesh's ep "
                              "axis")
+    parser.add_argument("--cp_strategy", default="ring",
+                        choices=("ring", "ulysses"),
+                        help="context-parallel attention when the mesh has "
+                             "a cp axis: ring (K/V passed around the cp "
+                             "group) or ulysses (all-to-all head "
+                             "resharding)")
     parser.add_argument("--prefetch_depth", type=int, default=2,
                         help="device-prefetch queue depth; 0 = synchronous "
                              "inline feed (A/B contrast)")
@@ -177,7 +191,7 @@ def main(argv=None) -> int:
     print(f"[{info.job_name}:{info.task_index}] attempt={info.attempt} "
           f"mesh={mesh_shape(mesh)} devices={mesh.size()}", flush=True)
     cfg, params = build(args.preset, dev, args.attn_window,
-                        args.num_experts)
+                        args.num_experts, args.cp_strategy)
     print(f"device={dev} preset={args.preset} dtype={cfg.dtype}", flush=True)
     params = shard_pytree(params, T.logical_axes(cfg), mesh)
     opt = default_optimizer(lr=args.lr, total_steps=args.steps)
@@ -192,7 +206,7 @@ def main(argv=None) -> int:
     start_step = int(state["step"])
 
     # split or seeded by the data-parallel rank, not the task index:
-    # processes that share a batch shard (pure tp) must feed identical data
+    # processes that share a batch shard (tp, cp) must feed identical data
     if args.elastic_data:
         source = elastic_file_source(args.data_files, args.elastic_data,
                                      args.seq_len, seed=0,
