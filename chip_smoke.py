@@ -125,7 +125,8 @@ result:
    under retries; a dropped connection's requests cancelled and their
    slots readmitted; tokens/s, TTFT and ITL p50/p99 per class from the
    client's frame arrival times, the busy share, and device launches,
-   device time and wall per greedy and per sampled decode step;
+   device time and wall per greedy and per sampled decode step (a serve
+   of 4 requests of at most 16 tokens);
 15. the decode variants behind ``serve_lm``: K1 against its plain
    version at the draft's D = 32 and at window 256 with S not a multiple
    of 64, K5 at d 128 and 512; an int8 cache slot's bytes against bf16's
@@ -136,16 +137,18 @@ result:
    proposing 4 tokens a round, greedy, and (e) sampled at T 0.8, top-k
    50, top-p 0.95: each served in process with K1 and K5 counted from 0
    (both models' admissions, every round's forwards), its tokens/s and,
-   per decode step or round, device launches, device ms and wall ms
-   beside phase 5's plain serve, tokens per round and the acceptance
-   rate for (d) and (e); the greedy variants' streams against
-   ``generate`` per request (the quantized model, the int8 cache, the
-   linear windowed cache, the target) on 8 requests, in f32 token for
+   per decode step or round of 4 requests of at most 16 tokens, device
+   launches, device ms and wall ms beside the plain batcher's on the
+   same 4, tokens per round and the acceptance rate for (d) and (e);
+   the greedy variants' streams against ``generate`` per request (the
+   quantized model, the int8 cache, the linear windowed cache, the
+   target) on 4 requests of at most 16 tokens, in f32 token for
    token but for a first difference at a near-tie of the logits (1e-4;
    1e-2 for the int8 cache), in bf16 reported; and each variant once
    through ``serve_lm --listen`` and ``serve_lm --connect`` as two
-   processes, 8 requests of serve_lm's workload, every stream equal to
-   the in-process serve's of the same 8;
+   processes, 4 requests of serve_lm's workload, every stream equal to
+   the in-process serve's of the same 4 (the five replicas boot
+   together first, the five clients run together last);
 16. shared-prefix serving: K1 against its plain version at the template
    prefill's [1, P, 8, 64] bf16 causal (P 1 and 509) and K5 at the
    suffix extensions' rows; then phase 5's model with a 509-token
@@ -180,7 +183,8 @@ result:
    (the decode tier launches no K1; the prefill tier n_layers per wave),
    f32 8 x 16 tokens against the colocated ``ServingServer`` behind a
    router (near-tie rule), and the decode tier's launches, device and
-   wall ms a step with landing in place of admission; (c) ``serve_lm
+   wall ms a step with landing in place of admission (phase 14's 4
+   requests of at most 16 tokens); (c) ``serve_lm
    --role prefill`` and ``--role decode`` as processes behind a
    ``--route --route_decode`` router process against one colocated
    ``serve_lm --listen`` behind a ``--route`` router, each driven by a
@@ -247,7 +251,27 @@ result:
    --cp_strategy ring`` and ``ulysses``, 3 steps each through the
    runtime on a world-1 NCCL mesh ``{"cp": 1}`` (several cp ranks need
    a host with more cards);
-then a JSON line of per-kernel numbers, the card line, and the result
+21. pipeline parallelism on one card: (a) ``small`` bf16 at 16 x 1024
+   (remat "full") trained by GPipe and by 1F1B over 2 simulated pp
+   ranks (4 layers a stage, 4 microbatches) and over 4 (2 layers, 8
+   microbatches), every rank emulated in this process: the first step's
+   loss (1e-3 relative) and grad norm (1e-2) against the unpipelined
+   step on the same batch and params, K1, K2 and K5 a step against the
+   counts the schedules predict, then 2 timed steps and 1 profiled: step
+   ms, device ms a step, peak memory; (b) the cross-slice 1F1B as two
+   processes on the card, one stage gang each (4 + 4 of small's
+   layers, stage 0 embedding, stage 1 holding the head) over TONYC1 on
+   loopback, 4 microbatches of [4, 1024]: 3 calls with the transport
+   overlapped and 3 with ``sync_transport``, each stage's launches, step
+   ms, ``tony_pipeline_bubble_fraction``, wire bytes a step (4 hops of
+   [4, 1024, 512] bf16) and peak memory, the loss against (a)'s pp-2
+   1F1B (1e-3 relative); (c) ``python -m tony_tpu_torch.train_lm
+   --pp_schedule gpipe`` and ``1f1b``, 3 steps each on a world-1 NCCL
+   mesh ``{"pp": 1}`` (the unpipelined step, as the schedule line says),
+   and ``python -m tony_tpu_torch.train_pipeline`` as two stage
+   processes for 3 steps (pp ranks over NCCL need a host with more
+   cards);
+then a line of each phase's wall, a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -2620,11 +2644,14 @@ def phase_serving_host(report, card, serve):
         fail("phase 14: a dropped connection did not cancel its 8 "
              "requests, or the readmitted slots served wrong tokens")
 
-    # 14g per decode step, greedy and sampled (in-process, 8 requests,
-    # admission included, as phase 5b)
-    per = {"greedy": _per_step(batcher(), prompts[:8], budgets[:8]),
-           "sampled": _per_step(batcher(**SAMPLING), prompts[:8],
-                                budgets[:8])}
+    # 14g per decode step, greedy and sampled (in-process, admission
+    # included, as phase 5b; PER_STEP_REQUESTS requests of at most
+    # SHORT_BUDGET tokens: the whole script's time limit)
+    n_ps = PER_STEP_REQUESTS
+    short = [min(b, SHORT_BUDGET) for b in budgets[:n_ps]]
+    per = {"greedy": _per_step(batcher(), prompts[:n_ps], short),
+           "sampled": _per_step(batcher(**SAMPLING), prompts[:n_ps],
+                                short)}
     for mode, r in per.items():
         print(f"[14g] {mode}, per decode step over {r['steps']} (admission "
               f"included): {r['launches']:.1f} device launches, device "
@@ -2640,9 +2667,16 @@ def phase_serving_host(report, card, serve):
 
 # phase 15: the decode variants behind serve_lm ---------------------------
 
-#: requests each variant serves through serve_lm --listen / --connect (8
+#: requests each variant serves through serve_lm --listen / --connect (4
 #: of phase 5's 24: the whole script stays inside its time limit)
-WIRE_REQUESTS = 8
+WIRE_REQUESTS = 4
+
+#: requests each greedy variant holds against generate, one at a time,
+#: and each variant's profiled serve of its per-step numbers serves (4 of
+#: phase 5's 24, beside the plain batcher's on the same 4), of at most
+#: SHORT_BUDGET tokens each: the whole script's time limit
+HOLD_REQUESTS = PER_STEP_REQUESTS = 4
+SHORT_BUDGET = 16
 
 #: (label, serve_lm flags) of each variant, built from phase 5's weights
 VARIANTS = (
@@ -2796,48 +2830,61 @@ def _hold_vs_generate(label, parts, ref_cfg, prompts, budgets, limit):
                       solo, limit)
 
 
-def _serve_lm_over_wire(flags, tag, preset, requests):
-    """``serve_lm --listen`` (small, 8 slots, 1024 positions a slot, the
-    variant's flags) and ``serve_lm --connect`` with serve_lm's workload
-    of seed 0 (``requests`` requests, prompts of 64-480 tokens, budgets
-    16-64), as two processes; returns (every request's streamed tokens,
-    the replica's mode word, the client's wall seconds)."""
+def _start_replica(flags, preset):
+    """A ``serve_lm --listen`` process (small, 8 slots, 1024 positions a
+    slot, the variant's flags) on 127.0.0.1:0."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    return subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset", preset,
+         "--slots", "8", "--prompt_len", "960", "--max_new_tokens", "64",
+         *flags, "--listen", "127.0.0.1:0"],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def _replica_address(srv, flags):
+    """(mode word, port) from a replica's serving line, once it serves."""
     import re
-    import signal
+    while True:
+        line = srv.stdout.readline()
+        if not line:
+            fail(f"phase 15: serve_lm {' '.join(flags)} --listen exited "
+                 f"before serving")
+        m = re.search(r"serving \S+ \((.*)\) on 127\.0\.0\.1:(\d+)", line)
+        if m:
+            return m.group(1), m.group(2)
+
+
+def _start_client(address, tag, preset, requests):
+    """``serve_lm --connect`` with serve_lm's workload of seed 0
+    (``requests`` requests, prompts of 64-480 tokens, budgets 16-64)
+    against the replica at ``address`` (mode, port), as a process:
+    (the process, its outputs file, its start time)."""
     env = dict(os.environ, PYTHONPATH=HERE)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"phase15_{tag}.json")
-    cmd = [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset",
-           preset]
-    srv = subprocess.Popen(cmd + ["--slots", "8", "--prompt_len", "960",
-                                  "--max_new_tokens", "64", *flags,
-                                  "--listen", "127.0.0.1:0"],
-                           cwd=HERE, env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset", preset,
+         "--requests", str(requests), "--prompt_len", "480",
+         "--min_prompt_len", "64", "--max_new_tokens", "64", "--connect",
+         f"127.0.0.1:{address[1]}", "--outputs", path],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return cli, path, time.perf_counter()
+
+
+def _finish_leg(srv, client):
+    """Wait for a client of :func:`_start_client`, then stop its replica
+    ``srv``: (every request's streamed tokens, the client's wall
+    seconds)."""
+    import signal
+    cli, path, t0 = client
     try:
-        mode = port = None
-        while port is None:
-            line = srv.stdout.readline()
-            if not line:
-                fail(f"phase 15: serve_lm {' '.join(flags)} --listen exited "
-                     f"before serving")
-            m = re.search(r"serving \S+ \((.*)\) on 127\.0\.0\.1:(\d+)",
-                          line)
-            if m:
-                mode, port = m.group(1), m.group(2)
-        t0 = time.perf_counter()
-        cli = subprocess.run(cmd + ["--requests", str(requests),
-                                    "--prompt_len",
-                                    "480", "--min_prompt_len", "64",
-                                    "--max_new_tokens", "64", "--connect",
-                                    f"127.0.0.1:{port}", "--outputs", path],
-                             cwd=HERE, env=env, capture_output=True,
-                             text=True, timeout=600)
+        out, _ = cli.communicate(timeout=600)
         wall = time.perf_counter() - t0
         if cli.returncode != 0:
-            fail(f"phase 15: serve_lm --connect failed: "
-                 f"{(cli.stdout + cli.stderr)[-2000:]}")
+            fail(f"phase 15: serve_lm --connect failed: {out[-2000:]}")
     finally:
         srv.send_signal(signal.SIGTERM)
         try:
@@ -2846,7 +2893,7 @@ def _serve_lm_over_wire(flags, tag, preset, requests):
             srv.kill()
             srv.communicate()
     with open(path) as f:
-        return json.load(f), mode, wall
+        return json.load(f), wall
 
 
 def _variant_kernels(report):
@@ -2904,8 +2951,9 @@ def phase_variants(report, card, serve):
     counted from 0, tokens/s, per decode step or round the device
     launches, device ms and wall ms) and once through ``serve_lm
     --listen`` and ``--connect`` in two processes (every stream equal to
-    the in-process serve). Returns (K1, K5) launches of the in-process
-    serves."""
+    the in-process serve; the five client processes run at once, after
+    the in-process work, so their walls share the card). Returns (K1, K5)
+    launches of the in-process serves."""
     import torch
     from tony_tpu_torch import serve_lm, tree_leaves, tree_map
     from tony_tpu_torch.models import serve as S
@@ -2917,7 +2965,11 @@ def phase_variants(report, card, serve):
     cfg, params = serve["cfg"], serve["params"]
     prompts, budgets = serve["prompts"], serve["budgets"]
     plain_tps = report["serve"]["tokens_per_s"]
-    plain_step = report["serving_host"]["per_step"]["greedy"]
+    n_ps = PER_STEP_REQUESTS
+    short = [min(b, SHORT_BUDGET) for b in budgets]
+    plain_step = _per_step(_variant_batcher(_variant_parts((), cfg, params)),
+                           prompts[:n_ps], short[:n_ps])
+    rep["plain_per_step"] = plain_step
     cfg32 = cfg.scaled(dtype=torch.float32)
     params32 = tree_map(lambda v: v.float(), params)
     hd = cfg.head_dim
@@ -2951,107 +3003,149 @@ def phase_variants(report, card, serve):
              f"(limit (1 + 4/d_model)/2)")
     del qparts
 
-    k1_total = k5_total = 0
-    for idx, (label, flags) in enumerate(VARIANTS):
-        tag = "abcde"[idx]
-        parts = _variant_parts(flags, cfg, params)
-        vcfg, _, draft, samp, k = parts
-        dcfg = draft[0] if draft else None
-        # the main path: 24 requests, counts from 0
-        batcher = _variant_batcher(parts)
-        torch.cuda.synchronize()
-        A.reset_launches()
-        N.rms_norm_forward.launches = 0
-        S.CALL_COUNTS.clear()
-        outs, wall, counts = _serve_counting(batcher, prompts, budgets)
-        k1, k5 = A.flash_forward.launches, N.rms_norm_forward.launches
-        want_k1, want_k5, admits = _expected_launches(vcfg, dcfg, k)
-        _check_tc_variants(f"phase 15 {label}")
-        if admits == 0 or k1 != want_k1 or k5 != want_k5:
-            fail(f"phase 15 {label}: K1 {k1} (expected {want_k1}), K5 {k5} "
-                 f"(expected {want_k5}) over {admits} admissions")
-        if [len(o) for o in outs] != budgets or not all(
-                0 <= t < cfg.vocab_size for o in outs for t in o):
-            fail(f"phase 15 {label}: a request did not get its budget of "
-                 f"in-vocabulary tokens")
-        k1_total += k1
-        k5_total += k5
-        tokens = sum(budgets)
-        steps = batcher.rounds_executed or batcher.steps_executed
-        r = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-                 k1_launches=k1, k5_launches=k5, admissions=admits,
-                 steps=steps)
-        spec = ""
-        if draft is not None:
-            per_round = sum(counts) / max(1, len(counts))
-            r.update(tokens_per_round=per_round,
-                     acceptance=(per_round - 1) / k, live_rounds=len(counts))
-            spec = (f"; {per_round:.3f} tokens per live row-round, "
-                    f"acceptance rate {(per_round - 1) / k:.4f} of k={k} "
-                    f"(a random tiny draft of another seed: it accepts "
-                    f"little)")
-        per = _per_step(_variant_batcher(parts), prompts[:8], budgets[:8])
-        r["per_step"] = per
-        unit = "round" if draft is not None else "decode step"
-        print(f"[15{tag}] {label}: {len(prompts)} requests, {tokens} tokens "
-              f"in {wall:.3f}s ({tokens / wall:.1f} tokens/s; phase 5 plain "
-              f"{plain_tps:.1f}); per {unit} over {per['steps']} "
-              f"(admission included): {per['launches']:.1f} device launches, "
-              f"device {per['device_ms']:.3f} ms, wall {per['wall_ms']:.3f} "
-              f"ms (plain per step: {plain_step['launches']:.1f}, "
-              f"{plain_step['device_ms']:.3f} ms, {plain_step['wall_ms']:.3f}"
-              f" ms); K1 {k1} over {admits} admissions, K5 {k5}" + spec,
-              flush=True)
-
-        # the stream holds: f32 token for token (a first difference only
-        # at a near-tie), bf16 reported
-        if samp["temperature"] == 0.0:
-            ref = vcfg.scaled(kv_cache_capacity=0)
-            ref32 = ref.scaled(dtype=torch.float32)
-            parts32 = _variant_parts(flags, cfg32, params32)
-            limit = 1e-2 if vcfg.kv_quant else 1e-4
-            e32, d32 = _hold_vs_generate(f"{label} f32", parts32, ref32,
-                                         prompts[:8], budgets[:8], limit)
-            e16, d16 = _hold_vs_generate(f"{label} bf16", parts, ref,
-                                         prompts[:8], budgets[:8], None)
-            r.update(f32_equal=e32, f32_diffs=d32, bf16_equal=e16,
-                     bf16_diffs=d16)
-            extra = ""
+    # the wire legs' replicas boot together, before anything is measured
+    # (one boot after another took most of the phase), and wait idle
+    replicas = [_start_replica(flags, serve["preset"])
+                for _, flags in VARIANTS]
+    clients = []
+    try:
+        addresses = [_replica_address(srv, flags)
+                     for srv, (_, flags) in zip(replicas, VARIANTS)]
+        wire_want = []
+        k1_total = k5_total = 0
+        for idx, (label, flags) in enumerate(VARIANTS):
+            tag = "abcde"[idx]
+            t_v = time.perf_counter()
+            walls = {}
+            parts = _variant_parts(flags, cfg, params)
+            vcfg, _, draft, samp, k = parts
+            dcfg = draft[0] if draft else None
+            # the main path: 24 requests, counts from 0
+            batcher = _variant_batcher(parts)
+            torch.cuda.synchronize()
+            A.reset_launches()
+            N.rms_norm_forward.launches = 0
+            S.CALL_COUNTS.clear()
+            outs, wall, counts = _serve_counting(batcher, prompts, budgets)
+            k1, k5 = A.flash_forward.launches, N.rms_norm_forward.launches
+            want_k1, want_k5, admits = _expected_launches(vcfg, dcfg, k)
+            _check_tc_variants(f"phase 15 {label}")
+            if admits == 0 or k1 != want_k1 or k5 != want_k5:
+                fail(f"phase 15 {label}: K1 {k1} (expected {want_k1}), K5 "
+                     f"{k5} "
+                     f"(expected {want_k5}) over {admits} admissions")
+            if [len(o) for o in outs] != budgets or not all(
+                    0 <= t < cfg.vocab_size for o in outs for t in o):
+                fail(f"phase 15 {label}: a request did not get its budget of "
+                     f"in-vocabulary tokens")
+            k1_total += k1
+            k5_total += k5
+            tokens = sum(budgets)
+            steps = batcher.rounds_executed or batcher.steps_executed
+            r = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                     k1_launches=k1, k5_launches=k5, admissions=admits,
+                     steps=steps)
+            spec = ""
             if draft is not None:
-                same = sum(a == b for a, b in zip(outs, serve["outputs"]))
-                r["bf16_equal_phase5"] = same
-                extra = (f"; all 24 bf16 streams vs phase 5's greedy serve: "
-                         f"{same}/24 equal")
-            what = ("the linear windowed cache" if vcfg.kv_cache_capacity
-                    else "the target" if draft else "the same model")
-            print(f"[15{tag}]   vs generate per request ({what}): f32 "
-                  f"{e32}/8 equal, first "
-                  f"differences (request, step, logit gap; limit {limit:g}) "
-                  f"{d32}; bf16 {e16}/8 equal, first differences {d16}"
-                  + extra, flush=True)
-            del parts32
+                per_round = sum(counts) / max(1, len(counts))
+                r.update(tokens_per_round=per_round,
+                         acceptance=(per_round - 1) / k,
+                         live_rounds=len(counts))
+                spec = (f"; {per_round:.3f} tokens per live row-round, "
+                        f"acceptance rate {(per_round - 1) / k:.4f} of k={k} "
+                        f"(a random tiny draft of another seed: it accepts "
+                        f"little)")
+            walls["serve"] = time.perf_counter() - t_v
+            per = _per_step(_variant_batcher(parts), prompts[:n_ps],
+                            short[:n_ps])
+            r["per_step"] = per
+            walls["per_step"] = time.perf_counter() - t_v - sum(
+                walls.values())
+            unit = "round" if draft is not None else "decode step"
+            print(f"[15{tag}] {label}: {len(prompts)} requests, {tokens} "
+                  f"tokens in {wall:.3f}s ({tokens / wall:.1f} tokens/s; "
+                  f"phase 5 plain {plain_tps:.1f}); per {unit} over "
+                  f"{per['steps']} ({n_ps} requests of at most "
+                  f"{SHORT_BUDGET} tokens, admission included): "
+                  f"{per['launches']:.1f} device launches, device "
+                  f"{per['device_ms']:.3f} ms, wall {per['wall_ms']:.3f} ms "
+                  f"(plain per step on the same {n_ps}: "
+                  f"{plain_step['launches']:.1f}, "
+                  f"{plain_step['device_ms']:.3f} ms, "
+                  f"{plain_step['wall_ms']:.3f} ms); K1 {k1} over {admits} "
+                  f"admissions, K5 {k5}" + spec, flush=True)
 
-        # once through serve_lm --listen / --connect, at the depth of
-        # WIRE_REQUESTS (the whole script's time limit), against the
-        # in-process serve of the same requests
-        p_w, b_w = serve_lm.make_workload(0, WIRE_REQUESTS, 480, 64,
-                                          cfg.vocab_size, min_prompt_len=64)
-        want_w = _variant_batcher(parts).serve(p_w, b_w)
-        wire, mode, wwall = _serve_lm_over_wire(flags, tag, serve["preset"],
-                                                WIRE_REQUESTS)
-        same = sum(a == b for a, b in zip(wire, want_w))
-        r.update(wire_equal=same, wire_mode=mode, wire_wall_s=wwall)
-        print(f"[15{tag}]   serve_lm {' '.join(flags)} --listen / --connect "
-              f"(mode '{mode}'): {same}/{len(p_w)} streams equal the "
-              f"in-process serve; client wall {wwall:.2f}s "
-              f"({sum(b_w) / wwall:.1f} tokens/s, the replica's first serve "
-              f"included)", flush=True)
-        if same != len(p_w):
-            fail(f"phase 15 {label}: streams over the wire differ from the "
-                 f"in-process serve")
-        rep[label] = r
-        del batcher, parts
-        torch.cuda.empty_cache()
+            # the stream holds: f32 token for token (a first difference only
+            # at a near-tie), bf16 reported
+            if samp["temperature"] == 0.0:
+                ref = vcfg.scaled(kv_cache_capacity=0)
+                ref32 = ref.scaled(dtype=torch.float32)
+                parts32 = _variant_parts(flags, cfg32, params32)
+                limit = 1e-2 if vcfg.kv_quant else 1e-4
+                n = HOLD_REQUESTS
+                e32, d32 = _hold_vs_generate(f"{label} f32", parts32, ref32,
+                                             prompts[:n], short[:n], limit)
+                e16, d16 = _hold_vs_generate(f"{label} bf16", parts, ref,
+                                             prompts[:n], short[:n], None)
+                r.update(f32_equal=e32, f32_diffs=d32, bf16_equal=e16,
+                         bf16_diffs=d16)
+                extra = ""
+                if draft is not None:
+                    same = sum(a == b for a, b in zip(outs, serve["outputs"]))
+                    r["bf16_equal_phase5"] = same
+                    extra = (f"; all 24 bf16 streams vs phase 5's greedy "
+                             f"serve: "
+                             f"{same}/24 equal")
+                what = ("the linear windowed cache" if vcfg.kv_cache_capacity
+                        else "the target" if draft else "the same model")
+                print(f"[15{tag}]   vs generate per request ({what}): f32 "
+                      f"{e32}/{n} equal, first "
+                      f"differences (request, step, logit gap; limit "
+                      f"{limit:g}) "
+                      f"{d32}; bf16 {e16}/{n} equal, first differences {d16}"
+                      + extra, flush=True)
+                del parts32
+            walls["generate"] = time.perf_counter() - t_v - sum(
+                walls.values())
+
+            # once through serve_lm --listen / --connect (below), at the
+            # depth of WIRE_REQUESTS (the whole script's time limit),
+            # against the in-process serve of the same requests
+            p_w, b_w = serve_lm.make_workload(
+                0, WIRE_REQUESTS, 480, 64, cfg.vocab_size, min_prompt_len=64)
+            wire_want.append((b_w, _variant_batcher(parts).serve(p_w, b_w)))
+            walls["wire_want"] = time.perf_counter() - t_v - sum(
+                walls.values())
+            r["walls"] = walls
+            print(f"[15{tag}]   walls: " + ", ".join(
+                f"{k} {v:.1f}s" for k, v in walls.items()), flush=True)
+            rep[label] = r
+            del batcher, parts
+            torch.cuda.empty_cache()
+        # the five clients at once, each against its own replica
+        clients = [_start_client(addr, "abcde"[i], serve["preset"],
+                                 WIRE_REQUESTS)
+                   for i, addr in enumerate(addresses)]
+        for idx, (label, flags) in enumerate(VARIANTS):
+            wire, wwall = _finish_leg(replicas[idx], clients[idx])
+            b_w, want_w = wire_want[idx]
+            mode = addresses[idx][0]
+            same = sum(a == b for a, b in zip(wire, want_w))
+            rep[label].update(wire_equal=same, wire_mode=mode,
+                              wire_wall_s=wwall)
+            print(f"[15{'abcde'[idx]}]   serve_lm {' '.join(flags)} "
+                  f"--listen / --connect (mode '{mode}'): {same}/"
+                  f"{len(want_w)} streams equal the in-process serve; client "
+                  f"wall {wwall:.2f}s ({sum(b_w) / wwall:.1f} tokens/s, the "
+                  f"five clients at once)", flush=True)
+            if same != len(want_w):
+                fail(f"phase 15 {label}: streams over the wire differ from "
+                     f"the in-process serve")
+    finally:
+        for proc in replicas + [c[0] for c in clients]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     del params32
     return k1_total, k5_total
 
@@ -3197,22 +3291,37 @@ def _stop_procs(procs):
             proc.communicate()
 
 
-def _connect(preset, port, pfile, tag):
+def _connect_all(preset, ports, pfile):
     """``serve_lm --connect`` with phase 16's workload (every prompt the
-    prefix in ``pfile`` + its suffix); returns every stream."""
-    path = os.path.join(HERE, "chiprun_out", f"phase16_{tag}.json")
-    cli = subprocess.run(
+    prefix in ``pfile`` + its suffix) against each replica of ``ports``
+    (``{tag: port}``), the clients at once; returns every stream by
+    tag."""
+    paths = {tag: os.path.join(HERE, "chiprun_out", f"phase16_{tag}.json")
+             for tag in ports}
+    clis = {tag: subprocess.Popen(
         [sys.executable, "-m", "tony_tpu_torch.serve_lm", "--preset",
          preset, "--requests", "24", "--prompt_len", "256",
          "--min_prompt_len", "16", "--max_new_tokens", "64", "--connect",
          f"127.0.0.1:{port}", "--shared_prefix_file", pfile, "--outputs",
-         path], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-        capture_output=True, text=True, timeout=600)
-    if cli.returncode != 0:
-        fail(f"phase 16: serve_lm --connect {tag} failed: "
-             f"{(cli.stdout + cli.stderr)[-2000:]}")
-    with open(path) as f:
-        return json.load(f)
+         paths[tag]], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tag, port in ports.items()}
+    try:
+        for tag, cli in clis.items():
+            out, _ = cli.communicate(timeout=600)
+            if cli.returncode != 0:
+                fail(f"phase 16: serve_lm --connect {tag} failed: "
+                     f"{out[-2000:]}")
+    finally:
+        for cli in clis.values():
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+    outs = {}
+    for tag, path in paths.items():
+        with open(path) as f:
+            outs[tag] = json.load(f)
+    return outs
 
 
 def _template_ship_and_warm_boot(rep, preset, prefix, suffixes, budgets):
@@ -3256,8 +3365,8 @@ def _template_ship_and_warm_boot(rep, preset, prefix, suffixes, budgets):
             fail("phase 16f: C's warm boot did not pull: "
                  + "".join(clines)[-2000:])
         w_bytes, w_wall = int(m.group(1)), float(m.group(2))
-        outs = {tag: _connect(preset, port, pfile, tag)
-                for tag, port in (("A", aport), ("B", bport), ("C", cport))}
+        outs = _connect_all(preset, {"A": aport, "B": bport, "C": cport},
+                            pfile)
         stats = {}
         for tag, port in (("A", aport), ("B", bport), ("C", cport)):
             with StreamingClient("127.0.0.1", port) as cl:
@@ -3759,8 +3868,9 @@ def _stream(port, prompts, budgets, classes=None):
 def _landing_per_step(params, cfg, prompts, budgets):
     """Device launches, device ms and wall ms per decode step of a decode
     tier's engine (landing included in place of phase 14g's prefill
-    admission): 8 packages shipped beforehand, adopted through
-    ``submit_prefilled`` and served under torch.profiler."""
+    admission): a package a prompt (phase 14g's), shipped beforehand,
+    adopted through ``submit_prefilled`` and served under
+    torch.profiler."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3934,7 +4044,9 @@ def _in_process_stack(rep, card, serve):
     rep["f32"] = dict(equal=equal, diffs=diffs)
 
     # the decode tier's step: landing in place of prefill admission
-    per = _landing_per_step(params, cfg, prompts[:8], budgets[:8])
+    n_ps = PER_STEP_REQUESTS
+    per = _landing_per_step(params, cfg, prompts[:n_ps],
+                            [min(b, SHORT_BUDGET) for b in budgets[:n_ps]])
     print(f"[17b] decode tier, per decode step over {per['steps']} (landing "
           f"included): {per['launches']:.1f} device launches, device "
           f"{per['device_ms']:.3f} ms, wall {per['wall_ms']:.3f} ms; top: "
@@ -5449,6 +5561,433 @@ def phase_cp(report, card):
     return launches
 
 
+PP_STEPS = 2
+PP_BATCH, PP_SEQ = 16, 1024
+PP_PRESET, PP_DEVICE = "small", "cuda"
+
+
+def _pp_counts():
+    """(zero, read) of K1, K2, K3 and K5's launch counts."""
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+
+    def zero():
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+
+    def read():
+        return dict(k1=A.flash_forward.launches,
+                    k2=A.flash_backward_fused.launches,
+                    k3=A.flash_backward_dq.launches
+                    + A.flash_backward_dkv.launches,
+                    k5=N.rms_norm_forward.launches)
+    return zero, read
+
+
+def _pp_expected(L, pp, m, schedule):
+    """K1, K2, K5 launches of one pipelined `small` step (remat "full"):
+    GPipe runs each microbatch's blocks forward and their remat
+    recompute (K1 2 a layer, K5 4 a layer) and the head once on the
+    whole batch; 1F1B adds a forward tick on every stage but the last
+    (which folds it into its backward tick), and the last stage's head
+    runs a microbatch at a time."""
+    if schedule == "gpipe":
+        return dict(k1=2 * L * m, k2=L * m, k5=4 * L * m + 1)
+    ls = L // pp
+    return dict(k1=m * (3 * (L - ls) + 2 * ls), k2=L * m,
+                k5=m * (6 * (L - ls) + 4 * ls + 1))
+
+
+def _pp_tokens(vocab, device):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.RandomState(21).randint(
+        0, vocab, size=(PP_BATCH, PP_SEQ + 1))).to(device)
+
+
+def _pp_step_fn(cfg, mesh, schedule):
+    """The train step a user builds for ``schedule`` on ``mesh`` (a dict
+    of sizes: every rank emulated on this card)."""
+    from tony_tpu_torch.models import train as TR
+    from tony_tpu_torch.models import transformer as T
+    opt = TR.default_optimizer(lr=3e-4, total_steps=1000)
+    if schedule == "1f1b":
+        step = TR.make_train_step(None, opt, value_and_grad_fn=lambda p, b:
+                                  T.lm_value_and_grad(p, b, cfg, mesh))
+    else:
+        step = TR.make_train_step(lambda p, b: T.lm_loss(p, b, cfg, mesh),
+                                  opt)
+    return step, opt
+
+
+def _pp_in_slice(out, card, cfg, params, tokens):
+    """21a: GPipe and 1F1B over pp 2 (M 4) and pp 4 (M 8) simulated
+    ranks; returns the launches and the pp-2 1F1B loss."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tony_tpu_torch.models import train as TR
+    zero, read = _pp_counts()
+    L = cfg.n_layers
+    batch = {"tokens": tokens}
+    zero()
+    ref_loss, ref_norm = _policy_step(cfg, params, tokens)
+    torch.cuda.synchronize()
+    ref = dict(loss=ref_loss, grad_norm=ref_norm, launches=read())
+    out["unpipelined"] = ref
+    launches = dict(k1=0, k2=0, k5=0)
+    runs = {}
+    for pp, m in ((2, 4), (4, 8)):
+        for schedule in ("gpipe", "1f1b"):
+            tag = f"pp{pp}_{schedule}"
+            step, opt = _pp_step_fn(cfg, {"pp": pp}, schedule)
+            state = TR.init_state(_copy_tree(params, "cuda"), opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            state, mtr = step(state, batch)
+            loss, norm = float(mtr["loss"]), float(mtr["grad_norm"])
+            c1 = read()
+            peak = torch.cuda.max_memory_allocated()
+            _check_tc_variants(f"phase 21a {tag}")
+            walls = []
+            zero()
+            for _ in range(PP_STEPS):
+                t0 = time.perf_counter()
+                state, mtr = step(state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            c = read()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, mtr = step(state, batch)
+                torch.cuda.synchronize()
+            dev, _ = _device_times(prof)
+            dev_ms = sum(dev.values()) / 1e3 if dev else None
+            want = _pp_expected(L, pp, m, schedule)
+            r = dict(pp=pp, microbatches=m, loss=loss, grad_norm=norm,
+                     loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+                     norm_rel=abs(norm - ref_norm) / abs(ref_norm),
+                     launches=c1, want=want, peak_bytes=peak,
+                     step_ms=statistics.median(walls) * 1e3,
+                     device_ms=dev_ms)
+            runs[tag] = r
+            print(f"[21a] small bf16 {PP_BATCH}x{PP_SEQ} {schedule} over "
+                  f"pp={pp} simulated ranks (M={m}) on {card}: loss "
+                  f"{loss:.6f} vs unpipelined {ref_loss:.6f} (relative "
+                  f"{r['loss_rel']:.2e}, limit 1e-3), grad norm {norm:.6f} "
+                  f"vs {ref_norm:.6f} ({r['norm_rel']:.2e}, limit 1e-2); a "
+                  f"step: K1 {c1['k1']}, K2 {c1['k2']}, K5 {c1['k5']} "
+                  f"(predicted {want['k1']}, {want['k2']}, {want['k5']}), "
+                  f"wall {r['step_ms']:.2f} ms (median of {PP_STEPS}), "
+                  f"device {_ms(dev_ms)}; peak memory "
+                  f"{peak / 2**30:.2f} GiB", flush=True)
+            if {k: c1[k] for k in want} != want or c1["k3"]:
+                fail(f"phase 21a {tag}: launches {c1}, want {want} and K3 0")
+            if any(c[k] != want[k] * PP_STEPS for k in want):
+                fail(f"phase 21a {tag}: {PP_STEPS} steps launched {c}")
+            if not (r["loss_rel"] <= 1e-3 and r["norm_rel"] <= 1e-2):
+                fail(f"phase 21a {tag}: loss or grad norm off the "
+                     f"unpipelined step's")
+            for k in launches:
+                launches[k] += c1[k] + c[k]
+            del state
+            torch.cuda.empty_cache()
+    out["in_slice"] = runs
+    return launches, runs["pp2_1f1b"]["loss"]
+
+
+def _pp_gang(stage, ports, steps, path, preset=PP_PRESET,
+             device=PP_DEVICE):
+    """One stage gang of 21b, run in a process of its own: half of
+    ``preset``'s blocks (stage 0 the first) behind a
+    ``CrossSlicePipeline`` over TONYC1 on loopback, stage 0 embedding,
+    stage 1 holding the head; ``steps`` value-and-grad calls with the
+    default (overlapped) transport, then ``steps`` with
+    ``sync_transport=True``. Writes its measurements as JSON to
+    ``path``."""
+    sys.path.insert(0, HERE)
+    import statistics
+
+    import torch
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.channels.registry import open_stage_links
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.parallel.pipeline import CrossSlicePipeline
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    zero, read = _pp_counts()
+    cfg, params = train_lm.build(preset, device)
+    half = cfg.n_layers // 2
+    blocks = {k: v[stage * half:(stage + 1) * half].contiguous()
+              for k, v in params["blocks"].items()}
+    reg = MetricsRegistry()
+    links = open_stage_links(
+        stage=stage, num_stages=2, hub_port=ports[stage],
+        prev=f"127.0.0.1:{ports[0]}" if stage else "",
+        next="" if stage else f"127.0.0.1:{ports[1]}", registry=reg)
+    tokens = _pp_tokens(cfg.vocab_size, device)
+    m = 4
+    mb = PP_BATCH // m
+    kw = {}
+    if stage == 0:
+        with torch.no_grad():
+            x = params["embed"][tokens[:, :-1].long()].to(cfg.dtype)
+        kw["microbatches"] = x.reshape(m, mb, PP_SEQ, cfg.d_model)
+    else:
+        kw["head_params"] = {k: params[k] for k in ("final_norm",
+                                                    "lm_head")}
+        kw["head_batches"] = tokens[:, 1:].reshape(m, mb, PP_SEQ)
+    out = {"stage": stage, "layers": cfg.n_layers,
+           "hop_bytes": mb * PP_SEQ * cfg.d_model
+           * torch.empty((), dtype=cfg.dtype).element_size()}
+    wire = reg.counter("tony_channel_bytes_total",
+                       channel="act" if stage == 0 else "grad",
+                       direction="send")
+    try:
+        for serial in (False, True):
+            pipe = CrossSlicePipeline(
+                T._stage_fn(cfg, None, with_aux=False), links,
+                loss_head=T._loss_head(cfg) if stage else None,
+                sync_transport=serial, registry=reg, device=device)
+            walls, bubbles, losses, counts = [], [], [], []
+            for i in range(steps):
+                sync()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                zero()
+                sent0 = wire.value
+                t0 = time.perf_counter()
+                loss, grads, _, _ = pipe.value_and_grad(
+                    blocks, num_microbatches=m, **kw)
+                sync()
+                walls.append(time.perf_counter() - t0)
+                bubbles.append(pipe.last_step["bubble"])
+                counts.append(read())
+                if loss is not None:
+                    losses.append(float(loss))
+                out.setdefault("wire_bytes", wire.value - sent0)
+            pipe.close()
+            out["sync" if serial else "overlap"] = dict(
+                step_ms=statistics.median(walls[1:]) * 1e3,
+                walls_ms=[w * 1e3 for w in walls], bubble=bubbles,
+                peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+                launches=counts, losses=losses)
+    finally:
+        links.close()
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _pp_cross_slice(out, card, loss_1f1b):
+    """21b: the cross-slice 1F1B as two processes on the one card;
+    returns the launches of both gangs' overlapped and synchronous
+    calls."""
+    import socket
+    import statistics
+    steps = 3
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    paths = [os.path.join(HERE, "build", f"pp_gang{s}.json")
+             for s in (0, 1)]
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as c; c._pp_gang({s}, "
+         f"{ports}, {steps}, {paths[s]!r}, {PP_PRESET!r}, "
+         f"{PP_DEVICE!r})"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail("phase 21b: a stage gang failed: "
+             + " | ".join(log[-1500:] for log in logs))
+    gangs = [json.load(open(p)) for p in paths]
+    out["cross_slice"] = gangs
+    launches = dict(k1=0, k2=0, k5=0)
+    half = gangs[0]["layers"] // 2
+    # stage 0: a forward tick and a backward tick (recompute + remat) a
+    # microbatch over its 4 blocks; stage 1: the backward tick and its
+    # head a microbatch
+    want = [dict(k1=4 * 3 * half, k2=4 * half, k5=4 * 6 * half),
+            dict(k1=4 * 2 * half, k2=4 * half, k5=4 * (4 * half + 1))]
+    for g in gangs:
+        s = g["stage"]
+        for mode in ("overlap", "sync"):
+            r = g[mode]
+            for c in r["launches"]:
+                if {k: c[k] for k in want[s]} != want[s] or c["k3"]:
+                    fail(f"phase 21b stage {s} {mode}: launches {c}, want "
+                         f"{want[s]}")
+                for k in launches:
+                    launches[k] += c[k]
+    last = gangs[1]
+    rel = abs(last["overlap"]["losses"][0] - loss_1f1b) / abs(loss_1f1b)
+    out["cross_slice_loss_rel"] = rel
+    for g in gangs:
+        for mode in ("overlap", "sync"):
+            r = g[mode]
+            print(f"[21b] cross-slice 1F1B stage {g['stage']} "
+                  f"({'sync_transport' if mode == 'sync' else 'overlapped'}"
+                  f"), small bf16 {PP_BATCH}x{PP_SEQ}, M=4, two processes "
+                  f"time-slicing one {card}: step {r['step_ms']:.2f} ms "
+                  f"(median of the last {steps - 1}), "
+                  f"tony_pipeline_bubble_fraction "
+                  f"{statistics.median(r['bubble']):.4f}, peak memory "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB, wire "
+                  f"{g['wire_bytes'] / 2**20:.1f} MiB a step sent", flush=True)
+    print(f"[21b] stage 1 loss {last['overlap']['losses'][0]:.6f} vs 21a's "
+          f"pp=2 1F1B {loss_1f1b:.6f}: relative {rel:.2e} (limit 1e-3); "
+          f"overlapped vs sync step (stage 0): "
+          f"{gangs[0]['overlap']['step_ms']:.2f} vs "
+          f"{gangs[0]['sync']['step_ms']:.2f} ms", flush=True)
+    if rel > 1e-3 or not all(abs(x) < float("inf") for g in gangs[1:]
+                             for mode in ("overlap", "sync")
+                             for x in g[mode]["losses"]):
+        fail("phase 21b: the cross-slice loss is off 21a's 1F1B")
+    for g in gangs:
+        if g["wire_bytes"] != 4 * g["hop_bytes"]:
+            fail(f"phase 21b: stage {g['stage']} sent {g['wire_bytes']} "
+                 f"bytes a step, want 4 hops of {g['hop_bytes']}")
+    return launches
+
+
+def _pp_entry_points(out, card):
+    """21c: ``train_lm --pp_schedule gpipe|1f1b`` for 3 steps at world 1
+    (``{"pp": 1}``: the degenerate path), and ``train_pipeline`` as two
+    stage processes for 3 steps. Returns train_lm's launches."""
+    import socket
+    zero, read = _pp_counts()
+    launches = dict(k1=0, k2=0, k5=0)
+    n, L = 3, 8
+    out["cli"] = {}
+    for schedule in ("gpipe", "1f1b"):
+        zero()
+        t0 = time.perf_counter()
+        rc, lines = _train_lm_cli(
+            ["--preset", "small", "--steps", str(n), "--batch_size",
+             str(PP_BATCH), "--seq_len", str(PP_SEQ), "--pp_schedule",
+             schedule], {"pp": -1})
+        c = read()
+        _check_tc_variants(f"train_lm --pp_schedule {schedule}")
+        done = [x for x in lines if x.startswith("done: final loss ")]
+        sched = [x for x in lines if x.startswith("pipeline schedule: ")]
+        print(f"[21c] python -m tony_tpu_torch.train_lm --preset small "
+              f"--pp_schedule {schedule} on {card}, NCCL world 1: {n} "
+              f"steps in {time.perf_counter() - t0:.1f}s: "
+              f"{sched[0] if sched else None}; "
+              f"{done[0] if done else None}; launches {c}", flush=True)
+        out["cli"][schedule] = dict(done=done, schedule=sched, launches=c)
+        if rc != 0 or not done or not sched or "pp=1" not in sched[0]:
+            fail(f"phase 21c: train_lm --pp_schedule {schedule}: exit {rc}, "
+                 f"last lines {lines[-3:]}")
+        if c["k1"] != 2 * L * n or c["k2"] != L * n or c["k3"] or \
+                c["k5"] != (4 * L + 1) * n:
+            fail(f"phase 21c: launch counts {c}")
+        for k in launches:
+            launches[k] += c[k]
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    t0 = time.perf_counter()
+    procs = []
+    for s in (0, 1):
+        env = dict(os.environ, PYTHONPATH=HERE, TONY_PIPELINE_STAGE=str(s),
+                   TONY_PIPELINE_NUM_STAGES="2",
+                   TONY_CHANNEL_PORT=str(ports[s]),
+                   TONY_CHANNEL_PREV=f"127.0.0.1:{ports[0]}" if s else "",
+                   TONY_CHANNEL_NEXT="" if s else f"127.0.0.1:{ports[1]}")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu_torch.train_pipeline",
+             "--steps", "3", "--dim", "512", "--mb_rows", "64"], cwd=HERE,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    losses = [float(x.split()[-1]) for x in logs[1].splitlines()
+              if x.startswith("step ") and " loss " in x]
+    print(f"[21c] python -m tony_tpu_torch.train_pipeline as two stage "
+          f"processes on {card}: 3 steps in "
+          f"{time.perf_counter() - t0:.1f}s, exit "
+          f"{[p.returncode for p in procs]}, stage 1 losses {losses}",
+          flush=True)
+    out["train_pipeline"] = dict(rc=[p.returncode for p in procs],
+                                 losses=losses)
+    if any(p.returncode for p in procs) or len(losses) != 3 or \
+            not all(abs(x) < float("inf") for x in losses) or \
+            "cuda" not in logs[0]:
+        fail("phase 21c: train_pipeline: " + " | ".join(
+            log[-1500:] for log in logs))
+    return launches
+
+
+def phase_pipeline(report, card):
+    """[21] Pipeline parallelism on one card: (a) GPipe and 1F1B over pp
+    2 (4 layers a stage, M 4) and pp 4 (M 8) simulated ranks, `small`
+    bf16 16 x 1024 remat "full": the first step's loss and grad norm
+    against the unpipelined step on the same batch and params, K1/K2/K5
+    a step against the predicted counts, step wall, device ms, peak
+    memory; (b) the cross-slice 1F1B as two processes on the card, one
+    stage gang each (`small`'s blocks 4 + 4) over TONYC1 on loopback,
+    overlapped and with ``sync_transport``: each stage's step, bubble
+    fraction, wire bytes and peak memory, the loss against (a)'s pp-2
+    1F1B; (c) ``train_lm --pp_schedule gpipe|1f1b`` at world 1 and
+    ``train_pipeline`` as two stage processes. Several pp ranks over
+    NCCL need a host with more cards. Returns the launches (K1, K2,
+    K5)."""
+    import torch
+    from tony_tpu_torch import train_lm
+    t_phase = time.perf_counter()
+    out = {"walls": {}}
+    cfg, params = train_lm.build("small", "cuda")
+    tokens = _pp_tokens(cfg.vocab_size, "cuda")
+    launches, loss_1f1b = _pp_in_slice(out, card, cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    out["walls"]["a"] = time.perf_counter() - t_phase
+    b = _pp_cross_slice(out, card, loss_1f1b)
+    out["walls"]["b"] = time.perf_counter() - t_phase - out["walls"]["a"]
+    c = _pp_entry_points(out, card)
+    out["walls"]["c"] = (time.perf_counter() - t_phase - out["walls"]["a"]
+                         - out["walls"]["b"])
+    for part in (b, c):
+        for k in launches:
+            launches[k] += part[k]
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    print(f"[21] phase wall {out['wall_s']:.1f}s ("
+          + ", ".join(f"21{k} {v:.1f}s" for k, v in out["walls"].items())
+          + "); pp ranks over NCCL need a host with more cards", flush=True)
+    report["pipeline"] = out
+    return launches
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -5473,25 +6012,38 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    phase_build(report)
-    k1 = phase_kernel(report)
-    bwd = phase_backward(report)
-    k4 = phase_adamw(report)
-    norms = phase_norms(report)
-    phase_parity(report)
-    phase_train_parity(report)
-    phase_bert_parity(report)
-    serve = phase_serve(report, card)
-    counts = phase_train(report, card)
-    bert = phase_bert(report, card)
-    mesh = phase_mesh(report, card)
-    host_k1, host_k5 = phase_serving_host(report, card, serve)
-    var_k1, var_k5 = phase_variants(report, card, serve)
-    pre_k1, pre_k5 = phase_prefix(report, card, serve)
-    dis_k1, dis_k5 = phase_disagg(report, card, serve)
-    files = phase_files(report, card)
-    moe = phase_moe(report, card, serve)
-    cp = phase_cp(report, card)
+    walls = report["phase_walls"] = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("2 build", phase_build, report)
+    k1 = timed("3 kernel", phase_kernel, report)
+    bwd = timed("6 backward", phase_backward, report)
+    k4 = timed("7 adamw", phase_adamw, report)
+    norms = timed("10 norms", phase_norms, report)
+    timed("4 parity", phase_parity, report)
+    timed("8 train parity", phase_train_parity, report)
+    timed("11 bert parity", phase_bert_parity, report)
+    serve = timed("5 serve", phase_serve, report, card)
+    counts = timed("9 train", phase_train, report, card)
+    bert = timed("12 bert", phase_bert, report, card)
+    mesh = timed("13 mesh", phase_mesh, report, card)
+    host_k1, host_k5 = timed("14 serving host", phase_serving_host, report,
+                             card, serve)
+    var_k1, var_k5 = timed("15 variants", phase_variants, report, card,
+                           serve)
+    pre_k1, pre_k5 = timed("16 prefix", phase_prefix, report, card, serve)
+    dis_k1, dis_k5 = timed("17 disagg", phase_disagg, report, card, serve)
+    files = timed("18 files", phase_files, report, card)
+    moe = timed("19 moe", phase_moe, report, card, serve)
+    cp = timed("20 cp", phase_cp, report, card)
+    pp = timed("21 pipeline", phase_pipeline, report, card)
+    print("[phase walls] " + ", ".join(f"{k} {v}s" for k, v in walls.items()),
+          flush=True)
     # launches on the main paths, each counted from 0 over its own run:
     # K1 over the serve (phase 5), the LM training run (phase 9), the
     # BERT run (phase 12), the mesh-path run (phase 13), the sampled
@@ -5508,18 +6060,21 @@ def main() -> int:
     # --num_experts (K1, K2, K5) and the MoE serve (K1, K5); phase 20's
     # ring and Ulysses over simulated ranks (K1, K2), the training steps
     # under the three remat policies and train_lm --cp_strategy (K1, K2,
-    # K5)
+    # K5); phase 21's pipelined steps over simulated pp ranks, the
+    # cross-slice stage gangs and train_lm --pp_schedule (K1, K2, K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
                       + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
-                      + moe["k1"] + cp["k1"])
+                      + moe["k1"] + cp["k1"] + pp["k1"])
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
-                                + files["k2"] + moe["k2"] + cp["k2"])
+                                + files["k2"] + moe["k2"] + cp["k2"]
+                                + pp["k2"])
     bwd["dq"]["launches"] = counts["k3a"] + files["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"]
     k4["launches"] = counts["k4"] + moe["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
-                                + files["k5"] + moe["k5"] + cp["k5"])
+                                + files["k5"] + moe["k5"] + cp["k5"]
+                                + pp["k5"])
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

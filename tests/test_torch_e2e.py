@@ -13,9 +13,13 @@ job (``--num_experts 4``) on ``tony.application.mesh=ep=2,dp=-1``, the
 twin of ``tests/test_e2e.py::test_distributed_moe_lm_trains``: each
 worker holds half the experts, and a context-parallel job
 (``--cp_strategy ulysses``) on ``tony.application.mesh=cp=2,dp=-1``:
-each worker trains on half of every sequence. Both workers' stdout must
-show the world-2 mesh line (``'ep': 2``, ``'cp': 2``) and ``done:``, and the
-job must exit 0. The job's executors run through
+each worker trains on half of every sequence, and a pipeline job
+(``--pp_schedule 1f1b``) on ``tony.application.mesh=pp=2,dp=-1``: each
+worker holds one stage of the blocks (the twin of
+``tests/test_e2e.py::test_distributed_pipeline_parallel_lm_trains``) and
+prints the schedule it resolved. Both workers' stdout must
+show the world-2 mesh line (``'ep': 2``, ``'cp': 2``, ``'pp': 2``) and
+``done:``, and the job must exit 0. The job's executors run through
 :func:`_executor_launcher`, so the machine-wide executor sweeps of the
 TPU backend's tests (see ``_killed_from_outside``) cannot reach them; a
 job that was killed from outside all the same is submitted again, up to
@@ -73,6 +77,7 @@ def _killed_from_outside(job_dir: str) -> bool:
     ("pytorch", None, "mesh={'dp': 2} devices=2"),
     ("jax", "ep=2,dp=-1", "mesh={'dp': 1, 'ep': 2} devices=2"),
     ("jax", "cp=2,dp=-1", "mesh={'dp': 1, 'cp': 2} devices=2"),
+    ("jax", "pp=2,dp=-1", "mesh={'pp': 2, 'dp': 1} devices=2"),
 ])
 def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
                                                 tmp_path):
@@ -91,6 +96,8 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
         command += " --num_experts 4"
     if mesh and "cp" in mesh:
         command += " --cp_strategy ulysses"
+    if mesh and "pp" in mesh:
+        command += " --pp_schedule 1f1b"
     for attempt in range(4):
         conf["tony.staging.dir"] = str(tmp_path / f"staging{attempt}")
         client = TonyClient(TonyConfig(conf), command,
@@ -105,6 +112,8 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
                                 f"worker-{i}.stdout")).read()
         assert f"[worker:{i}] attempt=0 {want}" in out, out
         assert "done: final loss" in out, out
+        if mesh and "pp" in mesh:
+            assert "pipeline schedule: 1f1b" in out, out
 
 
 def _serve_lm(*args, **kw):

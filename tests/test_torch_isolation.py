@@ -52,7 +52,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "io.snappy", "io.framed", "io.avro", "io.native",
                 "io.reader", "io.torch_feed", "parallel.moe",
                 "parallel.spmd", "parallel.ring_attention",
-                "parallel.ulysses"):
+                "parallel.ulysses", "parallel.pipeline",
+                "channels.registry", "train_pipeline"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -156,6 +157,31 @@ def test_train_lm_data_files_without_device_raises_without_a_card(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_lm.main(["--preset", "tiny", "--steps", "1", "--seq_len",
                            "32", "--data_files", str(data)] + extra)
+
+
+def test_pipeline_entry_points_raise_without_a_card(monkeypatch):
+    """``train_lm --pp_schedule``, ``train_pipeline`` and a
+    ``CrossSlicePipeline`` resolve the card as every entry point does."""
+    from tony_tpu_torch import train_lm, train_pipeline
+    from tony_tpu_torch.channels import open_local_pipeline
+    from tony_tpu_torch.parallel.pipeline import CrossSlicePipeline
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--preset", "tiny", "--steps", "1", "--pp_schedule",
+                       "1f1b"])
+    links = open_local_pipeline(2, registry=MetricsRegistry())
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CrossSlicePipeline(lambda p, x: x, links[0])
+    finally:
+        for link in links:
+            link.close()
+    monkeypatch.setenv("TONY_PIPELINE_STAGE", "0")
+    monkeypatch.setenv("TONY_PIPELINE_NUM_STAGES", "2")
+    monkeypatch.setenv("TONY_CHANNEL_NEXT", "127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_pipeline.main(["--steps", "1"])
 
 
 def test_serve_lm_without_device_raises_without_a_card(monkeypatch):

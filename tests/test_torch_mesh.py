@@ -192,9 +192,14 @@ def test_spec_placements_follow_mesh_order():
 
 
 def test_layout_refuses_unported_axes_and_rules():
-    with pytest.raises(NotImplementedError):
-        spmd.Layout({"dp": 2, "pp": 2})
     rules = dict(PS.DEFAULT_RULES)
+    # pp is ported: the parameters' "stage" resolves to it, an axis of
+    # its own
+    assert PS.logical_to_spec(("stage", "embed"), {"pp": 2, "fsdp": 2}) \
+        == ("pp", "fsdp")
+    with pytest.raises(NotImplementedError, match="stage"):
+        spmd.Layout({"dp": 2, "tp": 2}, tuple({**rules,
+                                               "stage": "tp"}.items()))
     # cp is ported: "seq" resolves to it beside the batch's axes, and
     # must not share the model axis
     assert PS.logical_to_spec(("batch", "seq"), {"dp": 2, "cp": 2}) \
@@ -300,6 +305,6 @@ def test_pytorch_arm_refuses_a_mesh_beyond_dp(monkeypatch):
 
 def test_env_names_equal_the_jax_package_constants():
     names = [n for n in dir(constants) if n.isupper()]
-    assert len(names) == 15
+    assert len(names) == 24
     for n in names:
         assert getattr(constants, n) == getattr(jconst, n), n

@@ -95,11 +95,15 @@ def test_config_validation_and_unported_branches():
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.long)
-    # pp is not ported: a mesh with it live raises before it is read
-    # further (its sizes are all the check needs); cp is, but not with a
+    # pp is ported (a dict mesh emulates its ranks; tests/
+    # test_torch_pipeline.py), but not with cp; cp is, but not with a
     # window or experts (tests/test_torch_cp.py)
-    with pytest.raises(NotImplementedError):
-        TT.forward(params, toks, cfg, mesh={"dp": 1, "pp": 2})
+    with torch.no_grad():
+        torch.testing.assert_close(
+            TT.forward(params, toks, cfg, mesh={"dp": 1, "pp": 2})[0],
+            TT.forward(params, toks, cfg)[0])
+    with pytest.raises(NotImplementedError, match="cp"):
+        TT.forward(params, toks, cfg, mesh={"pp": 2, "cp": 2})
     with pytest.raises(NotImplementedError, match="attn_window"):
         TT.forward(params, toks, cfg.scaled(attn_window=2),
                    mesh={"dp": 1, "cp": 2})

@@ -27,6 +27,20 @@ chunk (``Layout.local``), with the dense and the flash per-chunk
 engines, causal and not, and writes its outputs and q/k/v gradients
 under ``<engine>/<strategy>/<causal>/{o,dq,dk,dv}``.
 
+A ``pipe`` case holds the toy stage problem of
+``tests/test_parallel.py`` (stacked ``W``, ``b``, an input ``x``, targets
+``tgt``, a head ``wo`` and an output cotangent ``cot``) and the
+microbatch count (``kw["m"]``): each rank runs its stage of GPipe
+(``pipeline_apply_local``, differentiated against ``cot``, once with the
+input recording a gradient and once with the params alone) and of 1F1B
+(``pipeline_value_and_grad_local``) over the mesh's pp group on its data
+rank's rows, and writes ``gpipe/{out,dW,db,dx}``,
+``gpipe_params_only/{dW,db}`` and ``1f1b/{loss,dW,db,dwo,dxs}``.
+
+An ``lm`` case whose ``kw`` sets ``pp_schedule`` to ``1f1b`` on a mesh
+with a pp axis trains through ``lm_value_and_grad`` (the step's
+``value_and_grad_fn``).
+
 ``ckpt`` is ``save`` (a sharded checkpoint every 2 steps under
 ``OUT_DIR/<name>``) or ``resume`` (``restore_or_init`` from that
 directory's latest step at attempt 1, then on to ``steps``); a resume
@@ -52,6 +66,7 @@ from tony_tpu_torch.models.checkpoint import CheckpointManager  # noqa: E402
 from tony_tpu_torch.models.weights import (params_from_numpy,  # noqa: E402
                                            params_to_numpy)
 from tony_tpu_torch.parallel import constrain, mesh_shape  # noqa: E402
+from tony_tpu_torch.parallel import pipeline as PL  # noqa: E402
 from tony_tpu_torch.parallel import ring_attention as R  # noqa: E402
 from tony_tpu_torch.parallel import spmd  # noqa: E402
 from tony_tpu_torch.parallel import ulysses as U  # noqa: E402
@@ -107,10 +122,70 @@ def run_attention(case: dict, data) -> dict:
     return out
 
 
+def pipe_stage(p, h):
+    w, b = p
+    return torch.tanh(h @ w + b)
+
+
+def pipe_head(hp, out, tgt):
+    return torch.mean((out @ hp["wo"] - tgt) ** 2)
+
+
+def pipe_shard(a, m: int, lay) -> torch.Tensor:
+    """This data rank's rows of ``a`` ``[B, ...]`` as microbatches ``[M,
+    mb/D, ...]``: the microbatch's rows split over the data ranks."""
+    xs = a.reshape((m, a.shape[0] // m) + a.shape[1:])
+    n = xs.shape[1] // lay.data_size
+    return xs[:, lay.data_rank * n:(lay.data_rank + 1) * n]
+
+
+def run_pipe(case: dict, data) -> dict:
+    name = case["name"]
+    lay = spmd.Layout(rt.mesh(case["axes"], device="cpu"))
+    W, b, x, tgt, wo, cot = (torch.from_numpy(data[f"{name}/{n}"]) for n in
+                             ("W", "b", "x", "tgt", "wo", "cot"))
+    m, s = case["kw"]["m"], lay.pp_rank
+    out = {}
+    ws = W[s].clone().requires_grad_(True)
+    bs = b[s].clone().requires_grad_(True)
+    xs = pipe_shard(x, m, lay).clone().requires_grad_(True)
+    o = PL.pipeline_apply_local(pipe_stage, (ws, bs), xs,
+                                pp_group=lay.pp_group,
+                                data_groups=lay._data_groups)
+    grads = torch.autograd.grad((o * pipe_shard(cot, m, lay)).sum(),
+                                (ws, bs, xs))
+    out["gpipe/out"] = o.detach().numpy()
+    for n, g in zip(("dW", "db", "dx"), grads):
+        out[f"gpipe/{n}"] = g.numpy()
+    # an input that records no gradient: the receive nodes hang on the
+    # stage's params alone, and their backward still sends
+    o = PL.pipeline_apply_local(pipe_stage, (ws, bs), xs.detach(),
+                                pp_group=lay.pp_group,
+                                data_groups=lay._data_groups)
+    grads = torch.autograd.grad((o * pipe_shard(cot, m, lay)).sum(),
+                                (ws, bs))
+    out["gpipe_params_only/dW"] = grads[0].numpy()
+    out["gpipe_params_only/db"] = grads[1].numpy()
+    loss, g, hg, dxs = PL.pipeline_value_and_grad_local(
+        pipe_stage, (W[s], b[s]), {"wo": wo}, pipe_shard(x, m, lay),
+        pipe_shard(tgt, m, lay), loss_head=pipe_head,
+        pp_group=lay.pp_group, data_groups=lay._data_groups)
+    # the grads are this rank's shares: summed over the data ranks
+    g = [spmd._all_reduce(t, lay._data_groups) for t in g]
+    hg = {"wo": spmd._all_reduce(hg["wo"], lay._data_groups)}
+    out.update({"1f1b/loss": loss.numpy(), "1f1b/dW": g[0].numpy(),
+                "1f1b/db": g[1].numpy(), "1f1b/dwo": hg["wo"].numpy(),
+                "1f1b/dxs": dxs.numpy(), "pp_rank": s,
+                "data_rank": lay.data_rank})
+    return out
+
+
 def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     name = case["name"]
     if case["model"] == "attn":
         return run_attention(case, data)
+    if case["model"] == "pipe":
+        return run_pipe(case, data)
     mesh = rt.mesh(case["axes"], device="cpu")
     weights = _unflat({k[len(name) + 3:]: data[k] for k in data.files
                        if k.startswith(f"{name}/p/")})
@@ -127,7 +202,14 @@ def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     state = TR.init_state(params_from_numpy(weights, device="cpu"), opt,
                           mesh, axes)
     out = _flat(params_to_numpy(state["params"]), "init/")
-    step = TR.make_train_step(lambda p, b: loss(p, b, cfg, mesh), opt, mesh)
+    if case["kw"].get("pp_schedule") == "1f1b" and \
+            mesh_shape(mesh).get("pp", 1) > 1:
+        step = TR.make_train_step(
+            None, opt, mesh, value_and_grad_fn=lambda p, b:
+            T.lm_value_and_grad(p, b, cfg, mesh))
+    else:
+        step = TR.make_train_step(lambda p, b: loss(p, b, cfg, mesh), opt,
+                                  mesh)
     sharding = TR.batch_sharding(mesh, logical=("batch", "seq"))
     dp_rank = TR.data_parallel_rank(mesh)
     shape = mesh_shape(mesh)

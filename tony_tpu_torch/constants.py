@@ -35,3 +35,16 @@ JAX_NUM_PROCESSES = "TONY_JAX_NUM_PROCESSES"
 MESH_SPEC = "TONY_MESH_SPEC"
 SLICE_ID = "TONY_SLICE_ID"
 NUM_SLICES = "TONY_NUM_SLICES"
+CLUSTER_EPOCH = "TONY_CLUSTER_EPOCH"
+
+# a cross-slice pipeline stage (tony.pipeline.stages): this gang's stage
+# identity and its neighbours' channel hubs, as the executor exports
+# them from the coordinator's channel registry
+PIPELINE_STAGE = "TONY_PIPELINE_STAGE"
+PIPELINE_NUM_STAGES = "TONY_PIPELINE_NUM_STAGES"
+PIPELINE_RANK = "TONY_PIPELINE_RANK"
+CHANNEL_PORT = "TONY_CHANNEL_PORT"
+CHANNEL_PREV = "TONY_CHANNEL_PREV"
+CHANNEL_NEXT = "TONY_CHANNEL_NEXT"
+PIPELINE_INTERLEAVE = "TONY_PIPELINE_INTERLEAVE"
+CHANNEL_COMPRESSION = "TONY_CHANNEL_COMPRESSION"

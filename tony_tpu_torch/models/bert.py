@@ -40,6 +40,7 @@ from tony_tpu_torch.models.train import masked_cross_entropy
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.norms import layer_norm
 from tony_tpu_torch.parallel import spmd
+from tony_tpu_torch.parallel.mesh import mesh_shape
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
 
 
@@ -199,10 +200,14 @@ def _forward_local(params: dict, tokens: torch.Tensor, cfg: BertConfig,
 
 def _local_inputs(params, batch: dict, mesh, rules):
     """(local params, local batch, layout) of a sharded step. A live cp
-    axis raises ``NotImplementedError``: BERT's attention is not
-    context-parallel in the port (its cp meshes are the LM's)."""
+    or pp axis raises ``NotImplementedError``: BERT's attention is not
+    context-parallel in the port, nor its encoder pipelined (its cp and
+    pp meshes are the LM's)."""
     if spmd.seq_parallel_size(mesh, rules) > 1:
         raise NotImplementedError("BERT has no context parallelism (cp > "
+                                  "1) in the port")
+    if mesh_shape(mesh).get("pp", 1) > 1:
+        raise NotImplementedError("BERT has no pipeline parallelism (pp > "
                                   "1) in the port")
     lay = spmd.Layout(mesh, rules)
     local = {k: (lay.local(v) if v is not None else None)

@@ -27,7 +27,9 @@ restored collectively on every rank through
 ``step_<N>.tmp/``, and once all have, rank 0 renames it ``step_<N>/`` —
 the commit, atomic as the file's. A restore loads into the template's
 DTensors, so the state lands on the template's placements (whatever the
-saving job's were). In a job of several processes rank 0 alone lists the
+saving job's were): a pipeline's stage-sharded blocks (``Shard(0)`` over
+pp) save each stage's layers from its own ranks and restore in a new
+group as any other placement does. In a job of several processes rank 0 alone lists the
 directory, and every rank reads its answer (:meth:`latest_step`), so a
 retry resumes every rank at the same step; save, restore and
 ``latest_step`` are then collective calls, as the JAX package's are.

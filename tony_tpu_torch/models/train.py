@@ -173,8 +173,9 @@ def init_state(params, optimizer, mesh=None, axes=None,
             "step": 0}
 
 
-def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
-                    optimizer, mesh=None) -> Callable:
+def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor] | None,
+                    optimizer, mesh=None,
+                    value_and_grad_fn: Callable | None = None) -> Callable:
     """``step(state, batch) -> (state, {"loss", "grad_norm", "step"})``.
 
     ``loss_fn(params, batch) -> scalar``. The gradient is taken with
@@ -186,14 +187,19 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     DTensors and ``loss_fn`` runs the sharded model (it takes the mesh
     itself); each gradient comes back on its leaf's placements (the
     backward of the step's gather), and the fused optimizer raises here,
-    where the step is built."""
+    where the step is built.
+
+    ``value_and_grad_fn(params, batch) -> (loss, grads)`` replaces the
+    autograd of ``loss_fn`` for schedules that produce their own
+    gradients (1F1B, :func:`~tony_tpu_torch.models.transformer
+    .lm_value_and_grad`: its loss head runs inside the pipeline);
+    ``loss_fn`` may then be None."""
     fused = hasattr(optimizer, "fused_apply")
     if fused and mesh is not None:
         raise ValueError("fused optimizers are single-device only: use "
                          "default_optimizer(fused=False) with a mesh")
 
-    def step(state: TrainState, batch: Any):
-        params = state["params"]
+    def value_and_grad(params, batch):
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
@@ -207,7 +213,13 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         # type_ids) gets a zero gradient, as jax.grad gives it
         it = (torch.zeros_like(t) if g is None else g
               for t, g in zip(leaves, grads))
-        grads = tree_map(lambda _: next(it), params)
+        return loss, tree_map(lambda _: next(it), params)
+
+    vag = value_and_grad_fn or value_and_grad
+
+    def step(state: TrainState, batch: Any):
+        params = state["params"]
+        loss, grads = vag(params, batch)
         if fused:
             params, opt_state, gnorm = optimizer.fused_apply(
                 grads, state["opt_state"], params)

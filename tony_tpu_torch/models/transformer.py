@@ -49,12 +49,24 @@ forward returns their sum over layers and :func:`lm_loss` adds it with
 ``cfg.moe_aux_weight``. Under a mesh the experts split over ``ep`` (the
 ``"expert"`` rule), the activations replicated over it.
 
-Not ported yet (it raises ``NotImplementedError``): pipeline (pp)
-parallelism.
+With a live ``pp`` axis the blocks run as pipeline stages
+(:mod:`~tony_tpu_torch.parallel.pipeline`): the stacked ``[L, ...]``
+blocks split into ``pp`` contiguous layer groups (the ``"stage"`` rule),
+embed, final norm and lm_head replicated over pp. :func:`forward` and
+:func:`lm_loss` run GPipe (:func:`_forward_pp`), differentiable;
+:func:`lm_value_and_grad` runs 1F1B and returns the loss and the
+gradients itself (``make_train_step(..., value_and_grad_fn=)``), its
+loss head vocab-sharded over tp when tp is live. Both take the
+microbatch count of :func:`_pp_layout`. A ``mesh`` given as a dict of
+axis sizes (``{"pp": 2}``) emulates every rank of it in this process,
+the form one card runs; a ``DeviceMesh`` runs this rank's stage in its
+pp group. pp with cp raises ``NotImplementedError``; so does 1F1B with
+a live ep axis, as in the reference.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -67,9 +79,14 @@ from tony_tpu_torch.models.train import masked_cross_entropy
 from tony_tpu_torch.ops.attention import (ForwardStash, _check_kv_heads,
                                           flash_attention, tp_kv_heads)
 from tony_tpu_torch.ops.norms import rms_norm
+from tony_tpu_torch import tree_leaves, tree_map
 from tony_tpu_torch.parallel import spmd
 from tony_tpu_torch.parallel.mesh import mesh_shape
 from tony_tpu_torch.parallel.moe import moe_ffn
+from tony_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                              pipeline_apply_local,
+                                              pipeline_value_and_grad,
+                                              pipeline_value_and_grad_local)
 from tony_tpu_torch.parallel.ring_attention import (expand_kv_unless,
                                                     ring_attention_local)
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
@@ -467,13 +484,21 @@ def _forward_local(params: dict, tokens: torch.Tensor,
     b, s = tokens.shape
     # hoisted out of the loop
     rope = rope_tables(_positions(b, s, tokens.device, lay), cfg.head_dim)
-    names = list(params["blocks"])
+    x, aux = _run_blocks(params["blocks"], x, cfg, rope, lay)
+    return _lm_head(params, x, cfg, lay), aux
+
+
+def _run_blocks(blocks: dict, x, cfg: TransformerConfig, rope, lay=None):
+    """The stacked ``blocks`` (``[n, ...]`` leaves) in turn on ``x``,
+    each under remat by ``cfg`` when a gradient of them is recorded:
+    (x, the aux loss summed over the layers, f32)."""
+    names = list(blocks)
     # one unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing each layer would scatter into a zeroed [L, ...]
-    layers = zip(*(params["blocks"][n].unbind(0) for n in names))
+    layers = zip(*(blocks[n].unbind(0) for n in names))
     remat = cfg.remat and torch.is_grad_enabled() and any(
-        a.requires_grad for a in params["blocks"].values())
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        a.requires_grad for a in blocks.values())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for vals in layers:
         p = dict(zip(names, vals))
         if remat:
@@ -482,7 +507,99 @@ def _forward_local(params: dict, tokens: torch.Tensor,
             x, layer_aux = _block(x, p, cfg, rope=rope, lay=lay)
         if layer_aux is not None:
             aux = aux + layer_aux
-    return _lm_head(params, x, cfg, lay), aux
+    return x, aux
+
+
+def _stage_fn(cfg: TransformerConfig, lay=None, with_aux: bool = True):
+    """A pipeline stage of the LM: ``stage_fn(blocks, h) -> (h, aux)``
+    (``h`` alone without ``with_aux``) over the stage's ``[L/pp, ...]``
+    blocks, RoPE at the stage input's positions, the blocks under
+    ``cfg``'s remat policy, ``lay`` the stage's layout
+    (:meth:`~tony_tpu_torch.parallel.spmd.Layout.stage_layout`)."""
+    def stage_fn(blocks, h):
+        b, s = h.shape[0], h.shape[1]
+        rope = rope_tables(_positions(b, s, h.device), cfg.head_dim)
+        h, aux = _run_blocks(blocks, h, cfg, rope, lay)
+        return (h, aux) if with_aux else h
+    return stage_fn
+
+
+def _pp_layout(cfg: TransformerConfig, mesh, batch: int) -> tuple:
+    """(pp, microbatches) of a pipelined step on ``mesh`` (a
+    ``DeviceMesh`` or its sizes) of global ``batch`` rows: one
+    definition of the stage-divisibility check and the auto-microbatch
+    rule for both schedules. ``cfg.pp_microbatches``, or the largest
+    divisor of the rows per data rank no larger than 2·pp (bubble
+    (pp-1)/(3·pp-1)), the JAX package's rule."""
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    pp = shape.get("pp", 1)
+    if cfg.n_layers % max(pp, 1):
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible into "
+                         f"{pp} pipeline stages")
+    m = cfg.pp_microbatches
+    if not m:
+        dp_total = 1
+        for a in ("dp", "fsdp"):
+            dp_total *= shape.get(a, 1)
+        per = max(batch // max(dp_total, 1), 1)
+        m = next(k for k in range(min(2 * pp, per), 0, -1) if per % k == 0)
+    return pp, m
+
+
+def _pipelined(mesh) -> bool:
+    return mesh is not None and mesh_shape(mesh).get("pp", 1) > 1
+
+
+def _check_pp(cfg: TransformerConfig, shape: dict) -> None:
+    if shape.get("cp", 1) > 1:
+        raise NotImplementedError(
+            "pipeline parallelism with context parallelism (pp > 1 and "
+            "cp > 1) is not ported")
+    ep = shape.get("ep", 1)
+    if cfg.num_experts and cfg.num_experts % ep:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible "
+                         f"over ep={ep}")
+
+
+def _stacked_stages(blocks: dict, pp: int) -> dict:
+    """``[L, ...]`` blocks as ``[pp, L/pp, ...]``: contiguous layer
+    groups, stage s the s-th."""
+    return {k: a.reshape((pp, a.shape[0] // pp) + a.shape[1:])
+            for k, a in blocks.items()}
+
+
+def _microbatches(x, m: int):
+    if x.shape[0] % m:
+        raise ValueError(f"{x.shape[0]} rows a data rank do not split into "
+                         f"{m} microbatches")
+    return x.reshape((m, x.shape[0] // m) + x.shape[1:])
+
+
+def _forward_pp(params: dict, tokens, cfg: TransformerConfig, mesh,
+                rules=DEFAULT_RULES) -> tuple:
+    """The GPipe forward: (logits, aux, layout). On a dict mesh every
+    rank is emulated on the global params and batch (global logits, no
+    layout); on a ``DeviceMesh`` this rank embeds its rows, runs its
+    stage of the pipeline over its pp group (:func:`~tony_tpu_torch
+    .parallel.pipeline.pipeline_apply_local`), and every stage runs the
+    head on the last stage's output: its local logits (vocab-sharded
+    under tp) and its layout."""
+    shape = mesh_shape(mesh)
+    _check_pp(cfg, shape)
+    pp, m = _pp_layout(cfg, shape, tokens.shape[0])
+    if isinstance(mesh, dict):
+        x = params["embed"][tokens.long()].to(cfg.dtype)
+        x, aux = pipeline_apply(_stage_fn(cfg),
+                                _stacked_stages(params["blocks"], pp), x,
+                                shape, num_microbatches=m, with_aux=True)
+        return _lm_head(params, x, cfg), aux, None
+    p, tok, lay = _local_step_inputs(params, tokens, cfg, mesh, rules)
+    x = spmd.embed_lookup(p["embed"], tok, lay, cfg.vocab_size).to(cfg.dtype)
+    out, aux = pipeline_apply_local(
+        _stage_fn(cfg, lay.stage_layout()), p["blocks"],
+        _microbatches(x, m), pp_group=lay.pp_group,
+        data_groups=lay._data_groups, with_aux=True)
+    return _lm_head(p, out.reshape(x.shape), cfg, lay), aux, lay
 
 
 def _local_step_inputs(params: dict, tokens, cfg: TransformerConfig,
@@ -505,6 +622,8 @@ def _local_step_inputs(params: dict, tokens, cfg: TransformerConfig,
                 "mixture of experts with context parallelism (cp > 1) is "
                 "not ported: the reference routes over the global "
                 "sequence, and capacity follows its length")
+    if _pipelined(mesh):
+        _check_pp(cfg, mesh_shape(mesh))
     lay = spmd.Layout(mesh, rules)
     partial = (frozenset({("blocks", "wk"), ("blocks", "wv")})
                if cfg.kv_heads != cfg.n_heads else frozenset())
@@ -521,9 +640,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     the backward). With a ``mesh`` the params are DTensors laid out by
     :func:`logical_axes`, ``tokens`` is the global batch (a DTensor, or
     a tensor every rank passes whole) and the logits come back as a
-    DTensor split by ``("batch", "seq", "vocab")``."""
+    DTensor split by ``("batch", "seq", "vocab")``. A live pp axis runs
+    the blocks as GPipe stages (:func:`_forward_pp`); a dict mesh with
+    one emulates its ranks and returns plain global logits."""
     if mesh is None:
         return _forward_local(params, tokens, cfg)
+    if _pipelined(mesh):
+        logits, aux, lay = _forward_pp(params, tokens, cfg, mesh, rules)
+        if lay is None:
+            return logits, aux
+        return lay.wrap(logits, ("batch", "seq", "vocab")), aux
     params, tokens, lay = _local_step_inputs(params, tokens, cfg, mesh,
                                              rules)
     logits, aux = _forward_local(params, tokens, cfg, lay)
@@ -570,8 +696,121 @@ def lm_loss(params: dict, batch: dict, cfg: TransformerConfig,
         logits, aux = _forward_local(params, inputs, cfg)
         return masked_cross_entropy(logits, targets) \
             + cfg.moe_aux_weight * aux
-    params, inputs, lay = _local_step_inputs(params, inputs, cfg, mesh,
-                                             rules)
-    logits, aux = _forward_local(params, inputs, cfg, lay)
+    if _pipelined(mesh):
+        logits, aux, lay = _forward_pp(params, inputs, cfg, mesh, rules)
+        if lay is None:
+            return masked_cross_entropy(logits, targets) \
+                + cfg.moe_aux_weight * aux
+    else:
+        params, inputs, lay = _local_step_inputs(params, inputs, cfg, mesh,
+                                                 rules)
+        logits, aux = _forward_local(params, inputs, cfg, lay)
     return spmd.cross_entropy(logits, lay.local(targets), lay,
                               cfg.vocab_size) + cfg.moe_aux_weight * aux
+
+
+def _loss_head(cfg: TransformerConfig, lay=None):
+    """The 1F1B loss head: final norm, lm_head and the masked mean
+    cross-entropy of one microbatch shard. With ``lay`` (a live model
+    axis) the head's vocab is this rank's slice and each rank's
+    gradients are partial over tp: no copy before the head, the
+    logsumexp and the target logit summed over tp with identity
+    backward (``spmd._SumOver``, the reference's ``psum_rep``); the
+    pipeline sums the partials once."""
+    if lay is None:
+        def head(hp, out, tgt):
+            return masked_cross_entropy(_lm_head(hp, out, cfg), tgt)
+        return head
+    shard = copy.copy(lay)
+    shard._loss_groups = []         # one microbatch shard's own mean
+
+    def head(hp, out, tgt):
+        return spmd.cross_entropy(_lm_head(hp, out, cfg), tgt, shard,
+                                  cfg.vocab_size)
+    return head
+
+
+_EP_1F1B = ("pp_schedule='1f1b' supports MoE with REPLICATED experts "
+            "only (no ep axis), as in the reference: shard experts over "
+            "ep with pp_schedule='gpipe'")
+
+
+def lm_value_and_grad(params: dict, batch: dict, cfg: TransformerConfig,
+                      mesh, rules=DEFAULT_RULES) -> tuple:
+    """Next-token loss and parameter gradients by the 1F1B schedule
+    (:func:`~tony_tpu_torch.parallel.pipeline.pipeline_value_and_grad`):
+    the loss head runs inside the pipeline, so this function is the
+    differentiation. Plug it into ``make_train_step(...,
+    value_and_grad_fn=)``. Returns ``(loss, grads)``, the grads a tree
+    like ``params`` (DTensors on their placements under a
+    ``DeviceMesh``). The loss normalizes per microbatch and data shard,
+    equal to :func:`lm_loss`'s when every shard has the same count of
+    targets. Without a pp axis it is ``lm_loss`` and its autograd
+    gradient (the reference averages per-microbatch losses there; for a
+    dense model the two agree)."""
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+    else:
+        inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    if cfg.num_experts and shape.get("ep", 1) > 1:
+        raise NotImplementedError(_EP_1F1B)
+    leaves = tree_leaves(params)
+    fresh = [t.detach().requires_grad_(t.is_floating_point())
+             for t in leaves]
+    it = iter(fresh)
+    P = tree_map(lambda _: next(it), params)
+    if not _pipelined(mesh):
+        with torch.enable_grad():
+            loss = lm_loss(P, {"inputs": inputs, "targets": targets}, cfg,
+                           None if isinstance(mesh, dict) else mesh, rules)
+            grads = torch.autograd.grad(loss, fresh, allow_unused=True)
+        return loss.detach(), _grads_like(params, fresh, grads)
+    _check_pp(cfg, shape)
+    pp, m = _pp_layout(cfg, shape, inputs.shape[0])
+    with_aux = bool(cfg.num_experts)
+    names = ("final_norm", "lm_head")
+    if isinstance(mesh, dict):
+        with torch.enable_grad():
+            x = P["embed"][inputs.long()].to(cfg.dtype)
+        loss, g_blocks, g_head, dx = pipeline_value_and_grad(
+            _stage_fn(cfg, None, with_aux), _stacked_stages(
+                {k: v.detach() for k, v in P["blocks"].items()}, pp),
+            x.detach(), {k: P[k].detach() for k in names}, targets, shape,
+            loss_head=_loss_head(cfg), num_microbatches=m,
+            with_aux=with_aux, aux_weight=cfg.moe_aux_weight)
+        outs = [x] + [P["blocks"][k] for k in P["blocks"]] \
+            + [P[k] for k in names]
+        seeds = [dx] + [g_blocks[k].reshape(P["blocks"][k].shape)
+                        for k in P["blocks"]] + [g_head[k] for k in names]
+    else:
+        p, tok, lay = _local_step_inputs(P, inputs, cfg, mesh, rules)
+        with torch.enable_grad():
+            x = spmd.embed_lookup(p["embed"], tok, lay,
+                                  cfg.vocab_size).to(cfg.dtype)
+        head_lay = lay if lay.model_size > 1 else None
+        loss, g_blocks, g_head, dxs = pipeline_value_and_grad_local(
+            _stage_fn(cfg, lay.stage_layout(), with_aux), p["blocks"],
+            {k: p[k] for k in names}, _microbatches(x.detach(), m),
+            _microbatches(lay.local(targets), m),
+            loss_head=_loss_head(cfg, head_lay), pp_group=lay.pp_group,
+            data_groups=lay._data_groups,
+            head_reduce_groups=lay._model_groups if head_lay else (),
+            head_sharded={"final_norm": False, "lm_head": True},
+            with_aux=with_aux, aux_weight=cfg.moe_aux_weight)
+        # this rank's shares, summed over the data axes by the backward
+        # of the step's gather (the params' Partial placements)
+        outs = [x] + [p["blocks"][k] for k in p["blocks"]] \
+            + [p[k] for k in names]
+        seeds = [dxs.reshape(x.shape)] + [g_blocks[k] for k in p["blocks"]] \
+            + [g_head[k] for k in names]
+    grads = torch.autograd.grad(outs, fresh, seeds, allow_unused=True)
+    return loss.detach(), _grads_like(params, fresh, grads)
+
+
+def _grads_like(params, fresh, grads):
+    """``grads`` (one per leaf of ``params``, None for an unread leaf)
+    as a tree like ``params``, zeros where None."""
+    it = iter(torch.zeros_like(t) if g is None else g
+              for t, g in zip(fresh, grads))
+    return tree_map(lambda _: next(it), params)

@@ -1,15 +1,16 @@
 """Parallelism layer of the port: meshes, logical-axis sharding rules,
-the local-shard execution of a sharded step (dp, fsdp, tp, ep, cp),
-mixture-of-experts routing and context-parallel attention.
+the local-shard execution of a sharded step (dp, fsdp, tp, ep, cp, pp),
+mixture-of-experts routing, context-parallel attention and pipelines.
 
-Port of ``tony_tpu/parallel/`` as far as dp, fsdp, tp, ep and cp go: a
-mesh is a ``DeviceMesh`` over every process, parameters are DTensors
-laid out by the rules, and a step runs on local shards with explicit
-collectives (:mod:`tony_tpu_torch.parallel.spmd`); MoE dispatch is
-:mod:`tony_tpu_torch.parallel.moe`, ring and Ulysses attention over cp
+Port of ``tony_tpu/parallel/``: a mesh is a ``DeviceMesh`` over every
+process, parameters are DTensors laid out by the rules, and a step runs
+on local shards with explicit collectives
+(:mod:`tony_tpu_torch.parallel.spmd`); MoE dispatch is
+:mod:`tony_tpu_torch.parallel.moe` (on a pipeline stage's layout it is
+the reference's ``moe_ffn_manual``), ring and Ulysses attention over cp
 :mod:`~tony_tpu_torch.parallel.ring_attention` and
-:mod:`~tony_tpu_torch.parallel.ulysses`. pp (pipelines, and the MoE arm
-they run, ``moe_ffn_manual``) is not ported.
+:mod:`~tony_tpu_torch.parallel.ulysses`, GPipe, 1F1B and the
+cross-slice 1F1B over pp :mod:`~tony_tpu_torch.parallel.pipeline`.
 """
 
 from tony_tpu_torch.parallel.mesh import (AXIS_ORDER, PRESETS,

@@ -3,8 +3,8 @@
 Port of ``tony_tpu/parallel/mesh.py``. A mesh names the parallelism axes
 of a job — ``dp`` (batch split), ``fsdp`` (batch and params split),
 ``tp`` (heads and MLP split inside a layer), ``ep`` (MoE experts split),
-``cp`` (the sequence split) and ``pp``, which the port does not run yet
-— and lays every
+``cp`` (the sequence split) and ``pp`` (the blocks split into pipeline
+stages) — and lays every
 process of the job out on them. Here it is a ``torch.distributed.device_mesh.DeviceMesh`` with
 those dimension names over all ranks, one card (or one CPU process) per
 rank; the JAX package builds a ``jax.sharding.Mesh`` over all devices.

@@ -15,8 +15,8 @@ becomes DTensor placements over the mesh (:func:`spec_placements`):
 ``Replicate()`` elsewhere. :func:`shard_pytree` lays a parameter tree out
 that way with ``distribute_tensor``; :func:`constrain` redistributes a
 DTensor to a logical layout; :func:`attention_spec` names the live axes
-of the context-parallel attention operands. ``psum_rep`` (pp) is not
-ported.
+of the context-parallel attention operands. The reference's ``psum_rep``
+(all-reduce forward, identity backward) is ``spmd._SumOver``.
 """
 
 from __future__ import annotations

@@ -40,7 +40,18 @@ replicate over cp, and each rank's gradient is the partial sum over its
 chunk, summed over cp as over the data axes; the loss sums over the data
 and cp ranks.
 
-pp (and rule tables that would split the residual stream) raises
+Pipeline parallelism (``pp``): ``"stage"`` resolves to a mesh axis of
+its own, and a rank keeps its pp shard of the stacked ``[L, ...]``
+blocks: a contiguous group of ``L/pp`` layers, gathered over every other
+axis but ep (inside a stage the blocks run whole on the stage's
+microbatches, as the reference's ``shard_map`` body does; experts stay
+split over ep). Embed, the final norm and the lm_head replicate over pp.
+The schedules are :mod:`~tony_tpu_torch.parallel.pipeline`'s;
+:meth:`Layout.stage_layout` is the layout a stage's blocks run under.
+:class:`_SumOver` is the reference's ``psum_rep`` (all-reduce forward,
+identity backward).
+
+Rule tables that would split the residual stream raise
 ``NotImplementedError``.
 """
 
@@ -49,14 +60,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+import copy
+
 from tony_tpu_torch.parallel.mesh import mesh_shape
 from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
                                               logical_to_spec, spec_axes,
                                               spec_placements)
-
-#: mesh axes whose strategies are not ported: any of them of size > 1
-#: raises
-_UNPORTED = {"pp": "pipeline"}
 
 
 def _all_reduce(x: torch.Tensor, groups, op=dist.ReduceOp.SUM):
@@ -107,16 +116,13 @@ class Layout:
       (experts over ep), an axis of its own;
     - ``cp_axis`` / ``cp_rank`` / ``cp_size`` / ``cp_group``: the same
       for ``"seq"`` (the sequence over cp), an axis of its own; the
-      group is None without a live axis.
+      group is None without a live axis;
+    - ``pp_axis`` / ``pp_rank`` / ``pp_size`` / ``pp_group``: the same
+      for the parameters' ``"stage"`` (the stacked blocks over pp).
     """
 
     def __init__(self, mesh, rules: Rules = DEFAULT_RULES):
         shape = mesh_shape(mesh)
-        for ax, what in _UNPORTED.items():
-            if shape.get(ax, 1) > 1:
-                raise NotImplementedError(
-                    f"{what} parallelism ({ax}={shape[ax]}) is not ported "
-                    f"yet; the port runs dp, fsdp, tp, ep and cp")
         self.mesh, self.rules = mesh, rules
         self.data_axes = spec_axes(logical_to_spec(("batch",), mesh,
                                                    rules)[0])
@@ -144,13 +150,22 @@ class Layout:
             raise NotImplementedError(
                 f"seq must resolve to one mesh axis of its own (or none), "
                 f"got {self.cp_axis}")
-        for name in ("embed", "kv", "norm", "stage"):
+        for name in ("embed", "kv", "norm"):
             entry = logical_to_spec(("batch", name), mesh, rules)[1]
             if entry is not None:
                 raise NotImplementedError(
                     f"rules that split activations' {name!r} dimension "
                     f"(over {entry}) are not ported")
-        for name in ("embed", "stage", "norm", "kv"):
+        self.pp_axis = logical_to_spec(("stage",), mesh, rules)[0]
+        if isinstance(self.pp_axis, tuple) or (
+                self.pp_axis is not None and self.pp_axis in (
+                    self.model_axis, self.expert_axis, self.cp_axis,
+                    *self.data_axes)):
+            raise NotImplementedError(
+                f"stage must resolve to one mesh axis of its own (or "
+                f"none), got {self.pp_axis}")
+        used = used | ({self.pp_axis} if self.pp_axis else set())
+        for name in ("embed", "norm", "kv"):
             if not set(spec_axes(logical_to_spec((name,), mesh,
                                                  rules)[0])) <= used:
                 raise NotImplementedError(
@@ -185,6 +200,29 @@ class Layout:
         #: the groups a loss sums over: the data axes, then cp
         self._loss_groups = self._data_groups + (
             [self.cp_group] if self.cp_axis else [])
+        self.pp_size = shape[self.pp_axis] if self.pp_axis else 1
+        self.pp_rank = self._coord[self.pp_axis] if self.pp_axis else 0
+        self.pp_group = (mesh.get_group(self.pp_axis) if self.pp_axis
+                         else None)
+
+    def stage_layout(self):
+        """The layout a pipeline stage's blocks run under: no model axis
+        (the blocks are gathered over it) and no cp; the expert axis
+        kept (the stage's experts stay split over ep, the MoE block's
+        outputs summed over it); the loss and routing counts local to
+        the rank's microbatch shard (the pipeline averages the aux over
+        the data axes). None when nothing of it is live."""
+        if self.expert_axis is None:
+            return None
+        lay = copy.copy(self)
+        lay.model_axis, lay.model_size, lay.model_rank = None, 1, 0
+        lay._model_groups = []
+        lay.expert_model_groups = [self.mesh.get_group(self.expert_axis)]
+        lay.cp_axis, lay.cp_size, lay.cp_rank, lay.cp_group = (None, 1, 0,
+                                                               None)
+        lay._data_groups, lay._loss_groups = [], []
+        lay.data_size, lay.data_rank = 1, 0
+        return lay
 
     # -- parameters and inputs ----------------------------------------
     def local_params(self, tree, partial=frozenset(), _path=()):
@@ -196,17 +234,27 @@ class Layout:
         expert axis and, over the model axis, as its shard
         where it is sharded, else replicated — or partial for the leaves
         whose paths (key tuples) are in ``partial``, those a rank reads
-        only in part (GQA's K/V projections under tp). Plain tensors pass
-        through."""
+        only in part (GQA's K/V projections under tp). Under pp a leaf
+        split over it (the stacked blocks) keeps its stage's shard and is
+        gathered over the model axis too (a stage runs its blocks
+        whole). Plain tensors pass through."""
         from torch.distributed.tensor import DTensor, Partial, Replicate
         if isinstance(tree, dict):
             return {k: self.local_params(v, partial, _path + (k,))
                     for k, v in tree.items()}
         if not isinstance(tree, DTensor):
             return tree
+        staged = self.pp_axis is not None and tree.placements[
+            self._names.index(self.pp_axis)].is_shard()
         compute, grad = [], []
         for name, p in zip(self._names, tree.placements):
-            if name == self.model_axis:
+            if name == self.pp_axis:
+                compute.append(p)
+                grad.append(p)
+            elif name == self.model_axis and staged:
+                compute.append(Replicate())
+                grad.append(Replicate())
+            elif name == self.model_axis:
                 compute.append(p)
                 grad.append(Partial() if _path in partial and not
                             p.is_shard() else p)

@@ -4,7 +4,8 @@ the port's counterpart of ``examples/lm/train_lm.py``.
     python -m tony_tpu_torch.train_lm --preset small --steps 100 \\
         --batch_size 16 --seq_len 1024 [--ckpt_dir DIR --ckpt_every N] \\
         [--data_files F ... [--elastic_data GLOBAL_BATCH]] \\
-        [--num_experts E] [--cp_strategy ring|ulysses]
+        [--num_experts E] [--cp_strategy ring|ulysses] \\
+        [--pp_schedule gpipe|1f1b]
 
 Under the orchestrator (``tony_tpu.client.cli submit --executes 'python
 -m tony_tpu_torch.train_lm ...'``, mesh from ``tony.application.mesh``)
@@ -39,7 +40,16 @@ sequence splits over cp, and ``--cp_strategy`` picks the attention: the
 ring (K/V passed around the cp group, the default) or Ulysses (two
 all-to-alls re-sharding heads). The processes of one cp group feed the
 same rows (the split is by data-parallel rank); each trains on its chunk
-of the sequence. ``--pp_schedule`` (pipelines) is not ported.
+of the sequence.
+
+On a mesh with a pp axis (``tony.application.mesh=pp=2,dp=-1``) each
+process holds a contiguous group of the blocks (a stage), and
+``--pp_schedule`` picks the schedule: GPipe (the default; the step
+differentiates through ``lm_loss``) or 1F1B (``lm_value_and_grad``
+through the step's ``value_and_grad_fn``: O(pp) live microbatch
+activations instead of O(M)). The processes of one pp group feed the
+same rows. The script prints the schedule it resolved (``pipeline
+schedule: …``); without a live pp axis that is the unpipelined step.
 """
 
 from __future__ import annotations
@@ -119,16 +129,17 @@ def file_source(paths, batch: int, seq: int, seed: int, mesh=None):
 
 
 def build(preset: str, device=None, attn_window: int = 0,
-          num_experts: int = 0, cp_strategy: str = "ring"):
+          num_experts: int = 0, cp_strategy: str = "ring",
+          pp_schedule: str = "gpipe"):
     """(cfg, params) for ``preset`` at full width on ``device``: bf16 on
     the card, f32 on the CPU, random weights from seed 0; MoE with
     ``num_experts`` experts a layer when it is not 0; ``cp_strategy``
-    for a mesh with a cp axis."""
+    and ``pp_schedule`` for a mesh with a cp or pp axis."""
     dev = resolve_device(device)
     cfg = T.PRESETS[preset].scaled(
         dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
         attn_window=attn_window, num_experts=num_experts,
-        cp_strategy=cp_strategy)
+        cp_strategy=cp_strategy, pp_schedule=pp_schedule)
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device=dev)
     return cfg, params
@@ -166,6 +177,11 @@ def main(argv=None) -> int:
                              "a cp axis: ring (K/V passed around the cp "
                              "group) or ulysses (all-to-all head "
                              "resharding)")
+    parser.add_argument("--pp_schedule", default="gpipe",
+                        choices=("gpipe", "1f1b"),
+                        help="pipeline schedule when the mesh has a pp "
+                             "axis: gpipe (default) or 1f1b (O(pp) live "
+                             "microbatch activations instead of O(M))")
     parser.add_argument("--prefetch_depth", type=int, default=2,
                         help="device-prefetch queue depth; 0 = synchronous "
                              "inline feed (A/B contrast)")
@@ -191,12 +207,24 @@ def main(argv=None) -> int:
     print(f"[{info.job_name}:{info.task_index}] attempt={info.attempt} "
           f"mesh={mesh_shape(mesh)} devices={mesh.size()}", flush=True)
     cfg, params = build(args.preset, dev, args.attn_window,
-                        args.num_experts, args.cp_strategy)
+                        args.num_experts, args.cp_strategy, args.pp_schedule)
     print(f"device={dev} preset={args.preset} dtype={cfg.dtype}", flush=True)
     params = shard_pytree(params, T.logical_axes(cfg), mesh)
     opt = default_optimizer(lr=args.lr, total_steps=args.steps)
-    step_fn = make_train_step(lambda p, b: T.lm_loss(p, b, cfg, mesh), opt,
-                              mesh)
+    pp = mesh_shape(mesh).get("pp", 1)
+    use_1f1b = cfg.pp_schedule == "1f1b" and pp > 1
+    print(f"pipeline schedule: {'1f1b' if use_1f1b else 'gpipe'}"
+          + ("" if pp > 1 else " (pp=1: no pipeline, the unpipelined "
+             "step)"), flush=True)
+    if use_1f1b:
+        # 1F1B produces its own gradients (the loss head runs inside the
+        # pipeline): it plugs in through the value_and_grad hook
+        step_fn = make_train_step(
+            None, opt, mesh, value_and_grad_fn=lambda p, b:
+            T.lm_value_and_grad(p, b, cfg, mesh))
+    else:
+        step_fn = make_train_step(lambda p, b: T.lm_loss(p, b, cfg, mesh),
+                                  opt, mesh)
 
     mgr = (CheckpointManager(args.ckpt_dir,
                              save_interval_steps=args.ckpt_every)
