@@ -206,9 +206,16 @@ result:
    (d) ``--elastic_data 16`` on the two-pass backward, 20 steps with an
    asynchronous checkpoint at step 10, restored by a new manager and run
    again from step 10: every batch of steps 10-19 equal by sha256 and
-   every loss bitwise; (e) the ms the step loop blocks on a synchronous
-   and on an asynchronous save of ``small``'s train state, the
-   background write's wall and the bytes; (f) ``python -m
+   every loss bitwise; (e) on a world-1 NCCL runtime, for ``small``'s
+   train state unsharded and as DTensors on the fsdp mesh: the ms the
+   step loop blocks on a synchronous and on an asynchronous save, the
+   background write's wall and the bytes (an asynchronous save must
+   block less than the fastest synchronous one), then ``run_training``
+   over 13 synchronised steps offering a save after each and saving
+   every 5: the wall of each step right after a save against the steps
+   with no save near them, and each offer's wall (a step after a save
+   must not wait for the write: it may not exceed the quiet median by
+   half the write's wall); (f) ``python -m
    tony_tpu_torch.train_lm --data_files`` itself (in process, its
    runtime on NCCL at world 1, the sharded step), 20 steps, then
    ``--elastic_data 16`` stopped at step 10 and resumed from its DCP
@@ -275,6 +282,13 @@ then a line of each phase's wall, a JSON line of per-kernel numbers, the card li
 line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --checkpoint [TREE]
+
+runs phase 18e alone against the ``tony_tpu_torch`` of the checkout at
+TREE (this one by default), checks nothing, and prints its numbers as a
+JSON line: a change to the checkpoint layer against its parent, both in
+one call.
 """
 
 import json
@@ -1315,7 +1329,8 @@ class _TimedData:
 
 def _train_run(cfg, params, steps, *, fused=False, batch=16, seq=1024,
                depth=2, seed=0, checkpoint=None, start=0, state=None,
-               timed=False, mesh=None, source=None, on_batch=None):
+               timed=False, mesh=None, source=None, on_batch=None,
+               step_hook=None):
     """``steps`` train steps (from ``start``) through train_lm's code path:
     its source (synthetic, or the host-batch ``source`` given: a file
     source of train_lm), prefetcher, ``default_optimizer`` (one schedule
@@ -1323,8 +1338,8 @@ def _train_run(cfg, params, steps, *, fused=False, batch=16, seq=1024,
     and ``run_training``; with a ``mesh``, its sharded path (params laid
     out by ``logical_axes``, the sharded step, global batches assembled
     from this process's shard); ``on_batch(step, batch)`` sees each batch
-    as the step receives it; returns (state, losses, step wall seconds,
-    data waits)."""
+    as the step receives it; ``step_hook`` goes to ``run_training``;
+    returns (state, losses, step wall seconds, data waits)."""
     import torch
     from tony_tpu_torch import train_lm
     from tony_tpu_torch.models import train as TR
@@ -1356,7 +1371,8 @@ def _train_run(cfg, params, steps, *, fused=False, batch=16, seq=1024,
         return st, m
 
     state, _ = run_training(timed_step, state, data, start + steps,
-                            start_step=start, checkpoint=checkpoint)
+                            start_step=start, checkpoint=checkpoint,
+                            step_hook=step_hook)
     return state, [float(x) for x in losses], walls, data.waits
 
 
@@ -4431,17 +4447,26 @@ def _batch_digest(batch) -> str:
     return hashlib.sha256(x.cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
-def _checkpoint_stall(report, card, state, directory):
-    """(e) The ms the step loop blocks on one save of ``state``,
-    synchronous (save, then wait for the write) and asynchronous (save
-    returns after the snapshot), twice each, and the background write's
-    wall."""
+def _disk_bytes(path) -> int:
+    """Bytes of a file, or of every file under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _checkpoint_stall(card, state, directory, label, check=True):
+    """The ms the step loop blocks on one save of ``state``, synchronous
+    (save, then wait for the write) and asynchronous (save returns after
+    the snapshot), twice each, and the background write's wall."""
     import statistics
 
     import torch
     from tony_tpu_torch import tree_leaves
     from tony_tpu_torch.models.checkpoint import CheckpointManager
-    state_bytes = sum(t.numel() * t.element_size()
+    state_bytes = sum(t.to_local().numel() * t.element_size()
+                      if hasattr(t, "placements") else
+                      t.numel() * t.element_size()
                       for t in tree_leaves(state)
                       if isinstance(t, torch.Tensor))
     mgr = CheckpointManager(directory, max_to_keep=1)
@@ -4458,23 +4483,128 @@ def _checkpoint_stall(report, card, state, directory):
             write.append((t2 - t1) * 1e3)
         else:
             sync.append((t2 - t0) * 1e3)
-    file_bytes = os.path.getsize(os.path.join(directory, "step_103.pt"))
+    [last] = os.listdir(directory)
+    disk = _disk_bytes(os.path.join(directory, last))
     mgr.close()
-    out = dict(state_bytes=state_bytes, file_bytes=file_bytes,
-               sync_ms=sync, async_stall_ms=stall, async_write_ms=write)
-    print(f"[18e] checkpoint of the small bf16 train state on {card}: "
-          f"{state_bytes:,} bytes of tensors ({file_bytes:,} B file); the "
-          f"step loop blocks {statistics.median(sync):.1f} ms on a "
-          f"synchronous save (save + wait: {[round(x, 1) for x in sync]}), "
-          f"{statistics.median(stall):.1f} ms on an asynchronous one (the "
-          f"host snapshot: {[round(x, 1) for x in stall]}); the background "
-          f"write takes {statistics.median(write):.1f} ms "
+    out = dict(state_bytes=state_bytes, disk_bytes=disk, sync_ms=sync,
+               async_stall_ms=stall, async_write_ms=write)
+    print(f"[18e] checkpoint of the small bf16 train state, {label}, on "
+          f"{card}: {state_bytes:,} bytes of tensors ({disk:,} B on disk, "
+          f"{last}); the step loop blocks {statistics.median(sync):.1f} ms "
+          f"on a synchronous save (save + wait: "
+          f"{[round(x, 1) for x in sync]}), {statistics.median(stall):.1f} "
+          f"ms on an asynchronous one (the host snapshot: "
+          f"{[round(x, 1) for x in stall]}); the background write takes "
+          f"{statistics.median(write):.1f} ms "
           f"({[round(x, 1) for x in write]})", flush=True)
-    report["files_checkpoint"] = out
-    if not max(stall) < min(sync):
-        fail("an asynchronous save blocked the loop as long as a "
-             "synchronous one")
+    if check and not max(stall) < min(sync):
+        fail(f"an asynchronous {label} save blocked the loop as long as a "
+             f"synchronous one")
     return out
+
+
+def _checkpoint_loop(card, cfg, params, directory, mesh, write_ms, label,
+                     check=True):
+    """``run_training`` over 13 synchronised steps of ``small`` offering a
+    save after each, saved every 5 (offers 1, 5 and 10): each step's wall
+    (from one ``step_hook`` to the next, so it holds the data wait, the
+    step and the offer), each offer's wall, and the steps right after a
+    save against the steps with no save near them (neither a save step
+    nor right after one). A step after a save that exceeds the quiet
+    median by half the background write's wall ``write_ms`` waited for
+    the write: it fails the run under ``check``."""
+    import statistics
+
+    from tony_tpu_torch.models.checkpoint import CheckpointManager
+    mgr = CheckpointManager(directory, save_interval_steps=5)
+    offers, starts = {}, []
+    real_save = mgr.save
+
+    def save(step, state, force=False):
+        t0 = time.perf_counter()
+        saved = real_save(step, state, force)
+        offers[step] = ((time.perf_counter() - t0) * 1e3, saved)
+        return saved
+
+    mgr.save = save
+    _train_run(cfg, params, 13, timed=True, mesh=mesh, checkpoint=mgr,
+               step_hook=lambda step: starts.append(time.perf_counter()))
+    mgr.close()
+    walls = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    saves = [s - 1 for s, (_, saved) in sorted(offers.items()) if saved]
+    after = [s + 1 for s in saves if s + 1 < len(walls)]
+    quiet = [s for s in range(1, len(walls)) if s not in saves + after]
+    after_ms = [walls[s] for s in after]
+    quiet_ms = statistics.median(walls[s] for s in quiet)
+    out = dict(walls_ms=walls, offer_ms={s: o for s, (o, _) in
+                                         offers.items()},
+               save_steps=saves, after_steps=after, quiet_steps=quiet,
+               after_ms=after_ms, quiet_median_ms=quiet_ms,
+               write_ms=write_ms)
+    print(f"[18e] run_training, {label}, on {card}: 13 synchronised steps, "
+          f"a save offered after each and saved every 5 (steps {saves}): "
+          f"steps right after a save {[round(x, 2) for x in after_ms]} ms "
+          f"against {quiet_ms:.2f} ms (median of steps {quiet}, no save "
+          f"near); save steps {[round(walls[s], 2) for s in saves]} ms; the "
+          f"offers after a save "
+          f"{[round(offers[s + 1][0], 3) for s in after]} ms, the slowest "
+          f"quiet offer {max(offers[s + 1][0] for s in quiet):.3f} ms; "
+          f"background write {write_ms:.1f} ms", flush=True)
+    if check and not max(after_ms) < quiet_ms + 0.5 * write_ms:
+        fail(f"a {label} step after a save waited for the write: "
+             f"{after_ms} ms against {quiet_ms:.2f} ms quiet and a "
+             f"{write_ms:.1f} ms write")
+    return out
+
+
+def _checkpoint_phase(card, cfg, params, directory, check=True) -> dict:
+    """(e) On a world-1 NCCL runtime (fsdp mesh), for ``small``'s train
+    state unsharded and as DTensors: the stall of a save
+    (:func:`_checkpoint_stall`) and the steps around saves in
+    ``run_training`` (:func:`_checkpoint_loop`)."""
+    import statistics
+
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch.models import train as TR
+    from tony_tpu_torch.models import transformer as T
+    _world1_env({"fsdp": -1})
+    rt.initialize()
+    out = {}
+    try:
+        mesh = rt.mesh()
+        # one step first: a process's first step loads and tunes the
+        # card's libraries, seconds a save step must not be charged with
+        _train_run(cfg, _copy_tree(params, "cuda"), 1)
+        for label, m in (("unsharded", None),
+                         ("sharded on the world-1 fsdp mesh", mesh)):
+            key = "sharded" if m is not None else "unsharded"
+            state = TR.init_state(_copy_tree(params, "cuda"),
+                                  TR.default_optimizer(), m,
+                                  T.logical_axes(cfg))
+            stall = _checkpoint_stall(card, state,
+                                      os.path.join(directory, key), label,
+                                      check)
+            del state
+            loop = _checkpoint_loop(
+                card, cfg, _copy_tree(params, "cuda"),
+                os.path.join(directory, key + "_loop"), m,
+                statistics.median(stall["async_write_ms"]), label, check)
+            out[key] = dict(stall=stall, loop=loop)
+    finally:
+        rt.shutdown()
+    return out
+
+
+def _world1_env(axes) -> None:
+    """The jax arm's environment, as the executor exports it, for a
+    world-1 runtime on a free port with mesh ``axes``."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      TONY_JAX_PROCESS_ID="0", TONY_JAX_NUM_PROCESSES="1",
+                      TONY_MESH_SPEC=json.dumps({"axes": axes}))
 
 
 def _train_lm_cli(argv, axes=None):
@@ -4484,17 +4614,10 @@ def _train_lm_cli(argv, axes=None):
     lines)."""
     import contextlib
     import io
-    import socket
 
     import tony_tpu_torch.runtime as rt
     from tony_tpu_torch import train_lm
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    os.environ.update(TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                      TONY_JAX_PROCESS_ID="0", TONY_JAX_NUM_PROCESSES="1",
-                      TONY_MESH_SPEC=json.dumps(
-                          {"axes": axes or {"fsdp": -1}}))
+    _world1_env(axes or {"fsdp": -1})
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
@@ -4511,7 +4634,8 @@ def phase_files(report, card):
     beside phase 9's synthetic run, (d) --elastic_data 16 for 20 steps
     with an asynchronous checkpoint at step 10, restored by a new manager
     and run again from step 10 (batches by sha256, losses bitwise, on the
-    two-pass backward), (e) the checkpoint stall, (f) train_lm's entry
+    two-pass backward), (e) the checkpoint stall and the steps around
+    saves in run_training, unsharded and sharded, (f) train_lm's entry
     point itself on the files: the sharded step on a world-1 NCCL mesh,
     ``--data_files`` for 20 steps, then ``--elastic_data 16`` stopped at
     step 10 and resumed from its (DCP) checkpoint to 20."""
@@ -4695,10 +4819,9 @@ def phase_files(report, card):
             fail("the resumed elastic run's losses are not bitwise the "
                  "uninterrupted run's on the two-pass backward")
 
-        # (e) the checkpoint stall
-        _checkpoint_stall(out, card, TR.init_state(
-            _copy_tree(base, "cuda"), TR.default_optimizer()),
-            os.path.join(tmp, "stall"))
+        # (e) the checkpoint stall, and the steps around saves
+        out["checkpoint"] = _checkpoint_phase(card, cfg, base,
+                                              os.path.join(tmp, "stall"))
 
         # (f) the entry point a user calls, counted from 0 over its runs
         common = ["--preset", "small", "--batch_size", str(batch),
@@ -6091,5 +6214,24 @@ def main() -> int:
     return 0
 
 
+def checkpoint_main(tree: str) -> int:
+    """Phase 18e alone against the ``tony_tpu_torch`` of ``tree``
+    (module docstring): its lines, then one JSON line of its numbers."""
+    import tempfile
+    sys.path.insert(0, os.path.abspath(tree))
+    card = phase_card()
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.ops import _kernels
+    _kernels.build()
+    cfg, params = train_lm.build("small", "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _checkpoint_phase(card, cfg, params, tmp, check=False)
+    print(json.dumps({"tree": tree, "card": card, "checkpoint": out},
+                     default=str))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--checkpoint"]:
+        sys.exit(checkpoint_main(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

@@ -4,10 +4,12 @@ checkpoint), on the CPU: the read fence of tests/test_checkpoint.py
 in flight before they read), a save as a snapshot taken before ``save``
 returns, a failed background save raised on the next save, wait or close
 while reads stay on the last committed step, and ``run_training`` joining
-the saves once, at exit.
+the saves once, at exit; save offers decided from memory (an offer off the
+interval joins nothing, lists nothing), and the same steps saved as the
+JAX package's orbax manager saves for the same offers.
 
 A background write is slowed by wrapping ``torch.save`` in the module, so
-that reads and mutations land while it is in flight."""
+that reads, offers and mutations land while it is in flight."""
 
 import os
 import subprocess
@@ -15,12 +17,14 @@ import sys
 import threading
 import time
 
+import jax.numpy as jnp
 import pytest
 import torch
 
+from tony_tpu.models.checkpoint import CheckpointManager as JaxManager
 from tony_tpu_torch.models import checkpoint as C
 from tony_tpu_torch.models.checkpoint import CheckpointManager
-from tony_tpu_torch.models.loop import run_training
+from tony_tpu_torch.models.loop import GangLostError, run_training
 
 torch.set_num_threads(2)
 
@@ -48,9 +52,9 @@ def slow_writes(monkeypatch):
     return written
 
 
-def _track(mgr, calls):
+def _track(mgr, calls, names=("_fence", "_committed_steps")):
     """Record the order of the fence and the directory listing."""
-    for name in ("_fence", "_committed_steps"):
+    for name in names:
         real = getattr(mgr, name)
 
         def wrapped(*a, _real=real, _name=name, **k):
@@ -94,6 +98,59 @@ class TestRestoreVsInFlightSaveFence:
         assert state["params"]["w"][0, 0] == 2.0
         assert calls.index("_fence") < calls.index("_committed_steps")
         mgr.close()
+
+
+def test_an_off_interval_offer_decides_from_memory(tmp_path, slow_writes):
+    """While a write is in flight, offers off the interval (and one at
+    the saved step) return at once: no join, no fence, no directory
+    listing, as orbax's ``should_save`` reads its in-memory list."""
+    mgr = CheckpointManager(str(tmp_path), save_interval_steps=5)
+    assert mgr.save(1, _state(1.0))
+    writer, calls = mgr._writer, []
+    _track(mgr, calls, ("_fence", "_committed_steps", "_join"))
+    for s in (2, 3, 4, 1):
+        t0 = time.perf_counter()
+        assert not mgr.save(s, _state(float(s)))
+        assert time.perf_counter() - t0 < 0.05
+    assert calls == [] and mgr._writer is writer
+    assert slow_writes == []
+    mgr.close()
+    assert mgr.all_steps() == [1]
+
+
+#: offers (step, force) with both a forced save of a saved step (orbax
+#: raises StepAlreadyExistsError, a ValueError) and of an unsaved one
+OFFERS = {
+    "force_newest": [(s, False) for s in range(7)] + [(5, True), (6, True)]
+    + [(s, False) for s in range(7, 13)],
+    "force_older": [(s, False) for s in range(13)] + [(3, True), (13, False),
+                                                      (15, False), (15, True)],
+}
+
+
+def _offer(mgr, step, state, force):
+    try:
+        return mgr.save(step, state, force=force)
+    except ValueError:
+        return "exists"
+
+
+@pytest.mark.parametrize("offers", list(OFFERS), ids=list(OFFERS))
+def test_save_offers_match_the_jax_package(tmp_path, offers):
+    """Steps 0-12 offered at interval 5 with forced saves: each offer's
+    answer and the steps kept (max_to_keep 3, the oldest saved pruned
+    first) equal the JAX package's manager's (orbax, on the CPU)."""
+    jmgr = JaxManager(str(tmp_path / "jax"), save_interval_steps=5)
+    mgr = CheckpointManager(str(tmp_path / "port"), save_interval_steps=5)
+    got, want = [], []
+    for step, force in OFFERS[offers]:
+        want.append(_offer(jmgr, step, {"w": jnp.full((2,), step)}, force))
+        got.append(_offer(mgr, step, _state(float(step)), force))
+    jmgr.close()
+    mgr.close()
+    assert got == want
+    assert mgr.all_steps() == sorted(int(n) for n in
+                                     os.listdir(tmp_path / "jax"))
 
 
 def test_save_returns_before_the_write_and_snapshots_the_state(
@@ -168,6 +225,31 @@ def test_run_training_joins_the_saves_once_at_exit(tmp_path, slow_writes):
     assert slow_writes == [1, 2, 4]
     got = mgr.restore(template=_state(0.0))
     assert torch.equal(got["params"]["w"], torch.full((4, 4), 4.0))
+
+
+@pytest.mark.parametrize("fails", ["gang", "none"])
+def test_a_failed_save_at_exit_leaves_the_loops_own_error(
+        tmp_path, monkeypatch, fails):
+    """Every write fails. A step that fails because its gang did still
+    raises GangLostError from ``run_training`` (its exit code is what the
+    executor reads), the save's error logged; a loop that ends cleanly
+    raises the save's error at exit."""
+    def save(obj, path, *a, **k):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(C.torch, "save", save)
+    mgr = CheckpointManager(str(tmp_path), save_interval_steps=1)
+
+    def step_fn(state, batch):
+        if fails == "gang" and state["step"] == 1:
+            raise RuntimeError("gloo: connection closed by peer")
+        return _state(state["step"] + 1.0), {"loss": torch.tensor(0.0)}
+
+    # step 0's save fails in the background; the gang case fails step 1
+    with pytest.raises(GangLostError if fails == "gang" else OSError):
+        run_training(step_fn, _state(0.0), None,
+                     2 if fails == "gang" else 1, checkpoint=mgr)
+    assert mgr.all_steps() == []
 
 
 def test_a_save_in_flight_commits_before_the_process_exits(tmp_path):

@@ -32,6 +32,12 @@ rows through ``global_batch``:
   on dp × ep resumes to the uninterrupted run's losses and params at
   the bounds above; a dp × cp checkpoint resumes bit for bit in a new
   group;
+- an asynchronous sharded save (fsdp 2, shard writes slowed by the
+  worker's injected delay) returns before its write ends and holds the
+  state as it was when saved, though the next step writes into it in
+  place; offers off the interval run no ``broadcast_object_list`` or
+  ``barrier``; a write that fails on rank 1 commits nothing and raises
+  on both ranks at the next save;
 - the fused optimizer refuses a mesh, and experts that do not split over
   ep are refused.
 """
@@ -108,13 +114,13 @@ def _setup(case: Case):
     return _lm_setup(case.kw)
 
 
-def run_group(cases, world: int, out_dir, setup=None) -> dict:
+def run_group(cases, world: int, out_dir, setup=None, env=None) -> dict:
     """Run ``cases`` in turn on ``world`` worker processes (one gloo
-    group, the jax arm's environment); returns ``{case name: [each
-    rank's results]}``. ``setup(case)`` gives each case's (JAX config,
-    port config, weights, inputs), :func:`_setup` by default. The group
-    gets GROUP_TIMEOUT_S seconds, then every worker is killed and the
-    cases fail."""
+    group, the jax arm's environment, plus ``env``); returns ``{case
+    name: [each rank's results]}``. ``setup(case)`` gives each case's
+    (JAX config, port config, weights, inputs), :func:`_setup` by
+    default. The group gets GROUP_TIMEOUT_S seconds, then every worker is
+    killed and the cases fail."""
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     inputs = {"plan": json.dumps({"opt": OPT,
@@ -127,7 +133,7 @@ def run_group(cases, world: int, out_dir, setup=None) -> dict:
     np.savez(in_npz, **inputs)
     env = dict(os.environ, PYTHONPATH=REPO,
                TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
-               TONY_JAX_NUM_PROCESSES=str(world))
+               TONY_JAX_NUM_PROCESSES=str(world), **(env or {}))
     procs, logs = [], []
     for r in range(world):
         log = open(os.path.join(out_dir, f"log{r}.txt"), "w")
@@ -403,6 +409,68 @@ def test_cp_checkpoint_resumes_in_a_new_group(group_results, tmp_path):
         np.testing.assert_array_equal(o["loss"], straight[0]["loss"][2:])
     _assert_params_close(_gathered(outs[0], "p/"),
                          _gathered(straight[0], "p/"))
+
+
+#: the injected shard-write delay of the asynchronous-save group (s)
+WRITE_DELAY_S = 2.0
+
+
+@pytest.fixture(scope="module")
+def async_save(tmp_path_factory):
+    """Each rank's results of the ``async`` checkpoint case (the worker's
+    ``run_async_checkpoint``) on fsdp 2, every shard write delayed by
+    WRITE_DELAY_S and rank 1's write of step 5 failing; one group for the
+    tests below (a failed group fails each of them)."""
+    try:
+        return run_group(
+            [Case("ckpt_async", 2, {"fsdp": 2}, steps=1, ckpt="async")], 2,
+            tmp_path_factory.mktemp("async"),
+            env={"TONY_TEST_CKPT_WRITE_DELAY_S": str(WRITE_DELAY_S),
+                 "TONY_TEST_CKPT_FAIL": "1:5"})["ckpt_async"]
+    except RuntimeError as e:
+        return e
+
+
+def _async_outs(async_save):
+    if isinstance(async_save, Exception):
+        pytest.fail(str(async_save))
+    return async_save
+
+
+def test_sharded_save_returns_before_its_write_ends(async_save):
+    for o in _async_outs(async_save):
+        assert bool(o["saved"]) and bool(o["in_flight"])
+        assert float(o["save_s"]) < WRITE_DELAY_S, float(o["save_s"])
+
+
+def test_sharded_save_snapshots_the_state_before_it_returns(async_save):
+    """The step after ``save`` writes into the params and moments in
+    place; the checkpoint holds them as they were, bit for bit."""
+    for o in _async_outs(async_save):
+        assert bool(o["mutated"]) and bool(o["restored_equal"])
+
+
+def test_off_interval_offers_run_no_collective(async_save):
+    """Offers 2-4 (interval 5) while step 1's write is in flight: no
+    ``broadcast_object_list`` or ``barrier`` call, and no join."""
+    for o in _async_outs(async_save):
+        assert [bool(o[f"offer{s}"]) for s in (2, 3, 4)] == [False] * 3
+        assert int(o["offer_calls"]) == 0
+        assert bool(o["offers_in_flight"])
+
+
+def test_a_failed_sharded_write_commits_nothing_and_raises_on_every_rank(
+        async_save):
+    """Rank 1's write of step 5 fails: no rank's read sees step 5, the
+    next save raises on both ranks (rank 0 wrote its shards), and the
+    save offered again commits and clears the partial directory."""
+    outs = _async_outs(async_save)
+    for o in outs:
+        assert bool(o["saved5"]) and int(o["latest_after_fail"]) == 1
+        assert "injected write failure at step 5" in str(o["raised"])
+        assert bool(o["saved_again"])
+        assert str(o["listing"]) == "step_1 step_10"
+    assert str(outs[0]["listing_after_fail"]) == "step_1 step_5.tmp"
 
 
 def test_experts_must_split_over_ep():

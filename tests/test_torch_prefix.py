@@ -731,3 +731,59 @@ def test_serve_lm_publish_prefix_processes(tmp_path):
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     proc.communicate()
+
+
+class _Peer:
+    """A stand-in for the peer's StreamingClient whose STATS list the
+    prefix from the ``lists_after``-th poll on (never if None)."""
+    hello = {"prefix_port": 7}
+    lists_after: int | None = None
+    polls = 0
+
+    def __init__(self, host, port):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+    def stats(self):
+        _Peer.polls += 1
+        listed = self.lists_after is not None and \
+            _Peer.polls >= self.lists_after
+        return {"prefixes": ["pfx"] if listed else []}
+
+
+class _Publisher:
+    def install_prefix(self, toks):
+        return "pfx"
+
+    def publish_prefix(self, pid, target):
+        return 10
+
+
+@pytest.mark.parametrize("lists_after", [3, None], ids=["listed", "never"])
+def test_publish_prefix_reports_once_the_peer_lists_it(monkeypatch, capsys,
+                                                       lists_after):
+    """The channel acks a template ship on arrival and the peer installs
+    it later: ``serve_lm --publish_prefix`` polls the peer's STATS and
+    prints "published prefix" only once the prefix is listed there, and
+    raises if it is not listed by the deadline."""
+    import argparse
+
+    from tony_tpu_torch.serving import client
+    monkeypatch.setattr(client, "StreamingClient", _Peer)
+    monkeypatch.setattr(_Peer, "polls", 0)
+    monkeypatch.setattr(_Peer, "lists_after", lists_after)
+    args = argparse.Namespace(publish_prefix="127.0.0.1:9")
+    if lists_after is None:
+        with pytest.raises(TimeoutError, match="not resident"):
+            serve_lm._install_and_publish(args, _Publisher(), [1, 2],
+                                          resident_deadline_s=0.2)
+        assert "published prefix" not in capsys.readouterr().out
+    else:
+        serve_lm._install_and_publish(args, _Publisher(), [1, 2])
+        assert _Peer.polls == 3
+        assert "published prefix pfx" in capsys.readouterr().out

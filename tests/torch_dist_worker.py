@@ -44,21 +44,30 @@ with a pp axis trains through ``lm_value_and_grad`` (the step's
 ``ckpt`` is ``save`` (a sharded checkpoint every 2 steps under
 ``OUT_DIR/<name>``) or ``resume`` (``restore_or_init`` from that
 directory's latest step at attempt 1, then on to ``steps``); a resume
-runs in a new group.
+runs in a new group. ``async`` trains one step and then drives the
+asynchronous sharded save itself (:func:`run_async_checkpoint`) under
+faults the environment injects into the shard writer:
+``TONY_TEST_CKPT_WRITE_DELAY_S`` sleeps before each rank writes its
+shards, and ``TONY_TEST_CKPT_FAIL=<rank>:<step>`` fails that rank's write
+of that step.
 """
 
 import dataclasses
 import json
 import os
 import sys
+import threading
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import tony_tpu_torch.runtime as rt  # noqa: E402
+from tony_tpu_torch import tree_leaves  # noqa: E402
 from tony_tpu_torch.models import bert as B  # noqa: E402
 from tony_tpu_torch.models import transformer as T  # noqa: E402
 from tony_tpu_torch.models import train as TR  # noqa: E402
@@ -180,6 +189,92 @@ def run_pipe(case: dict, data) -> dict:
     return out
 
 
+def inject_write_faults() -> None:
+    """The environment's faults (module docstring) on DCP's shard
+    writer."""
+    delay = float(os.environ.get("TONY_TEST_CKPT_WRITE_DELAY_S", "0"))
+    fail = os.environ.get("TONY_TEST_CKPT_FAIL", "")
+    if not delay and not fail:
+        return
+    from torch.distributed.checkpoint import FileSystemWriter
+    real = FileSystemWriter.write_data
+
+    def write_data(self, plan, planner):
+        time.sleep(delay)
+        rank, _, step = fail.partition(":")
+        if fail and dist.get_rank() == int(rank) and \
+                str(self.path).endswith(f"step_{step}.tmp"):
+            raise OSError(f"injected write failure at step {step}")
+        return real(self, plan, planner)
+
+    FileSystemWriter.write_data = write_data
+
+
+def _gathered_state(state) -> dict:
+    """Every tensor of the state (params and moments) as a full array."""
+    return {k: (t.full_tensor() if hasattr(t, "placements")
+                else t).numpy().copy()
+            for part in ("params", "opt_state")
+            for k, t in _flat(state[part], f"{part}/").items()
+            if isinstance(t, torch.Tensor)}
+
+
+def run_async_checkpoint(case: dict, state, fresh, out_dir: str) -> dict:
+    """Drive the asynchronous sharded save on a trained ``state``: a save
+    at step 1 (interval 5), the state written into in place right after
+    it returns, three off-interval offers while the write is in flight
+    (each counting the ``broadcast_object_list`` and ``barrier`` calls
+    this thread makes), the restore of step 1 into ``fresh()``; then a
+    save at step 5 whose write fails on one rank, a read, the next save
+    (which raises), and that save offered again."""
+    ckpt = os.path.join(out_dir, case["name"])
+    mgr = CheckpointManager(ckpt, save_interval_steps=5)
+    calls = []
+    for name in ("broadcast_object_list", "barrier"):
+        def counted(*a, _real=getattr(dist, name), _name=name, **k):
+            if threading.current_thread() is threading.main_thread():
+                calls.append(_name)
+            return _real(*a, **k)
+        setattr(dist, name, counted)
+    before = _gathered_state(state)
+    t0 = time.perf_counter()
+    saved = mgr.save(1, state)
+    out = dict(saved=saved, save_s=time.perf_counter() - t0,
+               in_flight=mgr._writer.is_alive() and not os.path.exists(
+                   os.path.join(ckpt, "step_1")))
+    with torch.no_grad():               # the next step, in place
+        for t in tree_leaves(state["params"]) + tree_leaves(
+                state["opt_state"]):
+            if isinstance(t, torch.Tensor):
+                (t.to_local() if hasattr(t, "placements") else t).add_(1000)
+    offer_s = []
+    for s in (2, 3, 4):
+        t0 = time.perf_counter()
+        out[f"offer{s}"] = mgr.save(s, state)
+        offer_s.append(time.perf_counter() - t0)
+    out.update(offer_s=np.array(offer_s), offer_calls=len(calls),
+               offers_in_flight=mgr._writer.is_alive())
+    mgr.wait_until_finished()
+    after = _gathered_state(mgr.restore(template=fresh(), step=1))
+    out["restored_equal"] = all(np.array_equal(before[k], after[k])
+                                for k in before)
+    out["mutated"] = not all(np.array_equal(before[k], v) for k, v in
+                             _gathered_state(state).items())
+    # a write that fails on one rank
+    out["saved5"] = mgr.save(5, state)
+    out["latest_after_fail"] = mgr.latest_step()
+    try:
+        mgr.save(10, state)
+        out["raised"] = ""
+    except Exception as e:
+        out["raised"] = f"{type(e).__name__}: {e}"
+    out["listing_after_fail"] = " ".join(sorted(os.listdir(ckpt)))
+    out["saved_again"] = mgr.save(10, state)
+    mgr.close()
+    out["listing"] = " ".join(sorted(os.listdir(ckpt)))
+    return out
+
+
 def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     name = case["name"]
     if case["model"] == "attn":
@@ -222,6 +317,12 @@ def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
             for n in names}
         return local, TR.global_batch(sharding, local)
 
+    if case["ckpt"] == "async":
+        state, _ = step(state, batch(0)[1])
+        out.update(run_async_checkpoint(case, state, lambda: TR.init_state(
+            T.init_params(torch.Generator().manual_seed(9), cfg,
+                          device="cpu"), opt, mesh, axes), out_dir))
+        return out
     start, mgr = 0, None
     if case["ckpt"]:
         mgr = CheckpointManager(os.path.join(out_dir, name),
@@ -276,6 +377,7 @@ def main() -> int:
     data = np.load(in_npz)
     plan = json.loads(str(data["plan"]))
     info = rt.initialize("cpu", timeout_s=120)
+    inject_write_faults()
     for case in plan["cases"]:
         out = run_case(case, data, plan["opt"], out_dir)
         np.savez(os.path.join(out_dir, f"{case['name']}.rank"

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import itertools
 import logging
+import sys
 import time
 from typing import Any, Callable, Iterable
 
@@ -80,7 +81,9 @@ def run_training(step_fn: Callable[[Any, Any], tuple[Any, dict]],
       closed at exit if it has ``close()``. If it runs dry the loop stops
       cleanly. ``None`` passes ``batch=None`` every step.
     - ``checkpoint``: a ``CheckpointManager``; ``save(step + 1, state)``
-      is offered every step (the manager's interval decides).
+      is offered every step (the manager's interval decides), and the
+      saves in flight are joined once at exit (a failed one raises,
+      unless the loop is already failing: then it is logged).
     - ``eval_fn(state)`` runs every ``eval_every`` steps; the latest
       result rides in ``metrics["eval"]`` from then on.
     - ``log_fn(step, metrics, batch)`` runs every ``log_every`` steps and
@@ -133,5 +136,14 @@ def run_training(step_fn: Callable[[Any, Any], tuple[Any, dict]],
         if close is not None:
             close()
         if checkpoint is not None:
-            checkpoint.wait_until_finished()
+            failing = sys.exc_info()[1]
+            try:
+                checkpoint.wait_until_finished()
+            except Exception:
+                if failing is None:
+                    raise
+                # the loop's own error surfaces: a GangLostError's exit
+                # code is what the executor reads, and a sharded write
+                # in flight fails with the gang that died under the step
+                log.exception("a checkpoint save failed too")
     return state, metrics

@@ -243,11 +243,15 @@ def _parse_addr(addr: str) -> tuple[str, int]:
     return host or "127.0.0.1", int(port)
 
 
-def _install_and_publish(args, server, toks) -> None:
+def _install_and_publish(args, server, toks,
+                         resident_deadline_s: float = 30.0) -> None:
     """--shared_prefix_file on a replica: make the prefix resident (ONE
     local prefill); --publish_prefix also warms a peer replica with one
     template ship over its prefix lane (the peer runs ZERO prefix
-    forwards)."""
+    forwards). The channel acks the ship when the frame arrives and the
+    peer's install thread makes the template resident later, so the
+    publish is reported once the peer's STATS list the prefix; past
+    ``resident_deadline_s`` it raises."""
     from tony_tpu_torch.serving.client import StreamingClient
 
     pid = server.install_prefix(toks)
@@ -260,11 +264,18 @@ def _install_and_publish(args, server, toks) -> None:
         host, port = _parse_addr(args.publish_prefix)
         with StreamingClient(host, port) as peer:
             lane = peer.hello.get("prefix_port")
-        if lane is None:
-            raise SystemExit(f"{args.publish_prefix} advertises no "
-                             f"prefix lane")
-        t0 = time.perf_counter()
-        n = server.publish_prefix(pid, f"{host}:{lane}")
+            if lane is None:
+                raise SystemExit(f"{args.publish_prefix} advertises no "
+                                 f"prefix lane")
+            t0 = time.perf_counter()
+            n = server.publish_prefix(pid, f"{host}:{lane}")
+            deadline = t0 + resident_deadline_s
+            while pid not in peer.stats().get("prefixes", []):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(
+                        f"prefix {pid} shipped to {host}:{lane} but not "
+                        f"resident there after {resident_deadline_s}s")
+                time.sleep(0.02)
         print(f"published prefix {pid} to {host}:{lane} ({n} bytes in "
               f"{time.perf_counter() - t0:.3f}s — the peer warmed without "
               f"recomputing)", flush=True)
