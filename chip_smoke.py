@@ -278,10 +278,44 @@ result:
    and ``python -m tony_tpu_torch.train_pipeline`` as two stage
    processes for 3 steps (pp ranks over NCCL need a host with more
    cards);
+22. observability, what the orchestrator reads of a port process, in a
+   process of its own and in a job's order: (b) ``maybe_start``'s
+   listener on a free port (its warm-up session first), a 400 ms
+   capture asked for from another thread during 10 steps: the trace
+   holds K1, K2 and the training thread's aten ops, and an overlapping
+   request is refused (409); (a) then 3 successive ``StepTracer`` traces,
+   each over steps [1, 4) of 5 ``run_training`` steps of ``small`` bf16
+   16 x 1024: each Chrome trace, counted by the port's kernel names,
+   holds exactly the K1, K2 and K5 launches the counters count over
+   those steps (16, 8 and 33 a step) and the marks
+   ``ProfilerStep#1..3``; a marker capture (400 one-element kernels 50
+   us apart after a capture starts) counts the launches a capture
+   misses after its start; (c) a fresh goodput
+   ledger around 10 steps as ``train_lm`` runs them (no
+   synchronisation, one asynchronous save) and 12 synchronised ones:
+   its categories sum to the host wall within 1 ms, every step closed;
+   the step, data_wait, checkpoint and overhead shares and the device
+   time left when the loop returned; (d) the quiet step wall (median of
+   the last 8 synchronised steps, after (a) and (b)) beside phase 9's,
+   and the host cost of one step's spans and ledger intervals alone;
+   (e) a ``ServeEngine`` over 4 requests of at most 16 tokens, then
+   0.5 s idle: step and idle seconds both > 0, summing with overhead to
+   the wall within 1 ms; (f) back in this process, after 21 phases:
+   marker captures 50 and 500 us apart and after 128 other kernels, and
+   a step trace held against the launch counters (a capture here misses
+   its first GPU records): the capture after 128 other kernels records
+   every marker, and the trace lost only its first launches' kernels;
 then a line of each phase's wall, a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --trace-loss-bisect
+
+runs the whole script with three marker captures (50 and 500 us apart,
+and 50 after 128 other kernels) after every phase, printed as
+``[loss bisect]`` lines: how many GPU records a capture misses at its
+start after each phase of the process's history.
 
     python3 chip_smoke.py --checkpoint [TREE]
 
@@ -289,6 +323,13 @@ runs phase 18e alone against the ``tony_tpu_torch`` of the checkout at
 TREE (this one by default), checks nothing, and prints its numbers as a
 JSON line: a change to the checkpoint layer against its parent, both in
 one call.
+
+    python3 chip_smoke.py --observability [PHASE9_STEP_MS [ORIGIN]]
+
+runs phase 22 (a)-(e) alone, with its checks, and prints its numbers as
+a JSON line; PHASE9_STEP_MS is printed beside the quiet step, with
+ORIGIN ("given on the command line" by default). The whole script runs
+(a)-(e) so, in a process of its own, and passes its own phase 9 step.
 """
 
 import json
@@ -6111,6 +6152,607 @@ def phase_pipeline(report, card):
     return launches
 
 
+# phase 22: observability. The traced run's window and the live capture's
+# length, the steps of the ledger and quiet runs, and the cost loop's
+# iterations (kept short: the script's 1200 s limit)
+OBS_PRESET = "small"
+OBS_BATCH, OBS_SEQ = 16, 1024
+OBS_TRACED = 3
+OBS_TRACES = 3
+OBS_MARKERS, OBS_MARKER_GAP_US = 400, 50.0
+OBS_LEDGER_STEPS, OBS_QUIET_STEPS = 10, 12
+OBS_LIVE_STEPS, OBS_LIVE_MS = 10, 400
+OBS_COST_ITERS = 20000
+
+
+def _port_kernel(name: str):
+    """The port's kernel ("K1" ... "K6") a CUDA kernel of a trace belongs
+    to, by its name (demangled, or mangled: ``Lb1E`` is a ``true``
+    template argument), or None for any other kernel. K2 and K3b are
+    ``flash_bwd_kv*_kernel`` with and without ``WITH_DQ``; K5 and K6 are
+    ``norm_*_kernel`` without and with ``LN``."""
+    flag = "true>" in name or "Lb1E" in name
+    if "flash_fwd" in name:
+        return "K1"
+    if "flash_bwd_dq" in name:
+        return "K3a"
+    if "flash_bwd_kv" in name:
+        return "K2" if flag else "K3b"
+    if "adamw_kernel" in name:
+        return "K4"
+    if "norm_vec_kernel" in name or "norm_scalar_kernel" in name:
+        return "K6" if flag else "K5"
+    return None
+
+
+def _trace_counts(path):
+    """({kernel: launches} of the port's kernels, {other device kernel
+    names: launches}, the trace's events) of a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ours, others = {}, {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        k = _port_kernel(e.get("name", ""))
+        if k is None:
+            others[e.get("name", "")] = others.get(e.get("name", ""), 0) + 1
+        else:
+            ours[k] = ours.get(k, 0) + 1
+    return ours, others, events
+
+
+def _shares(snap) -> dict:
+    cat = snap["cat"]
+    total = sum(cat.values())
+    return {k: cat.get(k, 0.0) / total
+            for k in ("step", "data_wait", "checkpoint", "overhead")}
+
+
+def _capture_request(port: int, ms: int):
+    """(HTTP status, JSON answer) of a live-capture request."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/capture?ms={ms}",
+                timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _obs_trace(card, cfg, params, counts, directory, tag, check=True):
+    """(a) A StepTracer over OBS_TRACED steps of run_training: the trace's
+    K1/K2/K5 against the launch counters over the same steps, and the
+    marks; fails on a mismatch when ``check``. Returns its numbers."""
+    from tony_tpu_torch.runtime import profiler as P
+    L = cfg.n_layers
+    per_step = {"K1": 2 * L, "K2": L, "K5": 4 * L + 1}
+    tracer = P.StepTracer(start=1, stop=1 + OBS_TRACED,
+                          logdir=os.path.join(directory, "steps"))
+    at = {}
+
+    def hook(step):
+        tracer.step(step)
+        at[step] = counts()
+
+    t0 = time.perf_counter()
+    try:
+        _, losses, _, _ = _train_run(cfg, params, 2 + OBS_TRACED,
+                                     batch=OBS_BATCH, seq=OBS_SEQ,
+                                     step_hook=hook)
+    finally:
+        tracer.close()
+    wall = time.perf_counter() - t0
+    window = {k: at[1 + OBS_TRACED][k] - at[1][k] for k in per_step}
+    traced, others, events = _trace_counts(tracer.path)
+    # the host's ranges (the card's copies are "gpu_user_annotation")
+    marks = sorted(e["name"] for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith("ProfilerStep#"))
+    mb = os.path.getsize(tracer.path) / 2 ** 20
+    os.remove(tracer.path)
+    want = {k: v * OBS_TRACED for k, v in per_step.items()}
+    print(f"[{tag}] StepTracer [1, {1 + OBS_TRACED}) over {2 + OBS_TRACED} "
+          f"{OBS_PRESET} bf16 {OBS_BATCH}x{OBS_SEQ} run_training steps on "
+          f"{card}: trace {mb:.1f} MiB, {len(events)} events, marks "
+          f"{marks}; the port's kernels in it {traced}, the launch "
+          f"counters over the window {window}, expected {want} "
+          f"(16 K1, 8 K2, 33 K5 a step); {sum(others.values())} other "
+          f"kernel launches; run wall {wall:.2f} s", flush=True)
+    res = dict(traced=traced, counters=window, expected=want, marks=marks,
+               trace_mib=mb, events=len(events),
+               other_kernels=sum(others.values()), wall_s=wall,
+               losses=losses, held=traced == window == want)
+    if not check:
+        res["edges"] = _trace_edges(events)
+        print(f"[{tag}] edges (ms from the first mark): {res['edges']}",
+              flush=True)
+        return res
+    if not traced:
+        fail("the step trace holds no kernel of the port: the capture "
+             "recorded no CUDA activity")
+    if marks != [f"ProfilerStep#{s}" for s in range(1, 1 + OBS_TRACED)]:
+        fail(f"the step trace marks {marks}, not steps 1..{OBS_TRACED}")
+    if traced != window or window != want:
+        fail(f"trace counts {traced} != launch counters {window} != "
+             f"expected {want}")
+    return res
+
+
+def _trace_edges(events) -> dict:
+    """Where a trace's host ops, launches and kernels begin and end, in
+    ms from its first ``ProfilerStep#`` mark, its instant events, and
+    the kernel launches it holds with no kernel (by correlation id): a
+    capture that misses kernels at an edge of its window shows here."""
+    marks = [e["ts"] for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("ProfilerStep#")]
+    if not marks:
+        return {}
+    t0 = min(marks)
+
+    def rel(ts):
+        return None if ts is None else round((ts - t0) / 1e3, 3)
+
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "aunch" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    have = {e.get("args", {}).get("correlation") for e in kernels}
+    orphans = [e["ts"] for e in launches
+               if e.get("args", {}).get("correlation") not in have]
+    corr = [(e.get("args", {}).get("correlation", -1), e.get("args", {})
+             .get("correlation") in have) for e in launches]
+    first_kept = min((c for c, kept in corr if kept), default=None)
+    return dict(
+        first_op=rel(min((e["ts"] for e in ops), default=None)),
+        first_launch=rel(min((e["ts"] for e in launches), default=None)),
+        first_kernel=rel(min((e["ts"] for e in kernels), default=None)),
+        last_kernel_end=rel(max((e["ts"] + e.get("dur", 0)
+                                 for e in kernels), default=None)),
+        last_mark_end=rel(max(e["ts"] + e.get("dur", 0) for e in events
+                              if e.get("cat") == "user_annotation"
+                              and e.get("name", "").startswith(
+                                  "ProfilerStep#"))),
+        instants={e.get("name"): rel(e["ts"]) for e in events
+                  if e.get("ph") == "i"},
+        launches=len(launches), kernels=len(kernels),
+        launches_without_kernel=len(orphans),
+        # every launch whose kernel is missing came before the first
+        # launch whose kernel is there (correlation ids grow by launch)
+        lost_only_first=all(c < first_kept for c, kept in corr
+                            if not kept) if first_kept is not None
+        else False,
+        orphan_first=rel(min(orphans, default=None)),
+        orphan_last=rel(max(orphans, default=None)))
+
+
+def _capture_markers(directory, gap_us=OBS_MARKER_GAP_US,
+                     primer=0) -> dict:
+    """A capture of the port's (``_Capture``) started on an idle card,
+    then ``primer`` other one-element kernels, then OBS_MARKERS
+    one-element kernels launched ``gap_us`` apart: how many it recorded,
+    and the index of the first recorded (the launches it missed after
+    its start)."""
+    import torch
+    from tony_tpu_torch.runtime import profiler as P
+    x = torch.zeros(1, device="cuda")
+    y = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    cap = P._Capture(os.path.join(directory, "markers"))
+    for _ in range(primer):
+        y.mul_(1.0)
+    t0 = time.perf_counter()
+    for _ in range(OBS_MARKERS):
+        x.add_(1)
+        until = time.perf_counter() + gap_us * 1e-6
+        while time.perf_counter() < until:
+            pass
+    span_ms = (time.perf_counter() - t0) * 1e3
+    path = cap.stop()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    ops = sorted((e["ts"], e["args"].get("External id")) for e in events
+                 if e.get("cat") == "cpu_op" and e.get("name") == "aten::add_")
+    order = {eid: i for i, (_, eid) in enumerate(ops)}
+    kernels = [order.get(e.get("args", {}).get("External id"), -1)
+               for e in events if e.get("cat") == "kernel"]
+    kernels = [k for k in kernels if k >= 0]
+    return dict(launched=OBS_MARKERS, ops=len(ops), kernels=len(kernels),
+                first=min(kernels) if kernels else None, span_ms=span_ms,
+                gap_us=gap_us, primer=primer)
+
+
+def _markers_text(m) -> str:
+    return (f"{m['kernels']} of {m['launched']} kernels ({m['ops']} aten "
+            f"ops) recorded, the first recorded is launch {m['first']} "
+            f"({m['gap_us']:.0f} us apart after {m['primer']} other "
+            f"kernels, {m['span_ms']:.1f} ms in all)")
+
+
+def _obs_ledger(out, report, card, cfg, params, directory):
+    """(c) A fresh ledger around run_training: as train_lm runs it (no
+    synchronisation, one asynchronous save) and with every step
+    synchronised; the category sum against the host wall, the shares,
+    the device time left after the loop returned; (d) the quiet step
+    wall, after the captures of (a) and (b)."""
+    import statistics
+
+    import torch
+    from tony_tpu_torch.models.checkpoint import CheckpointManager
+    from tony_tpu_torch.runtime import goodput as G
+    from tony_tpu_torch.runtime import metrics as M
+    res = {}
+    for label, timed, steps in (("as train_lm runs it", False,
+                                 OBS_LEDGER_STEPS),
+                                ("every step synchronised", True,
+                                 OBS_QUIET_STEPS)):
+        mgr = (None if timed else
+               CheckpointManager(os.path.join(directory, "ckpt"),
+                                 save_interval_steps=1000))
+        torch.cuda.synchronize()
+        led = G.GoodputLedger(registry=M.MetricsRegistry())
+        G.set_ledger(led)
+        try:
+            t0 = time.perf_counter()
+            _, _, walls, waits = _train_run(
+                cfg, params, steps, batch=OBS_BATCH, seq=OBS_SEQ,
+                checkpoint=mgr, timed=timed)
+            t1 = time.perf_counter()
+            snap = led.snapshot()
+        finally:
+            G.set_ledger(None)
+            if mgr is not None:
+                mgr.close()
+        torch.cuda.synchronize()
+        tail_ms = (time.perf_counter() - t1) * 1e3
+        wall = t1 - t0
+        total = sum(snap["cat"].values())
+        shares = _shares(snap)
+        r = dict(wall_s=wall, cat=snap["cat"], n=snap["n"], sw=snap["sw"],
+                 shares=shares, sum_minus_wall_ms=(total - wall) * 1e3,
+                 device_tail_ms=tail_ms)
+        if timed:
+            r["quiet_step_ms"] = statistics.median(walls[-8:]) * 1e3
+            r["walls_ms"] = [w * 1e3 for w in walls]
+        res["timed" if timed else "train_lm"] = r
+        cats = {k: round(v, 4) for k, v in snap["cat"].items()}
+        print(f"[22c] ledger over {steps} steps, {label}, on {card}: "
+              f"categories {cats} s, sum - host wall "
+              f"{r['sum_minus_wall_ms']:.4f} ms (limit 1 ms); shares step "
+              f"{shares['step']:.4f}, data_wait {shares['data_wait']:.4f}, "
+              f"checkpoint {shares['checkpoint']:.4f}, overhead "
+              f"{shares['overhead']:.4f}; closed steps {snap['sw']['c']}; "
+              f"device time left after the loop returned {tail_ms:.1f} ms",
+              flush=True)
+        if abs(total - wall) > 1e-3:
+            fail(f"the ledger's categories sum to {total:.6f} s, the host "
+                 f"wall is {wall:.6f} s")
+        if snap["sw"]["c"] != steps or snap["cat"].get("step", 0) <= 0:
+            fail(f"the ledger closed {snap['sw']['c']} steps of {steps}")
+    quiet = res["timed"]["quiet_step_ms"]
+    p9 = report.get("train", {}).get("step_ms")
+    origin = report.get("train", {}).get("step_ms_origin", "not run")
+    print(f"[22d] quiet step wall with the spans and the ledger: "
+          f"{quiet:.2f} ms (median of the last 8 synchronised steps) "
+          f"against phase 9's {_ms(p9)} ({origin}) on {card}", flush=True)
+    res["phase9_step_ms"], res["phase9_origin"] = p9, origin
+    out["ledger"] = res
+
+
+def _obs_cost(out):
+    """(d) The host cost of one step's spans and ledger intervals alone,
+    the loop's own calls on a recording tracer and a fresh ledger."""
+    from tony_tpu_torch.runtime import goodput as G
+    from tony_tpu_torch.runtime import metrics as M
+    from tony_tpu_torch.runtime import tracing as TT
+    res = {}
+    for label, ckpt in (("without", False), ("with", True)):
+        tr = TT.Tracer(proc="cost", sample_rate=1.0, spool_path="")
+        led = G.GoodputLedger(registry=M.MetricsRegistry())
+        t0 = time.perf_counter()
+        for step in range(OBS_COST_ITERS):
+            with tr.span("train.step", step=step) as sp:
+                with led.enter("data_wait"):
+                    pass
+                tr.record_span("train.data_wait", 0.0, parent=sp)
+                with tr.span("train.dispatch"), led.enter("step"):
+                    pass
+                if ckpt:
+                    with tr.span("train.checkpoint"), \
+                            led.enter("checkpoint"):
+                        pass
+        res[label] = (time.perf_counter() - t0) / OBS_COST_ITERS * 1e6
+    print(f"[22d] host cost of one step's spans and ledger intervals "
+          f"({OBS_COST_ITERS} iterations, recording tracer): "
+          f"{res['without']:.2f} us without a checkpoint offer, "
+          f"{res['with']:.2f} us with one", flush=True)
+    out["cost_us"] = res
+
+
+def _obs_live(out, card, cfg, params, directory):
+    """(b) A live capture through maybe_start, asked for from another
+    thread while run_training runs steps on this one; a second request
+    overlapping it is refused."""
+    import socket
+    import threading
+
+    from tony_tpu_torch.runtime import profiler as P
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"TONY_PROFILE_ENABLED": "true", "TB_PORT": str(port),
+           "TONY_PROFILE_DIR": os.path.join(directory, "live"),
+           "JOB_NAME": "chip", "TASK_INDEX": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    answers = {}
+    asker = threading.Thread(target=lambda: answers.update(
+        live=_capture_request(port, OBS_LIVE_MS)))
+
+    def hook(step):
+        if step == 1:
+            asker.start()
+            deadline = time.monotonic() + 60
+            while not P._capture_lock.locked():
+                if time.monotonic() > deadline:
+                    fail("the live capture never started")
+                time.sleep(0.001)
+            answers["overlap"] = _capture_request(port, 50)
+
+    try:
+        P._reset_server_state_for_tests()
+        t0 = time.perf_counter()
+        if not P.maybe_start():
+            fail("maybe_start did not bring the capture listener up")
+        start_s = time.perf_counter() - t0
+        _train_run(cfg, params, OBS_LIVE_STEPS, batch=OBS_BATCH,
+                   seq=OBS_SEQ, step_hook=hook)
+        asker.join(120)
+    finally:
+        P._reset_server_state_for_tests()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    code, body = answers.get("live", (None, {}))
+    ocode, obody = answers.get("overlap", (None, {}))
+    if code != 200:
+        fail(f"the live capture answered {code}: {body}")
+    traced, _, events = _trace_counts(body["trace"])
+    main_tid = threading.get_native_id()
+    ops = sum(1 for e in events if e.get("cat") == "cpu_op"
+              and e.get("tid") == main_tid)
+    print(f"[22b] live capture of {OBS_LIVE_MS} ms on port {port} (the "
+          f"listener up in {start_s:.2f} s, its warm-up included), asked "
+          f"for from another thread during {OBS_LIVE_STEPS} steps on "
+          f"{card}: the port's kernels {traced}, {ops} aten ops of the "
+          f"training thread; an overlapping request answered {ocode} "
+          f"({obody.get('error')})", flush=True)
+    out["live"] = dict(kernels=traced, training_thread_ops=ops,
+                       overlap=[ocode, obody], listener_start_s=start_s)
+    if not traced.get("K1") or not traced.get("K2"):
+        fail(f"the live capture holds K1/K2 {traced}, want both")
+    if not ops:
+        fail("the live capture holds no aten op of the training thread")
+    if ocode != 409:
+        fail(f"an overlapping live request answered {ocode}, not 409")
+
+
+def _obs_engine(out, card):
+    """(e) A ServeEngine over 4 requests of at most SHORT_BUDGET tokens,
+    then 0.5 s with nothing to do: its step and idle seconds."""
+    import threading
+
+    from tony_tpu_torch import serve_lm
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime import goodput as G
+    from tony_tpu_torch.runtime import metrics as M
+    cfg, params = serve_lm.build(OBS_PRESET, "cuda")
+    prompts, budgets = serve_lm.make_workload(0, PER_STEP_REQUESTS, 480,
+                                              SHORT_BUDGET, cfg.vocab_size,
+                                              min_prompt_len=64)
+    batcher = S.ContinuousBatcher(params, cfg, batch=8, max_len=1024,
+                                  chunk=8, pipeline=True)
+    done, retired = threading.Event(), []
+
+    def on_retired(rid, reason, emitted, final):
+        retired.append((rid, reason))
+        if len(retired) == len(prompts):
+            done.set()
+
+    eng = S.ServeEngine(batcher, on_retired=on_retired,
+                        registry=M.MetricsRegistry())
+    at = {}
+
+    def drive():
+        at["run"] = time.perf_counter()
+        eng.run()
+        at["ran"] = time.perf_counter()
+
+    th = threading.Thread(target=drive, daemon=True)
+    led = G.GoodputLedger(registry=M.MetricsRegistry())
+    G.set_ledger(led)
+    try:
+        t0 = time.perf_counter()
+        th.start()
+        for i, (p, b) in enumerate(zip(prompts, budgets)):
+            eng.submit(i, p, b)
+        if not done.wait(300):
+            fail("the engine did not retire its requests")
+        busy = time.perf_counter() - t0
+        time.sleep(0.5)
+        eng.drain()
+        th.join(60)
+        wall = time.perf_counter() - t0
+        snap = led.snapshot()
+    finally:
+        G.set_ledger(None)
+    cat = snap["cat"]
+    total = sum(cat.values())
+    print(f"[22e] ServeEngine on {card}: {len(prompts)} requests of at "
+          f"most {SHORT_BUDGET} tokens served in {busy:.3f} s, then 0.5 s "
+          f"with nothing to do: step {cat.get('step', 0):.4f} s, idle "
+          f"{cat.get('idle', 0):.4f} s, overhead {cat.get('overhead', 0):.4f}"
+          f" s (the engine thread entered run {at['run'] - t0:.4f} s "
+          f"into the window and left it {t0 + wall - at['ran']:.4f} s "
+          f"before its end); sum - wall {(total - wall) * 1e3:.4f} ms",
+          flush=True)
+    out["engine"] = dict(cat=cat, n=snap["n"], busy_s=busy, wall_s=wall,
+                         retired=retired, run_entered_s=at["run"] - t0,
+                         run_left_s=t0 + wall - at["ran"])
+    if not (cat.get("step", 0) > 0 and cat.get("idle", 0) > 0):
+        fail(f"the engine's ledger has step {cat.get('step')} and idle "
+             f"{cat.get('idle')}, want both > 0")
+    if abs(total - wall) > 1e-3:
+        fail(f"the engine's ledger sums to {total:.6f} s, its wall is "
+             f"{wall:.6f} s")
+
+
+def phase_observability(report, card):
+    """[22] What the orchestrator reads of a port process, on the card,
+    in a process of its own (``chip_smoke.py --observability``), as a
+    job's trainer runs; then (f) step traces in this long-lived process.
+    Returns the launch counts of both."""
+    import torch
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+           "--observability"]
+    p9 = report.get("train", {}).get("step_ms")
+    if p9 is not None:
+        cmd += [repr(p9), "measured by the parent process in this run"]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        print("\n".join(lines) + "\n" + proc.stderr[-4000:], flush=True)
+        fail(f"phase 22's process exited {proc.returncode}")
+    print("\n".join(lines[:-1]), flush=True)
+    out = json.loads(lines[-1])
+    report["observability"] = out["observability"]
+    launches = out["launches"]
+    for k, v in _obs_long_lived(report, card).items():
+        launches[k] += v
+    return launches
+
+
+def _obs_long_lived(report, card):
+    """(f) This process has run 21 phases: a capture here misses its
+    first GPU records (a count that grows with the process's history,
+    ``PERF.md`` §6). Marker captures 50 and 500 us apart and
+    after 128 other kernels, and a step trace held against the launch
+    counters; checks that 128 kernels launched first absorb the loss
+    and that the step trace lost only its first launches' kernels.
+    Returns the launch counts."""
+    import tempfile
+
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+
+    def counts():
+        return {"K1": A.flash_forward.launches,
+                "K2": A.flash_backward_fused.launches,
+                "K5": N.rms_norm_forward.launches}
+
+    A.reset_launches()
+    N.rms_norm_forward.launches = 0
+    cfg, params = train_lm.build(OBS_PRESET, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        marks = _loss_markers(tmp, "22f", "21 phases, in their process")
+        tr = _obs_trace(card, cfg, params, counts, tmp, "22f", check=False)
+    report["observability"]["long_lived"] = dict(markers=marks, trace=tr)
+    lost = {k: tr["counters"][k] - tr["traced"].get(k, 0)
+            for k in tr["counters"]}
+    print(f"[22f] after 21 phases the captures missed the first "
+          f"{[m['first'] for m in marks[:2]]} markers (50, 500 us apart) "
+          f"and {marks[2]['launched'] - marks[2]['kernels']} after 128 "
+          f"other kernels; the step trace missed K1/K2/K5 {lost} and "
+          f"{tr['edges'].get('launches_without_kernel')} launches' "
+          f"kernels, only the first launches': "
+          f"{tr['edges'].get('lost_only_first')}", flush=True)
+    if marks[2]["kernels"] != marks[2]["launched"]:
+        fail(f"after 128 other kernels the capture still missed markers: "
+             f"{_markers_text(marks[2])}")
+    if tr["edges"].get("launches_without_kernel") and not tr["edges"].get(
+            "lost_only_first"):
+        fail("the step trace lost kernels after its first recorded one")
+    c = counts()
+    return dict(k1=c["K1"], k2=c["K2"], k5=c["K5"])
+
+
+def _observability(report, card):
+    """Phase 22 in this process, in a job's order: (b) a live capture
+    through maybe_start (after its warm-up session) from another thread,
+    (a) OBS_TRACES successive StepTracer traces of run_training steps,
+    each counting K1/K2/K5 as the launch counters do, and a marker
+    capture, (c) the goodput ledger's carve-up of run_training's wall,
+    (d) the quiet step wall with the spans and ledger (after the
+    captures: no cost may linger) beside phase 9's, and their host cost
+    alone, (e) ServeEngine's step and idle seconds; returns the launch
+    counts."""
+    import tempfile
+
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+
+    def counts():
+        return {"K1": A.flash_forward.launches,
+                "K2": A.flash_backward_fused.launches,
+                "K5": N.rms_norm_forward.launches}
+
+    A.reset_launches()
+    N.rms_norm_forward.launches = 0
+    cfg, params = train_lm.build(OBS_PRESET, "cuda")
+    out = report["observability"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _obs_live(out, card, cfg, params, tmp)
+        out["traces"] = [
+            _obs_trace(card, cfg, params, counts, tmp,
+                       f"22a {i + 1} of {OBS_TRACES}")
+            for i in range(OBS_TRACES)]
+        m = out["markers"] = _capture_markers(tmp)
+        print(f"[22a] marker capture: {_markers_text(m)}", flush=True)
+        _obs_ledger(out, report, card, cfg, params, tmp)
+        _obs_cost(out)
+    _check_tc_variants("phase 22's training")
+    _obs_engine(out, card)
+    c = counts()
+    return dict(k1=c["K1"], k2=c["K2"], k5=c["K5"])
+
+
+def observability_main(phase9_step_ms, origin) -> int:
+    """Phase 22 alone in this process (module docstring): its lines,
+    then one JSON line of its numbers and launch counts."""
+    sys.path.insert(0, HERE)
+    card = phase_card()
+    from tony_tpu_torch.ops import _kernels
+    _kernels.build()
+    report = ({} if phase9_step_ms is None
+              else {"train": {"step_ms": phase9_step_ms,
+                              "step_ms_origin": origin}})
+    launches = _observability(report, card)
+    print(json.dumps({"observability": report["observability"],
+                      "launches": launches}, default=str), flush=True)
+    return 0
+
+
+def _loss_markers(tmp, tag, after) -> list:
+    """Marker captures 50 and 500 us apart, and 50 after 128 other
+    kernels, each printed; returns their numbers."""
+    res = []
+    for gap, primer in ((OBS_MARKER_GAP_US, 0), (500.0, 0),
+                        (OBS_MARKER_GAP_US, 128)):
+        m = _capture_markers(tmp, gap, primer)
+        print(f"[{tag}] after {after}: {_markers_text(m)}", flush=True)
+        res.append(m)
+    return res
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -6125,7 +6767,10 @@ def _lat_text(lat) -> str:
             f"ms ({lat['n']} requests)")
 
 
-def main() -> int:
+def main(bisect: bool = False) -> int:
+    """The whole script; with ``bisect`` (``--trace-loss-bisect``) marker
+    captures follow every phase, to find the one after which a capture
+    misses its first kernels."""
     if not os.path.isdir(os.path.join(HERE, "tony_tpu_torch")):
         fail("run chip_smoke.py from the repository root (tony_tpu_torch/ "
              "not found beside it)")
@@ -6141,6 +6786,10 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args)
         walls[name] = round(time.perf_counter() - t, 1)
+        if bisect:
+            import tempfile
+            with tempfile.TemporaryDirectory() as tmp:
+                _loss_markers(tmp, "loss bisect", f"phase {name}")
         return out
 
     timed("2 build", phase_build, report)
@@ -6165,6 +6814,7 @@ def main() -> int:
     moe = timed("19 moe", phase_moe, report, card, serve)
     cp = timed("20 cp", phase_cp, report, card)
     pp = timed("21 pipeline", phase_pipeline, report, card)
+    obs = timed("22 observability", phase_observability, report, card)
     print("[phase walls] " + ", ".join(f"{k} {v}s" for k, v in walls.items()),
           flush=True)
     # launches on the main paths, each counted from 0 over its own run:
@@ -6184,20 +6834,22 @@ def main() -> int:
     # ring and Ulysses over simulated ranks (K1, K2), the training steps
     # under the three remat policies and train_lm --cp_strategy (K1, K2,
     # K5); phase 21's pipelined steps over simulated pp ranks, the
-    # cross-slice stage gangs and train_lm --pp_schedule (K1, K2, K5)
+    # cross-slice stage gangs and train_lm --pp_schedule (K1, K2, K5);
+    # phase 22's run_training steps (traced, under the ledger, under a
+    # live capture: K1, K2, K5) and its ServeEngine (K1, K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
                       + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
-                      + moe["k1"] + cp["k1"] + pp["k1"])
+                      + moe["k1"] + cp["k1"] + pp["k1"] + obs["k1"])
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
                                 + files["k2"] + moe["k2"] + cp["k2"]
-                                + pp["k2"])
+                                + pp["k2"] + obs["k2"])
     bwd["dq"]["launches"] = counts["k3a"] + files["k3a"]
     bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"]
     k4["launches"] = counts["k4"] + moe["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
                                 + files["k5"] + moe["k5"] + cp["k5"]
-                                + pp["k5"])
+                                + pp["k5"] + obs["k5"])
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -6232,6 +6884,13 @@ def checkpoint_main(tree: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--observability"]:
+        sys.exit(observability_main(
+            float(sys.argv[2]) if len(sys.argv) > 2 else None,
+            sys.argv[3] if len(sys.argv) > 3
+            else "given on the command line"))
+    if sys.argv[1:2] == ["--trace-loss-bisect"]:
+        sys.exit(main(bisect=True))
     if sys.argv[1:2] == ["--checkpoint"]:
         sys.exit(checkpoint_main(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

@@ -19,13 +19,17 @@ worker holds one stage of the blocks (the twin of
 ``tests/test_e2e.py::test_distributed_pipeline_parallel_lm_trains``) and
 prints the schedule it resolved. Both workers' stdout must
 show the world-2 mesh line (``'ep': 2``, ``'cp': 2``, ``'pp': 2``) and
-``done:``, and the job must exit 0. The job's executors run through
-:func:`_executor_launcher`, so the machine-wide executor sweeps of the
-TPU backend's tests (see ``_killed_from_outside``) cannot reach them; a
-job that was killed from outside all the same is submitted again, up to
-4 times.
+``done:``, and the job must exit 0. A ten-step job with
+``tony.task.profile.*`` set shows what the orchestrator reads of it: each
+worker's ``GOODPUT`` entry, the ``train.step`` spans of both, and a
+trace of steps [5, 8) in each task's profile directory. The job's
+executors run through :func:`_executor_launcher`, so the machine-wide
+executor sweeps of the TPU backend's tests (see ``_killed_from_outside``)
+cannot reach them; a job that was killed from outside all the same is
+submitted again, up to 4 times.
 """
 
+import glob
 import os
 import re
 import signal
@@ -114,6 +118,64 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
         assert "done: final loss" in out, out
         if mesh and "pp" in mesh:
             assert "pipeline schedule: 1f1b" in out, out
+
+
+def test_port_train_lm_job_feeds_goodput_spans_and_traces(tmp_path):
+    """The orchestrator sees inside a port job: each worker's final
+    ``GOODPUT`` entry carves its wall into categories (``step`` > 0, ten
+    closed steps), ``train.step`` spans of both workers reach
+    ``TRACE_SPAN`` events, and ``tony.task.profile.*`` leaves each task a
+    Chrome trace of steps [5, 8) in its own profile directory."""
+    import json
+    from tony_tpu.events import events as ev
+    prof = tmp_path / "profiles"
+    conf = {
+        "tony.history.location": str(tmp_path / "tony-history"),
+        "tony.application.timeout": "120000",
+        "tony.worker.instances": "2",
+        "tony.task.heartbeat-interval-ms": "100",
+        "tony.task.profile.enabled": "true",
+        "tony.task.profile.dir": str(prof),
+        "tony.application.python-binary-path": _executor_launcher(tmp_path),
+    }
+    command = (f"{sys.executable} -m tony_tpu_torch.train_lm --device cpu "
+               f"--preset tiny --steps 10 --batch_size 2 --seq_len 32")
+    for attempt in range(4):
+        conf["tony.staging.dir"] = str(tmp_path / f"staging{attempt}")
+        conf["tony.history.location"] = str(tmp_path / f"hist{attempt}")
+        client = TonyClient(TonyConfig(conf), command,
+                            shell_env={"PYTHONPATH": REPO,
+                                       "OMP_NUM_THREADS": "2"})
+        rc = client.run()
+        if rc == 0 or not _killed_from_outside(client.job_dir):
+            break
+    assert rc == 0
+    events = [e for path in ev.find_job_files(conf["tony.history.location"])
+              for e in ev.parse_events(path)]
+    goodputs = [e for e in events if e.event_type == ev.GOODPUT]
+    assert goodputs, "no GOODPUT events reached the jhist"
+    tasks = goodputs[-1].payload["tasks"]
+    for tid in ("worker:0", "worker:1"):
+        entry = tasks[tid]
+        wall = entry["now"] - entry["t0"]
+        assert sum(entry["cat"].values()) == pytest.approx(wall, abs=0.02)
+        assert entry["cat"]["step"] > 0
+        assert entry["sw"]["c"] == 10
+    steps = {}
+    for e in events:
+        if e.event_type == ev.TRACE_SPAN:
+            for span in e.payload.get("spans", []):
+                if span["n"] == "train.step":
+                    steps.setdefault(e.payload.get("task"), set()).add(
+                        span["a"]["step"])
+    assert steps.get("worker:0") and steps.get("worker:1"), steps
+    for i in range(2):
+        traces = glob.glob(str(prof / f"worker-{i}" / "*.pt.trace.json"))
+        assert len(traces) == 1, traces
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        assert sorted(n for n in names if n.startswith("ProfilerStep#")) \
+            == ["ProfilerStep#5", "ProfilerStep#6", "ProfilerStep#7"]
 
 
 def _serve_lm(*args, **kw):

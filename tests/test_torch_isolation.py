@@ -43,7 +43,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
     for mod in ("models.serve", "ops.attention", "ops.optim",
                 "models.train", "models.loop", "models.checkpoint",
                 "io.prefetch", "train_lm", "ops.prng", "serve_lm",
-                "runtime.tracing", "runtime.metrics", "serving.protocol",
+                "runtime.tracing", "runtime.metrics", "runtime.goodput",
+                "runtime.profiler", "serving.protocol",
                 "serving.client", "serving.server", "serving.weightstore",
                 "conf.keys", "models.quantize", "models.decode",
                 "models.weights", "generate", "channels.channel",

@@ -305,6 +305,6 @@ def test_pytorch_arm_refuses_a_mesh_beyond_dp(monkeypatch):
 
 def test_env_names_equal_the_jax_package_constants():
     names = [n for n in dir(constants) if n.isupper()]
-    assert len(names) == 24
+    assert len(names) == 28
     for n in names:
         assert getattr(constants, n) == getattr(jconst, n), n

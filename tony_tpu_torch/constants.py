@@ -48,3 +48,13 @@ CHANNEL_PREV = "TONY_CHANNEL_PREV"
 CHANNEL_NEXT = "TONY_CHANNEL_NEXT"
 PIPELINE_INTERLEAVE = "TONY_PIPELINE_INTERLEAVE"
 CHANNEL_COMPRESSION = "TONY_CHANNEL_COMPRESSION"
+
+# observability (tony.task.profile.* and the goodput bridge): the port
+# the executor reserved for the TensorBoard / live-capture listener,
+# whether profiling is on and where traces go, and the file the
+# process's goodput ledger publishes its cumulative snapshot to (the
+# executor merges it into the ledger it ships on heartbeats)
+TB_PORT = "TB_PORT"
+TONY_PROFILE_ENABLED = "TONY_PROFILE_ENABLED"
+TONY_PROFILE_DIR = "TONY_PROFILE_DIR"
+TONY_GOODPUT_SPOOL = "TONY_GOODPUT_SPOOL"

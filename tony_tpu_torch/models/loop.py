@@ -7,9 +7,23 @@ wall each iteration spent blocked on ``next(data)``, the direct signal of
 an input-bound step — offers a checkpoint save every step, runs
 ``eval_fn`` every ``eval_every`` steps, and closes the data iterator
 (stopping its producer thread) in ``finally``. A step that fails because
-its gang did raises :class:`GangLostError`. The tracing spans and the
-goodput ledger of the JAX loop come with the slice that ports those
-modules.
+its gang did dumps the flight recorder and raises :class:`GangLostError`.
+
+What the orchestrator reads of it, as of the JAX loop:
+
+- spans (``runtime/tracing.py``, head-sampled): a ``train.step`` root
+  per step with ``train.data_wait``, ``train.dispatch``,
+  ``train.checkpoint`` and ``train.eval`` as children, spooled to the
+  executor and on to ``TRACE_SPAN`` events;
+- the goodput ledger (``runtime/goodput.py``): ``data_wait``, ``step``,
+  ``checkpoint`` and ``eval`` around the same calls, the exit join under
+  ``checkpoint``, published to the executor's spool at exit.
+
+The loop adds no device synchronisation. On the card the host runs ahead
+of the device, so ``step`` holds the host's dispatch of the step plus
+whatever ``step_fn`` waits for inside it (a loss read back, a full
+launch queue); device time the host did not wait for lands in the
+category the host was in when it did wait.
 """
 
 from __future__ import annotations
@@ -20,7 +34,9 @@ import sys
 import time
 from typing import Any, Callable, Iterable
 
+from tony_tpu_torch.runtime import goodput as goodput_mod
 from tony_tpu_torch.runtime import metrics as metrics_mod
+from tony_tpu_torch.runtime import tracing
 
 log = logging.getLogger(__name__)
 
@@ -99,38 +115,58 @@ def run_training(step_fn: Callable[[Any, Any], tuple[Any, dict]],
         buckets=DATA_WAIT_BUCKETS_S)
     metrics: dict = {}
     last_eval = None
+    tracer = tracing.get_tracer()
+    flight = tracing.get_flight()
+    ledger = goodput_mod.get_ledger()
     try:
         for step in range(start_step, steps):
             if step_hook is not None:
                 step_hook(step)
-            t0 = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                log.warning("data exhausted at step %d (wanted %d); "
-                            "stopping early", step, steps)
-                break
-            wait_hist.observe(time.perf_counter() - t0)
-            try:
-                state, metrics = step_fn(state, batch)
-            except Exception as e:
-                if _looks_like_gang_loss(e):
-                    log.warning("step %d failed with a collective/"
-                                "distributed-runtime error — gang lost: %s",
-                                step, e)
-                    raise GangLostError(str(e)) from e
-                raise
-            if checkpoint is not None:
-                checkpoint.save(step + 1, state)
-            if (eval_fn is not None and eval_every > 0
-                    and (step + 1) % eval_every == 0):
-                last_eval = eval_fn(state)
-            if last_eval is not None:
-                metrics = dict(metrics)
-                metrics["eval"] = last_eval
-            if log_fn is not None and (step % max(1, log_every) == 0
-                                       or step == steps - 1):
-                log_fn(step, metrics, batch)
+            with tracer.span("train.step", step=step) as step_span:
+                t0 = time.perf_counter()
+                try:
+                    with ledger.enter("data_wait"):
+                        batch = next(it)
+                except StopIteration:
+                    log.warning("data exhausted at step %d (wanted %d); "
+                                "stopping early", step, steps)
+                    break
+                wait = time.perf_counter() - t0
+                wait_hist.observe(wait)
+                tracer.record_span("train.data_wait", wait,
+                                   parent=step_span)
+                try:
+                    with tracer.span("train.dispatch"), \
+                            ledger.enter("step"):
+                        state, metrics = step_fn(state, batch)
+                except Exception as e:
+                    if _looks_like_gang_loss(e):
+                        # the flight ring dumps first: the step-level
+                        # postmortem of what died mid-collective outlives
+                        # the process
+                        log.warning(
+                            "step %d failed with a collective/"
+                            "distributed-runtime error — gang lost: %s",
+                            step, e)
+                        flight.record("gang_lost", step=step,
+                                      error=str(e)[:500])
+                        flight.dump("gang_lost", step=step)
+                        raise GangLostError(str(e)) from e
+                    raise
+                if checkpoint is not None:
+                    with tracer.span("train.checkpoint"), \
+                            ledger.enter("checkpoint"):
+                        checkpoint.save(step + 1, state)
+                if (eval_fn is not None and eval_every > 0
+                        and (step + 1) % eval_every == 0):
+                    with tracer.span("train.eval"), ledger.enter("eval"):
+                        last_eval = eval_fn(state)
+                if last_eval is not None:
+                    metrics = dict(metrics)
+                    metrics["eval"] = last_eval
+                if log_fn is not None and (step % max(1, log_every) == 0
+                                           or step == steps - 1):
+                    log_fn(step, metrics, batch)
     finally:
         close = getattr(data, "close", None)
         if close is not None:
@@ -138,7 +174,8 @@ def run_training(step_fn: Callable[[Any, Any], tuple[Any, dict]],
         if checkpoint is not None:
             failing = sys.exc_info()[1]
             try:
-                checkpoint.wait_until_finished()
+                with ledger.enter("checkpoint"):
+                    checkpoint.wait_until_finished()
             except Exception:
                 if failing is None:
                     raise
@@ -146,4 +183,7 @@ def run_training(step_fn: Callable[[Any, Any], tuple[Any, dict]],
                 # code is what the executor reads, and a sharded write
                 # in flight fails with the gang that died under the step
                 log.exception("a checkpoint save failed too")
+        # the final breakdown reaches the executor even when the loop ends
+        # between two throttled publishes
+        ledger.publish()
     return state, metrics

@@ -85,7 +85,11 @@ row's K/V, last-real logits and rng stream state as a
 through :meth:`ServeEngine.submit_prefilled` and lands it with
 :func:`land_kv_rows` — host-to-device copies of the real rows, no model
 forward — inside its own admission sweep, on the thread and stream that
-own the cache. Not ported yet: the goodput ledger.
+own the cache.
+
+The engine's driving thread feeds the process's goodput ledger
+(``runtime/goodput.py``): its wall is ``step`` (producing tokens) but
+for its blocks on the admission condition, which are ``idle``.
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ from tony_tpu_torch.models.decode import (_check_draft_vocab, _check_no_ring,
                                           to_device)
 from tony_tpu_torch.models.weights import params_from_numpy
 from tony_tpu_torch.ops import prng
+from tony_tpu_torch.runtime import goodput as goodput_mod
 from tony_tpu_torch.runtime import metrics as metrics_mod
 from tony_tpu_torch.runtime import tracing
 from tony_tpu_torch.runtime.profiler import PhaseTimes
@@ -1836,10 +1841,13 @@ class ServeEngine:
             raise RuntimeError("batcher is already driven by an engine")
         self.b._engine_running = True
         try:
-            if self.b.pipeline:
-                self._run_pipelined()
-            else:
-                self._run_sequential()
+            # goodput: the driving thread's wall is "step" but for the
+            # blocks in _wait_for_work, which re-enter "idle"
+            with goodput_mod.get_ledger().enter("step"):
+                if self.b.pipeline:
+                    self._run_pipelined()
+                else:
+                    self._run_sequential()
         finally:
             # seal the engine even on an abnormal exit: late submits must
             # raise rather than enqueue into a dead engine
@@ -1884,7 +1892,8 @@ class ServeEngine:
                     return True
                 if self._draining:
                     return False
-                self._work.wait()
+                with goodput_mod.get_ledger().enter("idle"):
+                    self._work.wait()
 
     def _pop_admissible_locked(self, free: int, occ: dict):
         """The next admissible waiting request in class order under the

@@ -23,8 +23,9 @@ The executor exports one of two bootstraps (``tony_tpu_torch.constants``):
 A single process (a bare run, or a one-task job) still builds a world-1
 group, so that one code path — the mesh, DTensor params, the sharded step
 and checkpoints — serves 1 and N processes. The helpers here read the
-environment only; the submodules ``metrics`` and ``profiler`` hold the
-host-side timing and metrics.
+environment only; the submodules ``metrics``, ``tracing``, ``goodput``
+and ``profiler`` hold what the orchestrator reads of a task: metrics,
+spans and flight dumps, the goodput ledger, and traces.
 """
 
 from __future__ import annotations
@@ -110,11 +111,14 @@ def initialize(device=None, timeout_s: float = GROUP_TIMEOUT_S) -> TaskInfo:
     (``device="cpu"``). With a rendezvous in the environment it is used
     (rank 0 binds it); a lone process with none builds its world-1 group
     in memory. Idempotent: a process that already has a group keeps it
-    (on the same backend)."""
+    (on the same backend). Either way it then starts the task's profiler
+    capture listener when ``tony.task.profile.enabled`` is set
+    (:func:`profiler.maybe_start`, idempotent too)."""
     import torch
     import torch.distributed as dist
 
     from tony_tpu_torch import resolve_device
+    from tony_tpu_torch.runtime import profiler
     info = task_info()
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -122,6 +126,7 @@ def initialize(device=None, timeout_s: float = GROUP_TIMEOUT_S) -> TaskInfo:
         if dist.get_backend() != backend:
             raise RuntimeError(f"the process group runs {dist.get_backend()}"
                                f", not {backend} for {dev}")
+        profiler.maybe_start()
         return info
     if info.is_distributed and not info.init_method:
         raise RuntimeError(f"{info.num_processes} processes but no "
@@ -139,6 +144,7 @@ def initialize(device=None, timeout_s: float = GROUP_TIMEOUT_S) -> TaskInfo:
         dist.init_process_group(backend, init_method=info.init_method, **kw)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), **kw)
+    profiler.maybe_start()
     return info
 
 

@@ -28,7 +28,10 @@ and no ``--device cpu`` it raises. With ``--ckpt_dir`` holding a
 checkpoint the run resumes from it (sharded, collectively). Prints the
 JAX script's lines: ``[job:index] attempt=… mesh={…} devices=N``, ``step
 {s} loss {l} tok/s {r}`` (global tokens) every 20 steps and ``done:
-final loss {l}``.
+final loss {l}``. With ``tony.task.profile.dir`` set, steps
+``[start + 5, start + 8)`` are traced into the task's profile directory
+(``runtime.profiler.StepTracer``); the loop feeds the goodput ledger and
+the step spans the executor ships.
 
 ``--num_experts E`` trains a mixture-of-experts model (the preset's
 widths, E silu experts a layer); the experts split over the mesh's ``ep``
@@ -74,6 +77,7 @@ from tony_tpu_torch.models.train import (batch_sharding, data_parallel_rank,
                                          default_optimizer, init_state,
                                          make_train_step)
 from tony_tpu_torch.parallel import mesh_shape, shard_pytree
+from tony_tpu_torch.runtime.profiler import StepTracer
 
 
 def synthetic_source(seed: int, batch: int, seq: int, vocab: int):
@@ -232,6 +236,7 @@ def main(argv=None) -> int:
     state = (mgr.restore_or_init(lambda: init_state(params, opt))
              if mgr else init_state(params, opt))
     start_step = int(state["step"])
+    tracer = StepTracer(start=start_step + 5, stop=start_step + 8)
 
     # split or seeded by the data-parallel rank, not the task index:
     # processes that share a batch shard (tp, cp) must feed identical data
@@ -258,13 +263,21 @@ def main(argv=None) -> int:
                  * (step - start_step + 1) / (time.perf_counter() - t0))
         print(f"step {step} loss {loss:.4f} tok/s {tok_s:,.0f}", flush=True)
 
+    failing = True
     try:
         state, metrics = run_training(
             step_fn, state, data, args.steps, start_step=start_step,
-            checkpoint=mgr, log_every=20, log_fn=log_fn)
+            checkpoint=mgr, log_every=20, log_fn=log_fn,
+            step_hook=tracer.step)
+        failing = False
     except GangLostError as e:
         print(f"gang lost: {e}", flush=True)
         return e.exit_code
+    finally:
+        # a failing loop's capture closes without waiting on the card and
+        # logs its own errors, so the gang-lost exit code reaches the
+        # executor
+        tracer.close(failing=failing)
     if mgr:
         mgr.close()
     loss = float(metrics["loss"]) if metrics else float("nan")
