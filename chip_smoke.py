@@ -305,6 +305,28 @@ result:
    a step trace held against the launch counters (a capture here misses
    its first GPU records): the capture after 128 other kernels records
    every marker, and the trace lost only its first launches' kernels;
+23. fleet operations over port replicas, phase 5's ``small`` bf16
+   weights and 8 slots of 48 positions: (a) a ``FleetController``
+   (hysteresis 2, cooldown 3, 1 to 2 replicas) over a ``ServingRouter``
+   and one in-process ``ServingServer``, ticked every 0.1 s by this
+   thread, its provider growing in-process replicas warmed by a
+   ``ChannelWarmer`` the first one seeds: an ``open_loop_load`` burst of
+   80 requests of 16 tokens 50 ms apart (classes in rotation) gives exactly one
+   scale-up, warmed peer to peer (no fallback, no failure, the target's
+   resident digest the seeder's, sessions served there), then a trickle
+   of 12 gives exactly one scale-down by drain; every stream at its
+   budget; TTFT and ITL p99 before, during and after the scale-up;
+   ``start()``/``stop()`` tick the timer loop; (b) ``SubprocessProvider``
+   grows ``python -m tony_tpu_torch.serve_lm --preset small --slots 8
+   --listen 127.0.0.1:0 --weights_version v2`` on the card (booting
+   beside (a)), and ``rolling_upgrade`` moves 8 live streams of 32
+   tokens off two v1 in-process replicas onto it, one terminal frame
+   each at its budget, the v1 replicas retired and released; the
+   process exits 0 within 10 s of its release; (c) (a) in f32 with 8
+   requests of 16 tokens, the scale-down draining the warmed replica's
+   live streams: every stream equal to the unscaled colocated run (the
+   near-tie rule); K1 and K5 counted from 0 over each drill against its
+   admissions and forwards;
 then a line of each phase's wall, a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -4314,7 +4336,7 @@ _DRAIN_HELPER = ("import sys; from tony_tpu_torch import serve_lm; "
                  "sys.exit(serve_lm.main(sys.stdin.readline().split()))")
 
 
-def _started_streams(c, prompts, budget):
+def _started_streams(c, prompts, budget, what="phase 17d"):
     """Submit; return once every stream has its first tokens."""
     import queue
     rids = [c.submit(p, budget) for p in prompts]
@@ -4328,14 +4350,14 @@ def _started_streams(c, prompts, budget):
                 except queue.Empty:
                     continue
                 if ev[0] != "tokens":
-                    fail(f"phase 17d: stream {r} ended early: {ev}")
+                    fail(f"{what}: stream {r} ended early: {ev}")
                 got[r].extend(ev[1])
     if any(not got[r] for r in rids):
-        fail("phase 17d: the streams never started")
+        fail(f"{what}: the streams never started")
     return rids, got
 
 
-def _collect_streams(c, rids, got):
+def _collect_streams(c, rids, got, what="phase 17d"):
     """Read every stream to its ONE terminal frame (RETIRED)."""
     for r in rids:
         while True:
@@ -4345,7 +4367,20 @@ def _collect_streams(c, rids, got):
             elif ev[0] == "retired":
                 break
             else:
-                fail(f"phase 17d: stream {r}: {ev}")
+                fail(f"{what}: stream {r}: {ev}")
+
+
+def _paced(delay_s):
+    """A ContinuousBatcher whose fetches wait ``delay_s`` (streams stay
+    mid-flight while the fleet changes under them)."""
+    from tony_tpu_torch.models import serve as S
+
+    class Paced(S.ContinuousBatcher):
+        def _fetch(self, handle):
+            time.sleep(delay_s)
+            return super()._fetch(handle)
+
+    return Paced
 
 
 def _failover_f32(rep, serve):
@@ -4355,7 +4390,6 @@ def _failover_f32(rep, serve):
     every stream equal to the unfailed run (near-tie rule)."""
     import torch
     from tony_tpu_torch import tree_map
-    from tony_tpu_torch.models import serve as S
     from tony_tpu_torch.runtime.metrics import MetricsRegistry
     from tony_tpu_torch.serving.client import StreamingClient
     from tony_tpu_torch.serving.disagg import DecodeServer
@@ -4363,13 +4397,8 @@ def _failover_f32(rep, serve):
     params = tree_map(lambda v: v.float(), serve["params"])
     prompts, budget = serve["prompts"][:8], 128
 
-    class Paced(S.ContinuousBatcher):
-        def _fetch(self, handle):
-            time.sleep(0.02)            # keep the streams mid-flight
-            return super()._fetch(handle)
-
     def decoder():
-        return Paced(params, cfg, batch=4, max_len=1024, chunk=8)
+        return _paced(0.02)(params, cfg, batch=4, max_len=1024, chunk=8)
 
     regs = [MetricsRegistry() for _ in range(3)]
     stack = _stack(params, cfg, [decoder(), decoder()], regs, max_batch=4)
@@ -6753,6 +6782,586 @@ def _loss_markers(tmp, tag, after) -> list:
     return res
 
 
+# phase 23: fleet operations ---------------------------------------------
+
+#: the phase's replicas hold ``serve_lm --slots 8``'s cache (prompt_len
+#: 16 + max_new_tokens 32 positions), so any stream of theirs fits the
+#: process replica a rolling upgrade moves it to
+FLEET_SLOTS, FLEET_MAX_LEN, FLEET_PROMPT = 8, 48, 8
+FLEET_TICK_S = 0.1
+#: the routers' STATS pings (3 unanswered mark a replica down)
+FLEET_PING_S = 0.2
+FLEET_UP_Q = 4.0
+#: 23a's burst: 80 requests 50 ms apart, more than one replica serves,
+#: arriving for 4 s: past the scale-up, whose warm ship takes seconds
+#: (serving ``small`` is bound by the host's dispatch of each decode
+#: step: PERF.md §5)
+FLEET_BURST, FLEET_GAP_S = 80, 0.05
+#: the process replica: phase 5's weights (``build`` seeds them alike)
+#: as generation v2, on the card (no ``--device``)
+FLEET_ARGV = ("-m", "tony_tpu_torch.serve_lm", "--preset", "small",
+              "--slots", "8", "--listen", "127.0.0.1:0",
+              "--weights_version", "v2")
+
+
+class _Replicas:
+    """The phase's capacity (a ``CapacityProvider``): ``grow`` starts
+    ``ServingServer``s in this process over fresh batchers of one set of
+    weights; ``release`` stops the server behind an address, or hands
+    an address ``procs`` (a ``SubprocessProvider``) grew back to it."""
+
+    def __init__(self, make_batcher, version, procs=None):
+        self.make_batcher = make_batcher
+        self.version = version
+        self.procs = procs
+        self.servers = {}                   # live
+        self.grown = {}                     # every server grown
+        self.released = []
+
+    def grow(self, n):
+        from tony_tpu_torch.runtime.metrics import MetricsRegistry
+        from tony_tpu_torch.serving.server import ServingServer
+        out = []
+        for _ in range(n):
+            srv = ServingServer(self.make_batcher(),
+                                weights_version=self.version,
+                                registry=MetricsRegistry())
+            addr = f"127.0.0.1:{srv.start()}"
+            self.servers[addr] = self.grown[addr] = srv
+            out.append(addr)
+        return out
+
+    def release(self, addrs):
+        for addr in addrs:
+            self.released.append(addr)
+            if addr in self.servers:
+                self.servers.pop(addr).stop()
+            elif self.procs is not None:
+                self.procs.release([addr])
+
+    def stop(self):
+        for srv in self.servers.values():
+            srv.stop()
+        self.servers.clear()
+
+
+def _zero_launches():
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    A.reset_launches()
+    N.rms_norm_forward.launches = 0
+    S.CALL_COUNTS.clear()
+
+
+def _fleet_launches(what, cfg, bf16):
+    """(K1, K5) since :func:`_zero_launches`, held against the model calls
+    the replicas made (K1 n_layers an ``admit_rows`` call, K5 2 x
+    n_layers + 1 a model forward); bf16 launches on the tensor-core K1."""
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+    L = cfg.n_layers
+    k1, k5 = A.flash_forward.launches, N.rms_norm_forward.launches
+    admits = sum(c for (name, _), c in S.CALL_COUNTS.items()
+                 if name == "admit_rows")
+    forwards = sum(c * (shape[1] if name == "step_rows" else 1)
+                   for (name, shape), c in S.CALL_COUNTS.items()
+                   if name in ("admit_rows", "admit_row", "step_rows"))
+    if bf16:
+        _check_tc_variants(what)
+    if admits == 0 or k1 != L * admits or k5 != (2 * L + 1) * forwards:
+        fail(f"{what}: K1 {k1} over {admits} admit_rows calls, K5 {k5} over "
+             f"{forwards} forwards (want {L} and {2 * L + 1} each)")
+    return k1, k5
+
+
+def _recorded_drains(router):
+    """Record every drain summary the router returns (the controller
+    keeps only a log line of them)."""
+    drains, plain = [], router.drain
+
+    def drain(addr, timeout_s=120.0):
+        drains.append(plain(addr, timeout_s=timeout_s))
+        return drains[-1]
+
+    router.drain = drain
+    return drains
+
+
+def _itl_snapshot(reg):
+    """The router's inter-token histograms, summed over the classes, as
+    cumulative bucket counts."""
+    from tony_tpu_torch.models.serve import QOS_CLASSES
+    hs = [reg.histogram("tony_serve_intertoken_seconds", **{"class": c})
+          for c in QOS_CLASSES]
+    return [sum(col) for col in zip(*(h.cumulative() for h in hs))]
+
+
+def _window_p99_ms(bounds, lo, hi):
+    """p99 (ms) of the observations between two cumulative snapshots,
+    interpolated in its bucket as Prometheus's ``histogram_quantile``
+    does; None when the window saw none."""
+    d = [b - a for a, b in zip(lo, hi)]
+    if not d or d[-1] <= 0:
+        return None
+    rank, prev_c, prev_b = 0.99 * d[-1], 0, 0.0
+    for b, c in zip(list(bounds) + [None], d):
+        if c >= rank:
+            if b is None:
+                return prev_b * 1e3
+            return (prev_b + (b - prev_b) * (rank - prev_c)
+                    / max(c - prev_c, 1e-12)) * 1e3
+        prev_c, prev_b = c, b
+    return None
+
+
+def _load(port, n, interval_s, seed_base):
+    """``open_loop_load`` of ``n`` requests of 16 tokens, the classes in
+    rotation, on a thread; returns (thread, box): ``box["t0"]`` its
+    start, ``box["records"]`` its records once it ends."""
+    import threading
+    from tony_tpu_torch.models.serve import QOS_CLASSES
+    from tony_tpu_torch.serving.simfleet import open_loop_load
+    box = {}
+
+    def run():
+        box["t0"] = time.monotonic()
+        box["records"] = open_loop_load(
+            port, [QOS_CLASSES[i % 3] for i in range(n)],
+            interval_s=interval_s, max_new=16, prompt_len=FLEET_PROMPT,
+            seed_base=seed_base, event_timeout=120)
+
+    th = threading.Thread(target=run, name="tony-fleet-load", daemon=True)
+    th.start()
+    return th, box
+
+
+def _check_records(what, records, budget):
+    bad = [(i, r["error"], r["shed"], len(r["tokens"]))
+           for i, r in enumerate(records)
+           if r["error"] or r["shed"] or len(r["tokens"]) != budget]
+    if bad:
+        fail(f"{what}: {len(bad)} of {len(records)} streams did not end at "
+             f"their budget of {budget}: {bad[:5]}")
+
+
+def _no_second_terminal(c, rids, what):
+    """After every stream's terminal frame: 0.2 s later, no stream has
+    another frame."""
+    import queue
+    time.sleep(0.2)
+    for r in rids:
+        try:
+            ev = c.next_event(r, timeout=0)
+        except queue.Empty:
+            continue
+        fail(f"{what}: stream {r} had a frame after its terminal: {ev}")
+
+
+def _await_load(router, addr, at_least, what):
+    """Wait until the router's STATS of ``addr`` report a load of at
+    least ``at_least``."""
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        rep = router.stats()["replicas"].get(addr, {})
+        if rep.get("reported_load", 0) >= at_least:
+            return
+        time.sleep(0.01)
+    fail(f"{what}: {addr} never reported a load of {at_least}")
+
+
+def _fleet_prompts(n, vocab, seed):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [[int(t) for t in rs.randint(0, vocab, size=FLEET_PROMPT)]
+            for _ in range(n)]
+
+
+def _fleet_autoscale(rep, card, params, cfg):
+    """[23a] a router over one in-process replica; a FleetController
+    (hysteresis 2, cooldown 3, 1 to 2 replicas) growing in-process
+    replicas of the same weights, warmed by a ChannelWarmer the first
+    replica seeds, ticked by this thread every FLEET_TICK_S; an
+    open-loop burst over the scale-up threshold, then a trickle under
+    the scale-down one. Returns (K1, K5)."""
+    from tony_tpu_torch import serve_lm
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import (TIME_BUCKETS_S,
+                                                MetricsRegistry)
+    from tony_tpu_torch.serving.fleet import FleetController
+    from tony_tpu_torch.serving.router import ServingRouter
+    from tony_tpu_torch.serving.weightstore import ChannelWarmer
+
+    prov = _Replicas(lambda: S.ContinuousBatcher(
+        params, cfg, batch=FLEET_SLOTS, max_len=FLEET_MAX_LEN, chunk=8),
+        "v1")
+    (seed,) = prov.grow(1)
+    seeder = prov.servers[seed]
+    rreg = MetricsRegistry()
+    router = ServingRouter([seed], health_interval_s=FLEET_PING_S,
+                           registry=rreg)
+    router.start()
+    warmer = ChannelWarmer(seeder.weights_digest, [seed], timeout_s=60)
+    warm_walls, plain_warm = [], warmer.warm
+
+    def timed_warm(targets):
+        t = time.perf_counter()
+        res = plain_warm(targets)
+        warm_walls.append(time.perf_counter() - t)
+        return res
+
+    warmer.warm = timed_warm
+    creg = MetricsRegistry()
+    ctrl = FleetController(router, prov, min_replicas=1, max_replicas=2,
+                           up_queue_per_replica=FLEET_UP_Q,
+                           down_utilization=0.3, hysteresis_ticks=2,
+                           cooldown_ticks=3, interval_s=FLEET_TICK_S,
+                           drain_timeout_s=60, registry=creg, warmer=warmer)
+    drains = _recorded_drains(router)
+    ticks = []
+
+    def tick():
+        t0, lo = time.monotonic(), _itl_snapshot(rreg)
+        action = ctrl.tick()
+        ticks.append(dict(t0=t0, t1=time.monotonic(), action=action, lo=lo,
+                          hi=_itl_snapshot(rreg)))
+        time.sleep(max(0.0, t0 + FLEET_TICK_S - time.monotonic()))
+        return action
+
+    try:
+        _zero_launches()
+        snap0 = _itl_snapshot(rreg)
+        burst, bbox = _load(router.port, FLEET_BURST, FLEET_GAP_S, 1000)
+        while burst.is_alive():
+            tick()
+        snap1 = _itl_snapshot(rreg)
+        n_burst = len(ticks)
+        trickle, tbox = _load(router.port, 12, 0.25, 2000)
+        deadline = time.monotonic() + 30
+        while (trickle.is_alive() or "down" not in
+               [t["action"] for t in ticks]) and time.monotonic() < deadline:
+            tick()
+        trickle.join(timeout=60)
+        k1, k5 = _fleet_launches("phase 23a", cfg, bf16=True)
+        actions = [t["action"] for t in ticks]
+        ups = [i for i, a in enumerate(actions) if a == "up"]
+        downs = [i for i, a in enumerate(actions) if a == "down"]
+        if len(ups) != 1 or ups[0] >= n_burst or len(downs) != 1:
+            fail(f"phase 23a: actions {actions} (burst ticks {n_burst}): "
+                 f"want one 'up' under the burst, then one 'down'")
+        _check_records("phase 23a burst", bbox["records"], 16)
+        _check_records("phase 23a trickle", tbox["records"], 16)
+        warm = ctrl.last_warm or {}
+        grown = [a for a in prov.grown if a != seed]
+        if (warm.get("warmed") != grown or len(grown) != 1
+                or warm.get("fallback") or warm.get("failed")):
+            fail(f"phase 23a: the warm pass {warm} (grown {grown}): want one "
+                 f"peer ship, no fallback, no failure")
+        new = prov.grown[grown[0]]
+        resident = new.weight_store.resident_digests()
+        if resident != [seeder.weights_digest]:
+            fail(f"phase 23a: the warmed replica holds {resident}, the seeder "
+                 f"{seeder.weights_digest}")
+        if new.batcher.steps_executed == 0:
+            up = ticks[ups[0]]
+            fail(f"phase 23a: the router placed no session on the warmed "
+                 f"replica ('up' {up['t0'] - bbox['t0']:.3f}s into the "
+                 f"burst, for {up['t1'] - up['t0']:.3f}s; the warm pass "
+                 f"{warm_walls}s; drains {drains})")
+        drain = drains[0] if drains else {}
+        if len(drains) != 1 or not drain.get("drained"):
+            fail(f"phase 23a: drains {drains}")
+        # the timer loop: start() ticks on its own thread until stop()
+        timer_ticks, plain_tick = [], ctrl.tick
+        ctrl.tick = lambda: timer_ticks.append(plain_tick()) or \
+            timer_ticks[-1]
+        ctrl.start()
+        time.sleep(4.5 * FLEET_TICK_S)
+        ctrl.stop()
+        if len(timer_ticks) < 2 or set(timer_ticks) != {"hold"}:
+            fail(f"phase 23a: the timer loop ticked {timer_ticks}")
+    finally:
+        ctrl.stop()
+        router.stop()
+        prov.stop()
+    records = bbox["records"]
+    up = ticks[ups[0]]
+    submits = [bbox["t0"] + i * FLEET_GAP_S for i in range(len(records))]
+
+    def ttft_p99(lo, hi):
+        ts = [r["ttft_s"] for s, r in zip(submits, records) if lo <= s < hi]
+        return serve_lm.percentile_ms(ts, 99), len(ts)
+
+    windows = {
+        "before": (ttft_p99(0.0, up["t0"]),
+                   _window_p99_ms(TIME_BUCKETS_S, snap0, up["lo"])),
+        "during": (ttft_p99(up["t0"], up["t1"]),
+                   _window_p99_ms(TIME_BUCKETS_S, up["lo"], up["hi"])),
+        "after": (ttft_p99(up["t1"], float("inf")),
+                  _window_p99_ms(TIME_BUCKETS_S, up["hi"], snap1))}
+    ship_bytes = seeder._weight_ship_bytes_c.value
+    ship_h = seeder._weight_ship_h
+    print(f"[23a] autoscale in process on {card}: {len(records)} + "
+          f"{len(tbox['records'])} open-loop requests of 16 tokens, every "
+          f"one at its budget; 'up' at tick {ups[0] + 1} of the burst "
+          f"({up['t0'] - bbox['t0']:.3f}s after the load began; the "
+          f"action {up['t1'] - up['t0']:.3f}s), 'down' by drain at tick "
+          f"{downs[0] + 1} ({drain['migrated']} streams migrated, drain "
+          f"{drain['wall_s']:.3f}s); warmed peer to peer {warm['warmed']} "
+          f"({ship_bytes:.0f} B shipped, publish {ship_h.sum:.3f}s, the "
+          f"warm pass {warm_walls[0]:.3f}s), resident digest "
+          f"{seeder.weights_digest[:12]}… equal to the seeder's, "
+          f"{new.batcher.steps_executed} decode steps served there; the timer "
+          f"loop ticked {len(timer_ticks)} times; K1 {k1}, K5 {k5}",
+          flush=True)
+    for name, ((tt, n_tt), itl) in windows.items():
+        print(f"[23a]   {name} the scale-up: TTFT p99 {tt:.1f} ms over {n_tt} "
+              f"requests, ITL p99 "
+              + (f"{itl:.1f} ms" if itl is not None else "n/a")
+              + f" (router histogram, bucket-interpolated) on {card}",
+              flush=True)
+    rep["autoscale"] = dict(
+        actions=actions, burst_ticks=n_burst, up_tick=ups[0] + 1,
+        up_after_s=up["t0"] - bbox["t0"], up_wall_s=up["t1"] - up["t0"],
+        down_tick=downs[0] + 1, drain=drain, warm=warm,
+        ship_bytes=ship_bytes, publish_s=ship_h.sum,
+        warm_wall_s=warm_walls[0], timer_ticks=len(timer_ticks),
+        windows={k: dict(ttft_p99_ms=v[0][0], n=v[0][1], itl_p99_ms=v[1])
+                 for k, v in windows.items()},
+        k1=k1, k5=k5)
+    return k1, k5
+
+
+def _fleet_upgrade(rep, card, params, cfg, procs, boot):
+    """[23b] two in-process v1 replicas (fetches paced 50 ms, so streams
+    stay mid-flight) behind a router carry 8 streams of 32 tokens; a
+    FleetController's rolling_upgrade onto the v2 ``serve_lm`` process
+    ``procs`` grew: drained one by one, retired, released; then the
+    process is released. Returns (K1, K5) of the in-process replicas."""
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.fleet import FleetController
+    from tony_tpu_torch.serving.router import ServingRouter
+
+    if "addr" not in boot:
+        fail(f"phase 23b: the serve_lm process did not come up: "
+             f"{boot.get('error')}")
+    v2 = boot["addr"]
+    proc = procs._procs[v2][0]
+    prov = _Replicas(lambda: _paced(0.05)(
+        params, cfg, batch=FLEET_SLOTS, max_len=FLEET_MAX_LEN, chunk=2),
+        "v1", procs=procs)
+    v1 = prov.grow(2)
+    router = ServingRouter(v1, health_interval_s=FLEET_PING_S,
+                           registry=MetricsRegistry())
+    creg = MetricsRegistry()
+    ctrl = FleetController(router, prov, drain_timeout_s=60, registry=creg)
+    budget = 32
+    try:
+        _zero_launches()
+        router.start()
+        with StreamingClient("127.0.0.1", router.port) as c:
+            hello = _tier_stats(v2)
+            if hello.get("weights_version") != "v2":
+                fail(f"phase 23b: the process replica reports {hello}")
+            rids, got = _started_streams(
+                c, _fleet_prompts(8, cfg.vocab_size, 23), budget,
+                "phase 23b")
+            t0 = time.perf_counter()
+            results = ctrl.rolling_upgrade([v2])
+            upgrade_wall = time.perf_counter() - t0
+            _collect_streams(c, rids, got, "phase 23b")
+            _no_second_terminal(c, rids, "phase 23b")
+            after = c.stats()["replicas"]
+        k1, k5 = _fleet_launches("phase 23b", cfg, bf16=True)
+    finally:
+        router.stop()
+        prov.stop()
+    if (sorted(results) != sorted(v1)
+            or not all(r.get("drained") for r in results.values())
+            or sorted(prov.released) != sorted(v1) or set(after) != {v2}
+            or creg.counter("tony_fleet_upgrades_total").value != 1):
+        fail(f"phase 23b: drains {results}, released {prov.released}, the "
+             f"router's replicas after {sorted(after)}")
+    if [len(got[r]) for r in rids] != [budget] * len(rids):
+        fail(f"phase 23b: streams of {[len(got[r]) for r in rids]} tokens")
+    migrated = sum(r["migrated"] for r in results.values())
+    if migrated == 0:
+        fail("phase 23b: the upgrade moved no live stream")
+    t0 = time.perf_counter()
+    procs.release([v2])
+    release_wall = time.perf_counter() - t0
+    if proc.returncode != 0 or release_wall > 10:
+        fail(f"phase 23b: the serve_lm process exited {proc.returncode} "
+             f"{release_wall:.1f}s after its release")
+    walls = {a: r["wall_s"] for a, r in results.items()}
+    print(f"[23b] rolling upgrade on {card}: `serve_lm --weights_version v2` "
+          f"grown by SubprocessProvider in {boot['s']:.3f}s from spawn to "
+          f"address (booted beside 23a), 8 streams of {budget} tokens moved "
+          f"off two v1 replicas ({migrated} migrations; drains "
+          + ", ".join(f"{w:.3f}s" for w in walls.values())
+          + f"; the upgrade {upgrade_wall:.3f}s), each ending once at its "
+          f"budget; both v1 replicas retired and released; the process "
+          f"exited 0 {release_wall:.3f}s after its release; K1 {k1}, K5 "
+          f"{k5} in the v1 replicas", flush=True)
+    rep["upgrade"] = dict(boot_s=boot["s"], migrated=migrated,
+                          drain_walls_s=list(walls.values()),
+                          upgrade_wall_s=upgrade_wall,
+                          release_wall_s=release_wall, k1=k1, k5=k5)
+    return k1, k5
+
+
+def _fleet_f32(rep, card, params, cfg):
+    """[23c] drill (a) in f32 with 8 requests of 16 tokens: 5 on the one
+    replica page in a warmed second (fetches paced 500 ms: streams stay
+    mid-flight), 3 more land there, and the scale-down drains it onto
+    the first; every stream equal to the unscaled colocated run (the
+    near-tie rule). Returns (K1, K5)."""
+    import torch
+    from tony_tpu_torch import tree_map
+    from tony_tpu_torch.models import serve as S
+    from tony_tpu_torch.runtime.metrics import MetricsRegistry
+    from tony_tpu_torch.serving.client import StreamingClient
+    from tony_tpu_torch.serving.fleet import FleetController
+    from tony_tpu_torch.serving.router import ServingRouter
+    from tony_tpu_torch.serving.server import ServingServer
+    from tony_tpu_torch.serving.weightstore import ChannelWarmer
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), params)
+    prompts, budget = _fleet_prompts(8, cfg.vocab_size, 2323), 16
+    srv = ServingServer(S.ContinuousBatcher(
+        params32, cfg32, batch=FLEET_SLOTS, max_len=FLEET_MAX_LEN, chunk=8),
+        registry=MetricsRegistry())
+    router = ServingRouter([f"127.0.0.1:{srv.start()}"],
+                           registry=MetricsRegistry())
+    try:
+        router.start()
+        unscaled, _ = _stream(router.port, prompts, [budget] * 8)
+    finally:
+        router.stop()
+        srv.stop()
+    prov = _Replicas(lambda: _paced(0.5)(
+        params32, cfg32, batch=FLEET_SLOTS, max_len=FLEET_MAX_LEN, chunk=1),
+        "v1")
+    (a,) = prov.grow(1)
+    router = ServingRouter([a], health_interval_s=FLEET_PING_S,
+                           registry=MetricsRegistry())
+    ctrl = FleetController(
+        router, prov, min_replicas=1, max_replicas=2,
+        up_queue_per_replica=4.5, down_utilization=0.6, hysteresis_ticks=2,
+        cooldown_ticks=3, drain_timeout_s=60, registry=MetricsRegistry(),
+        warmer=ChannelWarmer(prov.servers[a].weights_digest, [a],
+                             timeout_s=60))
+    drains = _recorded_drains(router)
+
+    def tick_until(want, limit):
+        seen = []
+        while want not in seen and len(seen) < limit:
+            t = time.monotonic()
+            seen.append(ctrl.tick())
+            time.sleep(max(0.0, t + FLEET_TICK_S - time.monotonic()))
+        return seen
+
+    try:
+        _zero_launches()
+        router.start()
+        with StreamingClient("127.0.0.1", router.port) as c:
+            rids, got = _started_streams(c, prompts[:5], budget,
+                                         "phase 23c")
+            _await_load(router, a, 5, "phase 23c")
+            up = tick_until("up", 10)
+            (b,) = [x for x in prov.grown if x != a]
+            more, got_more = _started_streams(c, prompts[5:], budget,
+                                              "phase 23c")
+            rids += more
+            got.update(got_more)
+            _await_load(router, b, 3, "phase 23c")
+            down = tick_until("down", 10)
+            _collect_streams(c, rids, got, "phase 23c")
+            _no_second_terminal(c, rids, "phase 23c")
+        k1, k5 = _fleet_launches("phase 23c", cfg32, bf16=False)
+    finally:
+        router.stop()
+        prov.stop()
+    if up[-1] != "up" or down[-1] != "down" or len(drains) != 1:
+        fail(f"phase 23c: ticks {up} then {down}, drains {drains}")
+    if drains[0]["replica"] != b or drains[0]["migrated"] == 0:
+        fail(f"phase 23c: the scale-down drained {drains[0]}, not the "
+             f"warmed replica's live streams")
+    outs = [got[r] for r in rids]
+    if [len(o) for o in outs] != [budget] * 8:
+        fail(f"phase 23c: streams of {[len(o) for o in outs]} tokens")
+    equal, diffs = _near_ties("phase 23c f32", params32, cfg32, prompts,
+                              outs, unscaled.outputs, 1e-4)
+    del params32
+    print(f"[23c] f32 in process on {card}: 'up' at tick {len(up)}, 3 streams "
+          f"placed on the warmed replica, 'down' at tick {len(down)} drained "
+          f"it ({drains[0]['migrated']} migrated, {drains[0]['wall_s']:.3f}s);"
+          f" {equal}/8 streams of {budget} tokens equal to the unscaled "
+          f"colocated run (first differences {diffs}, each a near-tie within "
+          f"1e-4); K1 {k1}, K5 {k5}", flush=True)
+    rep["f32"] = dict(up_ticks=len(up), down_ticks=len(down),
+                      drain=drains[0], equal=equal, diffs=diffs, k1=k1,
+                      k5=k5)
+    return k1, k5
+
+
+def phase_fleet(report, card, serve):
+    """[23] fleet operations over port replicas on the card: phase 5's
+    ``small`` bf16 weights, 8 slots. The v2 ``serve_lm`` process boots on
+    a thread while (a) runs. Returns (K1, K5) launched by the phase's
+    in-process replicas (the process replica's are its own)."""
+    import threading
+    from tony_tpu_torch.serving.fleet import SubprocessProvider
+    t_phase = time.perf_counter()
+    report["fleet"] = rep = {}
+    params, cfg = serve["params"], serve["cfg"]
+    procs = SubprocessProvider([sys.executable, *FLEET_ARGV],
+                               spawn_timeout_s=60)
+    boot = {}
+
+    def grow():
+        t = time.perf_counter()
+        try:
+            boot["addr"] = procs.grow(1)[0]
+        except RuntimeError as e:
+            boot["error"] = str(e)[-3000:]
+        boot["s"] = time.perf_counter() - t
+
+    path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(filter(None, (HERE, path)))
+    booting = threading.Thread(target=grow, name="tony-fleet-boot",
+                               daemon=True)
+    booting.start()
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        a1, a5 = _fleet_autoscale(rep, card, params, cfg)
+        walls["23a"] = time.perf_counter() - t0
+        booting.join(timeout=90)
+        t0 = time.perf_counter()
+        b1, b5 = _fleet_upgrade(rep, card, params, cfg, procs, boot)
+        walls["23b"] = time.perf_counter() - t0
+    finally:
+        booting.join(timeout=90)
+        procs.release(list(procs._procs))
+        if path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = path
+    t0 = time.perf_counter()
+    c1, c5 = _fleet_f32(rep, card, params, cfg)
+    walls["23c"] = time.perf_counter() - t0
+    rep["wall_s"] = time.perf_counter() - t_phase
+    rep["walls_s"] = walls
+    print(f"[23] phase wall {rep['wall_s']:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items())
+          + f") on {card}", flush=True)
+    return a1 + b1 + c1, a5 + b5 + c5
+
+
 def slot_bytes(cfg, kv_dtype) -> int:
     """Cache bytes per slot position of ``cfg`` with ``kv_dtype``."""
     from tony_tpu_torch.models import decode as D
@@ -6815,6 +7424,7 @@ def main(bisect: bool = False) -> int:
     cp = timed("20 cp", phase_cp, report, card)
     pp = timed("21 pipeline", phase_pipeline, report, card)
     obs = timed("22 observability", phase_observability, report, card)
+    fleet_k1, fleet_k5 = timed("23 fleet", phase_fleet, report, card, serve)
     print("[phase walls] " + ", ".join(f"{k} {v}s" for k, v in walls.items()),
           flush=True)
     # launches on the main paths, each counted from 0 over its own run:
@@ -6836,10 +7446,13 @@ def main(bisect: bool = False) -> int:
     # K5); phase 21's pipelined steps over simulated pp ranks, the
     # cross-slice stage gangs and train_lm --pp_schedule (K1, K2, K5);
     # phase 22's run_training steps (traced, under the ledger, under a
-    # live capture: K1, K2, K5) and its ServeEngine (K1, K5)
+    # live capture: K1, K2, K5) and its ServeEngine (K1, K5); phase 23's
+    # in-process replicas (K1, K5: the autoscale, the v1 tier of the
+    # rolling upgrade, the f32 drill)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
                       + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
-                      + moe["k1"] + cp["k1"] + pp["k1"] + obs["k1"])
+                      + moe["k1"] + cp["k1"] + pp["k1"] + obs["k1"]
+                      + fleet_k1)
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
                                 + files["k2"] + moe["k2"] + cp["k2"]
                                 + pp["k2"] + obs["k2"])
@@ -6849,7 +7462,7 @@ def main(bisect: bool = False) -> int:
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
                                 + files["k5"] + moe["k5"] + cp["k5"]
-                                + pp["k5"] + obs["k5"])
+                                + pp["k5"] + obs["k5"] + fleet_k5)
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -54,7 +54,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "io.reader", "io.torch_feed", "parallel.moe",
                 "parallel.spmd", "parallel.ring_attention",
                 "parallel.ulysses", "parallel.pipeline",
-                "channels.registry", "train_pipeline"):
+                "channels.registry", "train_pipeline", "serving.fleet",
+                "serving.simfleet", "serving.netem"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -63,18 +64,20 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
 
 
 def test_router_loads_no_model_stack():
-    """The router is deployable on a host with no model stack: its
-    module imports no torch, and importing it (with everything it
-    imports) leaves torch unloaded."""
-    path = os.path.join(REPO, "tony_tpu_torch", "serving", "router.py")
-    top = ast.parse(open(path, encoding="utf-8").read()).body
-    names = [a.name for n in top if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module for n in top
-              if isinstance(n, ast.ImportFrom) and n.module]
-    assert not [m for m in names if m.split(".")[0] == "torch"], names
+    """The router and the fleet's modules (the controller, the simulated
+    fleet, the latency proxy) are deployable on a host with no model
+    stack: none imports torch, and importing them (with everything they
+    import) leaves torch unloaded."""
+    for name in ("router", "fleet", "simfleet", "netem"):
+        path = os.path.join(REPO, "tony_tpu_torch", "serving",
+                            name + ".py")
+        names = list(_imports_of(path))
+        assert not [m for m in names if m.split(".")[0] == "torch"], \
+            (name, names)
     code = ("import sys, tony_tpu_torch.serving.router, "
-            "tony_tpu_torch.serving.client; "
+            "tony_tpu_torch.serving.client, tony_tpu_torch.serving.fleet, "
+            "tony_tpu_torch.serving.simfleet, "
+            "tony_tpu_torch.serving.netem; "
             "print('torch' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),

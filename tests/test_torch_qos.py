@@ -16,6 +16,12 @@ prefix and weights lanes, on the port's engine alone: floor and class
 validation, the BUSY shed past ``max_queue_depth`` with interactive
 exempt, and a preempted batch stream resuming token-identically to its
 uninterrupted run, greedy and sampled.
+
+Last, the fleet cases: the port's router over the port's ``SimFleet``
+(interactive placement on idle slots, the batch re-queue cap then BUSY,
+a client's retries healing on one replica, the per-class series), and
+the class-aware autoscale signal, where the port's ``FleetController``
+and the JAX package's take the same actions on one script.
 """
 
 import threading
@@ -339,3 +345,259 @@ def test_preempt_resume_token_identity(params, sampling):
     assert {r for r, _ in h.retired.values()} == {"budget"}
     if not sampling:
         assert ref[0] == _reference(tp, prompts[0], 12)
+
+
+# ---------------------------------------------------------------------------
+# The port's router over the port's simulated fleet
+# (tests/test_qos.py::TestRouterQoS): interactive placement, batch
+# re-queue on BUSY, client retry, oracle continuity under preemption
+# ---------------------------------------------------------------------------
+@pytest.mark.fleet_sim
+class TestRouterQoS:
+    def _fill_direct(self, addr, n, budget, seed0):
+        """Occupy a replica directly (bypassing the router) with batch
+        streams: returns (client, seeds, results-dict, threads), each
+        submission granted or queued before the next."""
+        from tony_tpu_torch.serving.client import StreamingClient
+        host, port = addr.split(":")
+        c = StreamingClient(host, int(port))
+        out, threads, seeds = {}, [], {}
+
+        def pump(rid):
+            toks = []
+            for delta in c.deltas(rid, timeout=60):
+                toks.extend(delta)
+            out[rid] = toks
+
+        for i in range(n):
+            seed = seed0 + i
+            rid = c.submit([seed, 1, 2], budget, request_class="batch")
+            seeds[rid] = seed
+            t = threading.Thread(target=pump, args=(rid,), daemon=True)
+            t.start()
+            threads.append(t)
+            deadline = time.time() + 30
+            while time.time() < deadline:
+                st = c.stats()
+                if st["active"] + st["queue_depth"] == i + 1 \
+                        and st["queue_depth"] == max(
+                            0, i + 1 - st["slots"]):
+                    break
+                time.sleep(0.005)
+        return c, seeds, out, threads
+
+    def test_interactive_lands_on_idle_slots(self):
+        from tony_tpu_torch.serving.client import StreamingClient
+        from tony_tpu_torch.serving.simfleet import SimFleet, sim_token
+        fleet = SimFleet(2, itl_s=0.02, slots=2, health_interval_s=0.05,
+                         registry=M.MetricsRegistry())
+        try:
+            port = fleet.start()
+            a, b = fleet.addrs()
+            c, seeds, out, threads = self._fill_direct(a, 2, 24, 500)
+            try:
+                deadline = time.time() + 30
+                while time.time() < deadline:
+                    reps = fleet.router.stats()["replicas"]
+                    if reps[a]["reported_load"] >= 2:
+                        break
+                    time.sleep(0.01)
+                with StreamingClient("127.0.0.1", port) as rc:
+                    toks, reason = rc.result(rc.submit(
+                        [900, 1, 2], 4, request_class="interactive"))
+                assert toks == [sim_token(900, p) for p in range(4)]
+                assert fleet.replicas[a].preemptions == 0
+                for t in threads:
+                    t.join(timeout=60)
+                for rid, seed in seeds.items():
+                    assert out[rid] == [sim_token(seed, p)
+                                        for p in range(24)]
+            finally:
+                c.close()
+        finally:
+            fleet.stop()
+
+    def test_batch_requeue_cap_then_busy_interactive_preempts(self):
+        from tony_tpu_torch.serving.client import (ServerBusy,
+                                                   StreamingClient)
+        from tony_tpu_torch.serving.simfleet import SimFleet, sim_token
+        reg = M.MetricsRegistry()
+        fleet = SimFleet(2, itl_s=0.02, slots=1, max_queue_depth=1,
+                         busy_retry_ms=60, health_interval_s=0.05,
+                         registry=reg)
+        try:
+            port = fleet.start()
+            a, b = fleet.addrs()
+            ca, seeds_a, out_a, th_a = self._fill_direct(a, 2, 24, 600)
+            cb, seeds_b, out_b, th_b = self._fill_direct(b, 2, 24, 700)
+            try:
+                with StreamingClient("127.0.0.1", port) as rc:
+                    with pytest.raises(ServerBusy) as ei:
+                        rc.result(rc.submit([910, 1, 2], 4,
+                                            request_class="batch"))
+                    assert ei.value.retry_after_ms == 60
+                    assert reg.counter(
+                        "tony_router_busy_requeues_total").value == 3
+                    toks, _ = rc.result(rc.submit(
+                        [920, 1, 2], 4, request_class="interactive"))
+                    assert toks == [sim_token(920, p) for p in range(4)]
+                for t in th_a + th_b:
+                    t.join(timeout=60)
+                for seeds, out in ((seeds_a, out_a), (seeds_b, out_b)):
+                    for rid, seed in seeds.items():
+                        assert out[rid] == [sim_token(seed, p)
+                                            for p in range(24)], \
+                            "dup/drop across sim preemption"
+                assert sum(r.preemptions
+                           for r in fleet.replicas.values()) >= 1
+            finally:
+                ca.close()
+                cb.close()
+        finally:
+            fleet.stop()
+
+    def test_client_retry_self_heals_on_single_replica(self):
+        from tony_tpu_torch.serving.client import StreamingClient
+        from tony_tpu_torch.serving.simfleet import SimFleet, sim_token
+        fleet = SimFleet(1, itl_s=0.01, slots=1, max_queue_depth=1,
+                         busy_retry_ms=30, health_interval_s=0.05,
+                         registry=M.MetricsRegistry())
+        try:
+            port = fleet.start()
+            (a,) = fleet.addrs()
+            c, seeds, out, threads = self._fill_direct(a, 2, 10, 800)
+            try:
+                with StreamingClient("127.0.0.1", port) as rc:
+                    toks, reason = rc.result(
+                        rc.submit([930, 1, 2], 5, request_class="batch",
+                                  retries=10), timeout=60)
+                assert toks == [sim_token(930, p) for p in range(5)]
+                assert reason == "budget"
+                for t in threads:
+                    t.join(timeout=60)
+                for rid, seed in seeds.items():
+                    assert out[rid] == [sim_token(seed, p)
+                                        for p in range(10)]
+            finally:
+                c.close()
+        finally:
+            fleet.stop()
+
+    def test_router_exports_per_class_series(self):
+        from tony_tpu_torch.serving.client import StreamingClient
+        from tony_tpu_torch.serving.simfleet import SimFleet, sim_token
+        reg = M.MetricsRegistry()
+        fleet = SimFleet(1, itl_s=0.005, slots=4, health_interval_s=0.05,
+                         registry=reg)
+        try:
+            port = fleet.start()
+            with StreamingClient("127.0.0.1", port) as rc:
+                toks, _ = rc.result(rc.submit(
+                    [940, 1, 2], 4, request_class="interactive"))
+            assert toks == [sim_token(940, p) for p in range(4)]
+            ttft = reg.histogram("tony_serve_ttft_seconds",
+                                 **{"class": "interactive"})
+            itl = reg.histogram("tony_serve_intertoken_seconds",
+                                **{"class": "interactive"})
+            assert ttft.count == 1
+            assert itl.count >= 1
+            assert reg.histogram("tony_serve_ttft_seconds",
+                                 **{"class": "batch"}).count == 0
+        finally:
+            fleet.stop()
+
+
+# ---------------------------------------------------------------------------
+# Autoscale (tests/test_qos.py::TestAutoscaleQoS): interactive pressure
+# pages capacity in, batch backlog alone never does — the port's
+# controller and the JAX package's on one script
+# ---------------------------------------------------------------------------
+class _ClassedRouter:
+    """stats()-only stand-in: a fixed 2-replica fleet whose per-replica
+    reported_load/queue_depths are scripted per tick."""
+
+    def __init__(self, script):
+        self._script = list(script)
+        self._i = 0
+        self.added, self.removed, self.drained = [], [], []
+
+    def stats(self):
+        load, depths, active = self._script[min(
+            self._i, len(self._script) - 1)]
+        self._i += 1
+        n = 2 + len(self.added) - len(self.removed)
+        return {
+            "active": active, "slots": 4 * n,
+            "replicas": {f"r{i}": {"up": 1, "reported_load": load,
+                                   "queue_depths": dict(depths),
+                                   "assigned": active // max(n, 1),
+                                   "draining": False}
+                         for i in range(n)},
+        }
+
+    def add_replicas(self, addrs, role=None):
+        self.added.extend(addrs)
+
+    def remove_replica(self, addr):
+        self.removed.append(addr)
+
+    def drain(self, addr, timeout_s=None):
+        self.drained.append(addr)
+        return {"drained": True, "migrated": 0}
+
+
+class _CountingProvider:
+    def __init__(self):
+        self.grown, self.released = 0, []
+
+    def grow(self, n):
+        addrs = [f"new{self.grown + i}" for i in range(n)]
+        self.grown += n
+        return addrs
+
+    def release(self, addrs):
+        self.released.extend(addrs)
+
+
+def _autoscale(script, ticks, cooldown):
+    """(actions, scale-ups, grown) of the port's controller, after
+    checking that the JAX package's gives the same on the script."""
+    from tony_tpu.runtime import metrics as JM
+    from tony_tpu.serving import fleet as JF
+    from tony_tpu_torch.serving import fleet as TF
+    runs = []
+    for ctrl_cls, reg in ((TF.FleetController, M.MetricsRegistry()),
+                          (JF.FleetController, JM.MetricsRegistry())):
+        router, provider = _ClassedRouter(script), _CountingProvider()
+        ctrl = ctrl_cls(router, provider, hysteresis_ticks=3,
+                        cooldown_ticks=cooldown, up_queue_per_replica=6.0,
+                        registry=reg)
+        actions = [ctrl.tick() for _ in range(ticks)]
+        runs.append((actions,
+                     reg.counter("tony_fleet_scale_ups_total").value,
+                     provider.grown, router.drained,
+                     reg.gauge("tony_fleet_load_per_replica").value))
+    assert runs[0] == runs[1]
+    return runs[0]
+
+
+class TestAutoscaleQoS:
+    def test_batch_backlog_alone_never_scales_up(self):
+        script = [(52.0, {"interactive": 0, "standard": 0, "batch": 48},
+                   8)] * 20
+        actions, ups, grown, drained, load = _autoscale(script, 20, 5)
+        assert set(actions) == {"hold"}, actions
+        assert grown == 0 and not drained and load == 4.0
+
+    def test_interactive_pressure_scales_up(self):
+        script = [(52.0, {"interactive": 48, "standard": 0, "batch": 0},
+                   8)] * 20
+        actions, ups, grown, _, _ = _autoscale(script, 12, 10)
+        assert actions.count("up") == 1, actions
+        assert actions.index("up") == 2
+        assert ups == 1 and grown == 1
+
+    def test_classless_replicas_keep_aggregate_signal(self):
+        script = [(8.0, {}, 8)] * 12
+        actions, _, _, _, _ = _autoscale(script, 6, 10)
+        assert actions.count("up") == 1, actions

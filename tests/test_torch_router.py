@@ -580,8 +580,14 @@ def test_serving_package_exports_the_fleet_classes():
     assert serving.PrefillServer is disagg.PrefillServer
     assert serving.DecodeServer is disagg.DecodeServer
     assert serving.ServingServer is ServingServer
+    from tony_tpu_torch.serving import fleet, netem, simfleet
+    assert serving.LatencyProxy is netem.LatencyProxy
+    assert serving.FleetController is fleet.FleetController
+    assert serving.CapacityProvider is fleet.CapacityProvider
+    assert serving.SimFleet is simfleet.SimFleet
+    assert serving.SimReplica is simfleet.SimReplica
     with pytest.raises(AttributeError):
-        serving.FleetController          # the next slice's
+        serving.NoSuchClass
 
 
 def test_router_keys_equal_the_jax_package_keys():

@@ -16,12 +16,18 @@
   server;
 - ``serve_lm --listen --warm_from`` as a process: it advertises the
   seeder's digest and streams the seeder's tokens; a failed pull falls
-  back to the storage load and says so.
+  back to the storage load and says so;
+- the fleet's fan-out: ``warm_fanout`` against the JAX package's on the
+  same ships and fallbacks (log2 waves, a crashed seeder, failing
+  fallbacks), and ``ChannelWarmer`` ships between live servers — port to
+  port in waves, with a dead seeder's fallback, and each way across the
+  packages through either package's warmer, landing the seeder's digest.
 """
 
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
 
@@ -247,3 +253,215 @@ def test_serve_lm_warm_from_process(params):
                 proc.kill()
                 proc.communicate()
         srv.kill()
+
+
+# ---------------------------------------------------------------------------
+# Self-organizing fan-out (tests/test_weightstore.py::TestWarmFanout),
+# each case run through both packages' warm_fanout
+# ---------------------------------------------------------------------------
+def _both_fanouts(targets, make_ship, **kw):
+    """The port's summary, after checking it equals the JAX package's on
+    the same ship/fallback behaviour (fresh callables for each run)."""
+    runs = []
+    for fanout in (W.warm_fanout, JW.warm_fanout):
+        ship, extra = make_ship()
+        runs.append((fanout(list(targets), ship, **kw, **extra), extra))
+    assert runs[0][0] == runs[1][0]
+    return runs[0]
+
+
+class TestWarmFanout:
+    def test_log2_waves_from_one_seed(self):
+        res, _ = _both_fanouts([f"t{i}" for i in range(8)],
+                               lambda: (lambda src, dst: None, {}),
+                               seeders=["seed"])
+        assert not res["failed"] and not res["fallback"]
+        assert len(res["warmed"]) == 8 and res["ships"] == 8
+        assert res["waves"] == 4               # 1 -> 2 -> 4 -> 8 seeders
+
+    def test_cold_start_mints_seed_then_fans_out(self):
+        def make():
+            loads = []
+            return (lambda src, dst: None), {"fallback": loads.append}
+        res, extra = _both_fanouts([f"t{i}" for i in range(8)], make)
+        assert res["waves"] == 4 and res["ships"] == 7
+        assert res["fallback"] == ["t0"] and len(res["warmed"]) == 7
+
+    def test_crashed_seeder_condemned_target_retries(self):
+        calls, loads = [], []
+
+        def make():
+            del calls[:], loads[:]
+
+            def ship(src, dst):
+                calls.append((src, dst))
+                if src == "dead":
+                    raise RuntimeError("seeder crashed mid-ship")
+            return ship, {"fallback": loads.append}
+
+        res, _ = _both_fanouts(["t0", "t1"], make, seeders=["dead"])
+        assert not res["failed"]
+        assert loads == ["t0"]
+        assert ("dead", "t0") in calls
+        assert sorted(res["warmed"] + res["fallback"]) == ["t0", "t1"]
+
+    def test_no_fallback_reports_failed_without_wedging(self):
+        def ship(src, dst):
+            raise RuntimeError("boom")
+        res, _ = _both_fanouts(["t0", "t1"], lambda: (ship, {}),
+                               seeders=["dead"])
+        assert res["failed"] == ["t0", "t1"] and not res["warmed"]
+
+    def test_failing_fallback_reports_failed_never_raises(self):
+        attempts = []
+
+        def make():
+            del attempts[:]
+
+            def fallback(dst):
+                attempts.append(dst)
+                if len(attempts) == 1:
+                    raise OSError("storage load failed")
+            return (lambda src, dst: None), {"fallback": fallback}
+
+        res, _ = _both_fanouts(["t0", "t1", "t2"], make)
+        assert res["failed"] == ["t0"]
+        assert res["fallback"] == ["t1"]
+        assert res["warmed"] == ["t2"]
+        assert attempts == ["t0", "t1"]
+
+    def test_fallback_always_failing_terminates(self):
+        def fallback(dst):
+            raise OSError("storage down")
+        res, _ = _both_fanouts(["t0", "t1"],
+                               lambda: ((lambda s, d: None),
+                                        {"fallback": fallback}))
+        assert res["failed"] == ["t0", "t1"]
+        assert not res["warmed"] and not res["fallback"]
+
+
+# ---------------------------------------------------------------------------
+# ChannelWarmer: peer ships between live replicas
+# ---------------------------------------------------------------------------
+def _server(pkg, jp, tp):
+    if pkg == "jax":
+        return JSRV.ServingServer(JS.ContinuousBatcher(jp, JCFG, batch=1,
+                                                       max_len=16))
+    return ServingServer(TS.ContinuousBatcher(tp, TCFG, batch=1,
+                                              max_len=16),
+                         registry=M.MetricsRegistry())
+
+
+def test_channel_warmer_ships_between_port_servers(params):
+    """A port seeder warms two port targets in two waves (the first
+    warmed target seeds the second); each target's store then holds the
+    seeder's digest, which it advertised as not resident before, and a
+    second pass finds them warm without shipping again."""
+    jp, tp = params
+    servers = [_server("port", jp, tp) for _ in range(3)]
+    try:
+        seeder, *targets = [f"127.0.0.1:{s.start()}" for s in servers]
+        digest = servers[0].weights_digest
+        for t in targets:
+            assert W.weights_rpc(t, {"op": "resident"})["resident"] == []
+        warmer = W.ChannelWarmer(digest, [seeder], timeout_s=60)
+        res = warmer.warm(targets)
+        assert res == {"waves": 2, "warmed": targets, "fallback": [],
+                       "failed": [], "ships": 2}
+        for s in servers[1:]:
+            assert s.weight_store.resident_digests() == [digest]
+            with StreamingClient("127.0.0.1", s.port) as c:
+                assert c.hello["weights_resident"] == [digest]
+        shipped = sum(s._weight_ship_bytes_c.value for s in servers)
+        assert shipped == 2 * len(servers[0].weight_store.get(digest))
+        again = W.ChannelWarmer(digest, [seeder], timeout_s=60).warm(
+            targets)
+        assert again["warmed"] == targets
+        assert sum(s._weight_ship_bytes_c.value for s in servers) == shipped
+    finally:
+        for s in servers:
+            s.kill()
+
+
+def test_channel_warmer_without_a_seeder_uses_the_fallback(params):
+    """The only seeder is gone: the target is loaded by the fallback,
+    never admitted cold, and a target that cannot be loaded is failed."""
+    jp, tp = params
+    srv = _server("port", jp, tp)
+    try:
+        target = f"127.0.0.1:{srv.start()}"
+        with socket.socket() as s:        # a port nobody serves
+            s.bind(("127.0.0.1", 0))
+            dead = f"127.0.0.1:{s.getsockname()[1]}"
+        loads = []
+        res = W.ChannelWarmer(srv.weights_digest, [dead],
+                              fallback=loads.append,
+                              timeout_s=5).warm([target])
+        assert loads == [target] and res["fallback"] == [target]
+        res = W.ChannelWarmer(srv.weights_digest, [dead],
+                              timeout_s=5).warm([target])
+        assert res["failed"] == [target] and not res["warmed"]
+    finally:
+        srv.kill()
+
+
+@pytest.mark.parametrize("warmer_pkg", ["port", "jax"])
+@pytest.mark.parametrize("seeder_pkg", ["jax", "port"])
+def test_channel_warmer_across_packages(params, seeder_pkg, warmer_pkg):
+    """A replica of one package warms the other's through either
+    package's ChannelWarmer: the landed artifact is resident under the
+    seeder's digest, the one ``tree_digest`` of both packages' params."""
+    jp, tp = params
+    target_pkg = "port" if seeder_pkg == "jax" else "jax"
+    seed_srv = _server(seeder_pkg, jp, tp)
+    target_srv = _server(target_pkg, jp, tp)
+    try:
+        seeder = f"127.0.0.1:{seed_srv.start()}"
+        target = f"127.0.0.1:{target_srv.start()}"
+        digest = W.tree_digest(tp)
+        assert seed_srv.weights_digest == target_srv.weights_digest == digest
+        warmer_cls = (W.ChannelWarmer if warmer_pkg == "port"
+                      else JW.ChannelWarmer)
+        res = warmer_cls(digest, [seeder], timeout_s=60).warm([target])
+        assert res["warmed"] == [target] and res["ships"] == 1, res
+        assert target_srv.weight_store.resident_digests() == [digest]
+        meta = target_srv.weight_store.meta(digest)
+        assert meta["digest"] == digest
+    finally:
+        seed_srv.kill()
+        target_srv.kill()
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_residency_reads_do_not_wait_for_the_lazy_export(params, pkg):
+    """The first seed op packs the params (the lazy self-export). The
+    port packs outside the store's lock, so ``resident_digests`` — what
+    HELLO and STATS read — answers at once while a pack runs; the JAX
+    package's waits for the whole pack (a router pinging a seeder
+    mid-warm sees it unresponsive)."""
+    import threading
+    import time
+    _, tp = params
+    blob = W.pack_weights(tp)
+    started = threading.Event()
+
+    def slow_export():
+        started.set()
+        time.sleep(1.0)
+        return blob
+
+    store = (W.WeightStore(M.MetricsRegistry(), exporter=slow_export)
+             if pkg == "port" else JW.WeightStore(exporter=slow_export))
+    seeding = threading.Thread(target=store.digests, daemon=True)
+    seeding.start()
+    assert started.wait(10)
+    t0 = time.monotonic()
+    assert store.resident_digests() in ([], [W.tree_digest(tp)])
+    waited = time.monotonic() - t0
+    seeding.join(10)
+    if pkg == "port":
+        assert waited < 0.5, waited
+    else:
+        assert waited >= 0.5, waited
+    assert store.digests() == [W.tree_digest(tp)]
+    assert store.get(W.tree_digest(tp)) == blob

@@ -31,10 +31,15 @@ artifacts, advertise resident digests in HELLO/STATS, and publish an
 artifact to a peer on command (the ``WEIGHTS`` frame ops).
 :func:`pull_weights` is the cold replica's side.
 
+The fleet's side is :func:`warm_fanout`: new capacity is warmed in
+O(log N) waves of peer ships, each warmed replica seeding the next wave,
+with a storage load only where no seeder survives. :class:`ChannelWarmer`
+runs it over real replicas (the ``resident`` / ``publish`` WEIGHTS ops)
+for :class:`~tony_tpu_torch.serving.fleet.FleetController`.
+
 Not ported: the compile-cache artifacts (the JAX package ships its XLA
 compilation cache; a ``compile_cache`` artifact landing here is refused
-and costs only itself) and the fleet fan-out (``warm_fanout``,
-``FleetWarmer``, ``ChannelWarmer``), which belongs with the router.
+and costs only itself).
 """
 
 from __future__ import annotations
@@ -275,12 +280,19 @@ class WeightStore:
     """Resident content-addressed artifacts, keyed by digest. Holds the
     PACKED blobs (what ships — no re-serialization per publish) plus
     their metas; an ``exporter`` callable lazily packs this host's own
-    live params the first time someone asks for them."""
+    live params the first time someone asks for them.
+
+    The export runs under a lock of its own, never the store's: the
+    JAX package packs under the store's lock, so a HELLO or STATS
+    (:meth:`resident_digests`) that arrives while a seeder packs its
+    params waits for the whole pack, and a router whose health pings
+    go unanswered that long marks the seeder down mid-warm."""
 
     def __init__(self, registry=None, exporter=None) -> None:
         from tony_tpu_torch.runtime import metrics as metrics_mod
         reg = registry or metrics_mod.get_default()
         self._lock = threading.Lock()
+        self._export_lock = threading.Lock()
         self._artifacts: dict = {}          # digest -> (meta, blob)
         self._exporter = exporter
         self._exported = False
@@ -307,16 +319,16 @@ class WeightStore:
     def get(self, digest: str) -> bytes:
         """The packed blob for ``digest`` (ValueError when not
         resident)."""
+        self._ensure_exported()
         with self._lock:
-            self._ensure_exported_locked()
             entry = self._artifacts.get(digest)
         if entry is None:
             raise ValueError(f"artifact {digest[:12]}… is not resident")
         return entry[1]
 
     def meta(self, digest: str) -> dict:
+        self._ensure_exported()
         with self._lock:
-            self._ensure_exported_locked()
             entry = self._artifacts.get(digest)
         if entry is None:
             raise ValueError(f"artifact {digest[:12]}… is not resident")
@@ -325,33 +337,36 @@ class WeightStore:
     def digests(self) -> list:
         """Every artifact this host can SEED — triggers the lazy
         self-export (packing the live params) the first time."""
+        self._ensure_exported()
         with self._lock:
-            self._ensure_exported_locked()
             return sorted(self._artifacts)
 
     def resident_digests(self) -> list:
         """Digests already resident, WITHOUT triggering the lazy
-        self-export (what HELLO/STATS advertise: a handshake must never
-        pack the params)."""
+        self-export, and without waiting for one in progress (what
+        HELLO/STATS advertise: a handshake must never pack the params,
+        nor wait while they pack)."""
         with self._lock:
             return sorted(self._artifacts)
 
-    def _ensure_exported_locked(self) -> None:
-        if self._exported or self._exporter is None:
-            return
-        self._exported = True               # once, even on failure
-        try:
-            blob = self._exporter()
-        except Exception as e:              # noqa: BLE001 — advisory
-            log.warning("weight export failed; serving without a "
-                        "seedable artifact: %s", e)
-            return
-        if blob is None:
-            return
-        meta = peek_weights_meta(blob)
-        digest = meta.get("digest")
-        if isinstance(digest, str) and len(digest) == 64:
-            self._artifacts[digest] = (meta, bytes(blob))
+    def _ensure_exported(self) -> None:
+        with self._export_lock:
+            if self._exported or self._exporter is None:
+                return
+            self._exported = True           # once, even on failure
+            try:
+                blob = self._exporter()
+            except Exception as e:          # noqa: BLE001 — advisory
+                log.warning("weight export failed; serving without a "
+                            "seedable artifact: %s", e)
+                return
+            if blob is None:
+                return
+            meta = peek_weights_meta(blob)
+            digest = meta.get("digest")
+            if isinstance(digest, str) and len(digest) == 64:
+                with self._lock:
+                    self._artifacts[digest] = (meta, bytes(blob))
 
 
 # ---------------------------------------------------------------------------
@@ -593,3 +608,155 @@ def pull_weights(seeder: str, digest: str | None = None,
         return meta, tree
     finally:
         hub.stop()
+
+
+# ---------------------------------------------------------------------------
+# Self-organizing fan-out
+# ---------------------------------------------------------------------------
+def warm_fanout(targets, ship, *, seeders=(), fallback=None,
+                max_parallel: int | None = None) -> dict:
+    """Warm ``targets`` in O(log N) ship waves: each wave pairs every
+    available seeder with one pending target and ships in parallel;
+    every freshly-warmed target immediately joins the seeder pool for
+    the next wave. ``ship(src, dst)`` raises on failure (a crashed
+    seeder): the seeder is dropped from the pool and the target stays
+    pending. When the pool runs dry — including at the start, when no
+    warm peer exists — ``fallback(dst)`` (a storage load) mints a new
+    seeder; a fallback that itself raises moves THAT target to
+    ``failed`` (never out of this function — the fleet controller's
+    release path owns failed targets); with no fallback at all, the
+    remaining targets are reported ``failed``. Warming never wedges:
+    every wave either makes progress or consumes a failure.
+
+    Returns ``{"waves", "warmed", "fallback", "failed", "ships"}``
+    (warmed = targets shipped peer-to-peer; fallback = targets
+    storage-loaded; ships = successful peer ships)."""
+    pending = list(targets)
+    pool = list(seeders)
+    warmed: list = []
+    fell_back: list = []
+    failed: list = []
+    ships = 0
+    waves = 0
+    while pending:
+        if not pool:
+            dst = pending.pop(0)
+            if fallback is None:
+                failed.append(dst)
+                failed.extend(pending)
+                break
+            waves += 1
+            try:
+                fallback(dst)
+            except Exception as e:          # noqa: BLE001 — per-target
+                # a failed storage load costs only its target: report
+                # it failed and keep warming the rest ("warming never
+                # wedges" covers the fallback path too)
+                log.warning("warm fan-out: storage fallback for %s "
+                            "failed: %s", dst, e)
+                failed.append(dst)
+                continue
+            fell_back.append(dst)
+            pool.append(dst)
+            continue
+        waves += 1
+        pairs = list(zip(pool, pending))
+        if max_parallel is not None:
+            pairs = pairs[:max_parallel]
+        outcomes: dict = {}
+
+        def _one(src, dst):
+            try:
+                ship(src, dst)
+                outcomes[dst] = None
+            except Exception as e:          # noqa: BLE001 — per-pair
+                outcomes[dst] = e
+
+        threads = [threading.Thread(target=_one, args=pair,
+                                    name="tony-warm-fanout", daemon=True)
+                   for pair in pairs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for src, dst in pairs:
+            err = outcomes.get(dst, RuntimeError("ship never ran"))
+            if err is None:
+                pending.remove(dst)
+                warmed.append(dst)
+                pool.append(dst)
+                ships += 1
+            else:
+                # a failed ship condemns the SEEDER (crash mid-ship),
+                # not the target: the target retries next wave off a
+                # surviving or fallback-minted seeder
+                log.warning("warm fan-out: ship %s -> %s failed: %s",
+                            src, dst, err)
+                if src in pool:
+                    pool.remove(src)
+    return {"waves": waves, "warmed": warmed, "fallback": fell_back,
+            "failed": failed, "ships": ships}
+
+
+class FleetWarmer:
+    """What :class:`~tony_tpu_torch.serving.fleet.FleetController` calls to
+    warm freshly-grown replicas BEFORE routing traffic at them.
+    ``warm(targets)`` returns the :func:`warm_fanout` summary.
+    Implementations: :class:`ChannelWarmer` (real replicas, WEIGHTS
+    ops over the serving port), ``SimWarmer`` in
+    :mod:`tony_tpu_torch.serving.simfleet` (deterministic chaos/bench)."""
+
+    def warm(self, targets) -> dict:
+        raise NotImplementedError
+
+
+class ChannelWarmer(FleetWarmer):
+    """Warm real replicas by commanding peer-to-peer artifact ships:
+    each ship asks the source replica (WEIGHTS ``publish`` op on its
+    serving port) to stream the ``digest`` artifact to the target's
+    weights lane, then confirms the target reports it resident.
+    ``seeders`` are serving addresses already holding the artifact;
+    ``fallback`` (optional) is invoked with a target address when no
+    seeder survives — typically a storage-load command."""
+
+    def __init__(self, digest: str, seeders, fallback=None,
+                 timeout_s: float = 120.0) -> None:
+        self.digest = digest
+        self.seeders = list(seeders)
+        self.fallback = fallback
+        self.timeout_s = timeout_s
+
+    def _ship(self, src: str, dst: str) -> None:
+        # "resident" (not "list"): probing the TARGET must not make it
+        # lazily pack its own params just to answer a residency check
+        hello = weights_rpc(dst, {"op": "resident"},
+                            timeout_s=self.timeout_s)
+        if self.digest in (hello.get("resident") or []):
+            return                          # already warm
+        wp = hello["_hello"].get("weight_port")
+        if not wp:
+            raise ChannelError(f"target {dst} advertises no weights "
+                               f"lane")
+        host = dst.rsplit(":", 1)[0]
+        res = weights_rpc(src, {"op": "publish", "digest": self.digest,
+                                "target": f"{host}:{wp}",
+                                "timeout_s": self.timeout_s},
+                          timeout_s=self.timeout_s)
+        if not res.get("ok"):
+            raise ChannelError(
+                f"seeder {src} refused publish: {res.get('error')}")
+        deadline = time.monotonic() + self.timeout_s
+        while time.monotonic() < deadline:
+            listed = weights_rpc(dst, {"op": "resident"},
+                                 timeout_s=10.0)
+            if self.digest in (listed.get("resident") or []):
+                return
+            time.sleep(0.05)
+        raise ChannelError(
+            f"target {dst} never reported {self.digest[:12]}… "
+            f"resident")
+
+    def warm(self, targets) -> dict:
+        return warm_fanout(list(targets), self._ship,
+                           seeders=self.seeders,
+                           fallback=self.fallback)
