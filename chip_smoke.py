@@ -327,6 +327,22 @@ result:
    live streams: every stream equal to the unscaled colocated run (the
    near-tie rule); K1 and K5 counted from 0 over each drill against its
    admissions and forwards;
+24. tensor-parallel decoding and hybrid meshes: (a) phase 5's ``small``
+   weights decode 8 of its prompts (64-480 tokens) 32 tokens each
+   through ``prefill_rows``, ``place_rows`` and ``decode_step`` with a
+   dict mesh ``{"tp": 2}`` and ``{"tp": 4}`` (every rank emulated on
+   the card): in f32 token-identical to the unsharded run; in bf16,
+   teacher-forced on the unsharded run's tokens, logits within twice the
+   unsharded step's bf16-vs-f32 spread, and a greedy token that differs
+   only at a near tie by that bound; the same for GQA
+   (``n_kv_heads=2``) at tp 4 and int8 weights at tp 2; a beam of width
+   4 over 2 prompts at tp 2 in f32 (tokens equal, scores within 1e-3);
+   K1 ``n_layers × tp`` a prefill and K5 ``(2·n_layers + 1) × tp`` a
+   forward, counted from 0 over every run; launches, device and wall ms
+   of the bf16 step at tp 1, 2 and 4; (b) ``small`` 3 steps through
+   train_lm's sharded path at world 1 on NCCL on the hybrid mesh of dcn
+   ``{"dp": 1}`` × ``{"fsdp": -1}``: losses bitwise the flat ``{"fsdp":
+   -1}`` run's; ``train_lm`` itself on that mesh (its mesh line);
 then a line of each phase's wall, a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -4665,29 +4681,31 @@ def _checkpoint_phase(card, cfg, params, directory, check=True) -> dict:
     return out
 
 
-def _world1_env(axes) -> None:
+def _world1_env(axes, dcn=None) -> None:
     """The jax arm's environment, as the executor exports it, for a
-    world-1 runtime on a free port with mesh ``axes``."""
+    world-1 runtime on a free port with mesh ``axes`` (and the dcn axes
+    ``dcn`` of a multi-slice job)."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
+    spec = {"axes": axes, **({"dcn_axes": dcn} if dcn else {})}
     os.environ.update(TONY_JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                       TONY_JAX_PROCESS_ID="0", TONY_JAX_NUM_PROCESSES="1",
-                      TONY_MESH_SPEC=json.dumps({"axes": axes}))
+                      TONY_MESH_SPEC=json.dumps(spec))
 
 
-def _train_lm_cli(argv, axes=None):
+def _train_lm_cli(argv, axes=None, dcn=None):
     """``train_lm.main(argv)`` in this process, its runtime booted from the
     jax arm's environment at world 1 on a free port (NCCL, mesh ``axes``,
-    ``{"fsdp": -1}`` by default) and shut down after: (exit code, printed
-    lines)."""
+    ``{"fsdp": -1}`` by default, dcn axes ``dcn``) and shut down after:
+    (exit code, printed lines)."""
     import contextlib
     import io
 
     import tony_tpu_torch.runtime as rt
     from tony_tpu_torch import train_lm
-    _world1_env(axes or {"fsdp": -1})
+    _world1_env(axes or {"fsdp": -1}, dcn)
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
@@ -7376,6 +7394,334 @@ def _lat_text(lat) -> str:
             f"ms ({lat['n']} requests)")
 
 
+# phase 24: tensor-parallel decoding (emulated tp ranks on one card) and
+# hybrid meshes. Prompts, new tokens, the profiled steps a run, the beam's
+# prompts, width and tokens, and the hybrid-mesh steps' batch
+TP_PROMPTS, TP_NEW, TP_PROFILED = 8, 32, 4
+TP_BEAM = (2, 64, 4, 16)
+TP_HYBRID = (3, 8, 512)
+
+
+def _tp_counts():
+    """(zero, read) of K1, K2, K3a, K3b and K5's launch counts."""
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import norms as N
+
+    def zero():
+        A.reset_launches()
+        N.rms_norm_forward.launches = 0
+
+    def read():
+        return dict(k1=A.flash_forward.launches,
+                    k2=A.flash_backward_fused.launches,
+                    k3a=A.flash_backward_dq.launches,
+                    k3b=A.flash_backward_dkv.launches,
+                    k5=N.rms_norm_forward.launches)
+    return zero, read
+
+
+def _tp_stream(params, cfg, prompts, new, mesh=None, forced=None,
+               profiled=0):
+    """Greedy decoding of ragged ``prompts`` as a user runs it without
+    the batcher: ``prefill_rows`` of the padded prompts, ``place_rows``
+    into a cache of ``init_kv_cache``, then ``decode_step`` with per-row
+    frontiers, on ``mesh`` (a dict of sizes: every tp rank emulated) or
+    unsharded. ``forced`` ``[B, new]`` feeds those tokens back instead of
+    the run's own (teacher forcing). The last ``profiled`` decode steps
+    run under torch.profiler. Returns (tokens ``[B, new]`` the run's
+    argmaxes, f32 logits ``[B, new, V]``, {launches, device_ms, wall_ms}
+    a profiled step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tony_tpu_torch.models import decode as D
+    sp = D.shard_params(params, cfg, mesh) if mesh else params
+    b, s_b = len(prompts), max(len(p) for p in prompts)
+    pad = torch.zeros((b, s_b), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        pad[i, :len(p)] = torch.tensor(p)
+    lens = [len(p) for p in prompts]
+    lengths = torch.tensor(lens, device="cuda")
+    logits, mini = D.prefill_rows(sp, pad.cuda(), lengths, cfg)
+    cache = D.init_kv_cache(cfg, b, s_b + new, device="cuda", mesh=mesh)
+    cache["length"] = torch.zeros(b, dtype=torch.int32, device="cuda")
+    cache = D.place_rows(cache, mini, list(range(b)), lengths)
+    pos = lengths.clone()
+    toks, outs, stats = [], [], {}
+    prof, t0 = None, 0.0
+    for i in range(new):
+        outs.append(logits.float())
+        toks.append(outs[-1].argmax(dim=-1))
+        if i == new - 1:
+            break
+        if i == new - 1 - profiled and profiled:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            t0 = time.perf_counter()
+        feed = toks[-1] if forced is None else forced[:, i]
+        logits, cache = D.decode_step(sp, feed, cache, pos, cfg,
+                                      pos_range=(min(lens) + i,
+                                                 max(lens) + i))
+        pos = pos + 1
+    if prof is not None:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.__exit__(None, None, None)
+        dev, launches = _device_times(prof)
+        stats = dict(launches=launches / profiled,
+                     device_ms=sum(dev.values()) / 1e3 / profiled,
+                     wall_ms=wall * 1e3 / profiled)
+    return torch.stack(toks, dim=1), torch.stack(outs, dim=1), stats
+
+
+def _tp_add(launches, c):
+    for k in launches:
+        launches[k] += c[k]
+
+
+def _tp_check_launches(what, c, cfg, tp, prefills, forwards):
+    """Fail unless K1 ran n_layers × tp times a prefill and K5 (2 ×
+    n_layers + 1) × tp times a forward."""
+    k1, k5 = cfg.n_layers * tp * prefills, \
+        (2 * cfg.n_layers + 1) * tp * forwards
+    if c["k1"] != k1 or c["k5"] != k5 or c["k2"] or c["k3a"] or c["k3b"]:
+        fail(f"phase 24: {what}: launches {c}, expected K1 {k1} "
+             f"(n_layers x {tp} x {prefills} prefills), K5 {k5} ((2 x "
+             f"n_layers + 1) x {tp} x {forwards} forwards)")
+
+
+def _tp_bf16_case(out, label, p16, p32, cfg16, prompts, tps, launches):
+    """bf16 tensor-parallel streams against the unsharded bf16 run of the
+    same weights: each tp run teacher-forced on the unsharded tokens,
+    its logits within ``bound`` = twice the unsharded step's bf16-vs-f32
+    spread (the f32 twin ``p32`` teacher-forced on the same tokens), and
+    the first token where its greedy choice differs at a near tie by
+    that bound on the unsharded logits. Returns the runs' profiled step
+    stats by tp."""
+    import torch
+    zero, read = _tp_counts()
+    cfg32 = cfg16.scaled(dtype=torch.float32)
+    zero()
+    base_t, base_l, base_s = _tp_stream(p16, cfg16, prompts, TP_NEW,
+                                        profiled=TP_PROFILED)
+    ref_t, ref_l, _ = _tp_stream(p32, cfg32, prompts, TP_NEW,
+                                 forced=base_t)
+    c = read()
+    _tp_check_launches(f"{label} unsharded bf16 and f32", c, cfg16, 1, 2,
+                       2 * TP_NEW)
+    _tp_add(launches, c)
+    spread = (base_l - ref_l).abs().max().item()
+    bound = 2 * spread
+    rec = dict(spread=spread, bound=bound, steps={1: base_s}, tp={})
+    for tp in tps:
+        zero()
+        got_t, got_l, st = _tp_stream(p16, cfg16, prompts, TP_NEW,
+                                      {"tp": tp}, forced=base_t,
+                                      profiled=TP_PROFILED)
+        c = read()
+        _tp_check_launches(f"{label} tp {tp}", c, cfg16, tp, 1, TP_NEW)
+        _tp_add(launches, c)
+        err = (got_l - base_l).abs().max().item()
+        diff = got_t != base_t
+        ties = []
+        for row in range(diff.shape[0]):
+            if bool(diff[row].any()):
+                j = int(diff[row].nonzero()[0])
+                lg = base_l[row, j]
+                ties.append((row, j, (lg[base_t[row, j]]
+                                      - lg[got_t[row, j]]).abs().item()))
+        equal = int((~diff).all(dim=1).sum())
+        rec["steps"][tp] = st
+        rec["tp"][tp] = dict(max_abs_err=err, equal=equal, ties=ties,
+                             launches=c)
+        print(f"[24a] {label} bf16 tp {tp} (emulated): teacher-forced "
+              f"logits max |tp - unsharded| {err:.4e} (bound {bound:.4e} = "
+              f"2 x the unsharded bf16-vs-f32 spread {spread:.4e}); greedy "
+              f"{equal}/{len(prompts)} streams equal, first differences "
+              f"(row, step, logit gap) {ties}; launches {c}", flush=True)
+        if not err <= bound:
+            fail(f"phase 24a: {label} tp {tp}: logits {err:.4e} from the "
+                 f"unsharded run's, beyond {bound:.4e}")
+        if any(not gap <= bound for _, _, gap in ties):
+            fail(f"phase 24a: {label} tp {tp}: a greedy token differs "
+                 f"where the logits are more than {bound:.4e} apart: "
+                 f"{ties}")
+    out[label] = rec
+    return rec
+
+
+def _tp_decode(out, card, serve):
+    """24a: the decode streams (see the module docstring)."""
+    import torch
+    from tony_tpu_torch import tree_map
+    from tony_tpu_torch.models import decode as D
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.models.quantize import quantize_weights_int8
+    zero, read = _tp_counts()
+    launches = dict.fromkeys(("k1", "k2", "k3a", "k3b", "k5"), 0)
+    cfg16, p16 = serve["cfg"], serve["params"]
+    prompts = [list(map(int, p)) for p in serve["prompts"][:TP_PROMPTS]]
+    cfg32 = cfg16.scaled(dtype=torch.float32)
+    p32 = tree_map(lambda t: t.float(), p16)
+    # f32: every tp run token-identical to the unsharded run
+    t0 = time.perf_counter()
+    zero()
+    base_t, _, _ = _tp_stream(p32, cfg32, prompts, TP_NEW)
+    c = read()
+    _tp_check_launches("f32 unsharded", c, cfg32, 1, 1, TP_NEW)
+    _tp_add(launches, c)
+    out["f32"] = {}
+    for tp in (2, 4):
+        zero()
+        got_t, _, _ = _tp_stream(p32, cfg32, prompts, TP_NEW, {"tp": tp})
+        c = read()
+        _tp_check_launches(f"f32 tp {tp}", c, cfg32, tp, 1, TP_NEW)
+        _tp_add(launches, c)
+        equal = int((got_t == base_t).all(dim=1).sum())
+        out["f32"][tp] = dict(equal=equal, launches=c)
+        print(f"[24a] small f32 tp {tp} (emulated) on {card}: "
+              f"{equal}/{len(prompts)} streams of {TP_NEW} tokens equal to "
+              f"the unsharded run; launches {c}", flush=True)
+        if equal != len(prompts):
+            fail(f"phase 24a: f32 tp {tp}: {equal}/{len(prompts)} streams "
+                 f"equal to the unsharded run")
+    out["f32_s"] = time.perf_counter() - t0
+    # bf16: dense at tp 2 and 4, GQA at tp 4, int8 weights at tp 2
+    t0 = time.perf_counter()
+    dense = _tp_bf16_case(out, "small", p16, p32, cfg16, prompts, (2, 4),
+                          launches)
+    cfg_g = cfg16.scaled(n_kv_heads=2)
+    pg16 = T.init_params(torch.Generator().manual_seed(24), cfg_g, "cuda")
+    _tp_bf16_case(out, "small GQA kv 2", pg16,
+                  tree_map(lambda t: t.float(), pg16), cfg_g, prompts, (4,),
+                  launches)
+    del pg16
+    _tp_bf16_case(out, "small int8 weights", quantize_weights_int8(p16),
+                  quantize_weights_int8(p32), cfg16, prompts, (2,),
+                  launches)
+    out["bf16_s"] = time.perf_counter() - t0
+    # a beam over 2 prompts at tp 2, f32
+    t0 = time.perf_counter()
+    nb, sb, width, bnew = TP_BEAM
+    prompt = torch.tensor([p[:sb] for p in prompts[:nb]], device="cuda")
+    zero()
+    want = D.beam_search(p32, prompt, cfg32, bnew, beam_width=width)
+    c1 = read()
+    zero()
+    got = D.beam_search(p32, prompt, cfg32, bnew, beam_width=width,
+                        mesh={"tp": 2})
+    c2 = read()
+    _tp_check_launches("beam unsharded", c1, cfg32, 1, 1, bnew)
+    _tp_check_launches("beam tp 2", c2, cfg32, 2, 1, bnew)
+    _tp_add(launches, c1)
+    _tp_add(launches, c2)
+    same = torch.equal(got.tokens, want.tokens)
+    serr = (got.scores - want.scores).abs().max().item()
+    out["beam"] = dict(equal=same, scores_err=serr, launches=c2,
+                       wall_s=time.perf_counter() - t0)
+    print(f"[24a] small f32 beam width {width} over {nb} prompts of {sb}, "
+          f"{bnew} tokens, tp 2 (emulated): tokens equal {same}, scores "
+          f"max |tp - unsharded| {serr:.3e}; launches {c2}", flush=True)
+    if not same or not serr <= 1e-3:
+        fail(f"phase 24a: beam at tp 2: tokens equal {same}, scores "
+             f"{serr:.3e} apart")
+    steps = dense["steps"]
+    print("[24a] small bf16 decode step at batch 8 (last "
+          f"{TP_PROFILED} steps of a stream, profiled) on {card}: "
+          + "; ".join(f"tp {tp}: {st['launches']:.1f} launches, "
+                      f"{st['device_ms']:.3f} ms device, {st['wall_ms']:.2f}"
+                      f" ms wall" for tp, st in steps.items()), flush=True)
+    out["launches"] = launches
+    return launches
+
+
+def _hybrid_mesh_steps(out, card):
+    """24b: train_lm's sharded path at world 1 (NCCL) on the hybrid mesh
+    of dcn ``{"dp": 1}`` × ``{"fsdp": -1}`` and on the flat ``{"fsdp":
+    -1}``, 3 steps each from the same seeds on the two-pass backward (K3a
+    and K3b; K2 adds dQ with atomics, so its bits vary from run to run):
+    bitwise equal losses; then ``train_lm`` itself on the hybrid mesh.
+    Returns the launches of the three runs."""
+    import torch.distributed as dist
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.parallel import mesh_shape
+    zero, read = _tp_counts()
+    steps, batch, seq = TP_HYBRID
+    launches = dict.fromkeys(("k1", "k2", "k3a", "k3b", "k5"), 0)
+    losses, shapes = {}, {}
+    budget = A._FUSED_PARTIALS_BYTES
+    A._FUSED_PARTIALS_BYTES = 0
+    try:
+        for name, axes, dcn in (("hybrid", {"fsdp": -1}, {"dp": 1}),
+                                ("flat", {"fsdp": -1}, None)):
+            _world1_env(axes, dcn)
+            rt.initialize()
+            mesh = rt.mesh()
+            shapes[name] = mesh_shape(mesh)
+            cfg, params = train_lm.build("small", "cuda")
+            zero()
+            _, losses[name], _, _ = _train_run(cfg, params, steps,
+                                               batch=batch, seq=seq,
+                                               mesh=mesh)
+            c = read()
+            L = cfg.n_layers
+            if (c["k1"], c["k2"], c["k3a"], c["k3b"], c["k5"]) != (
+                    2 * L * steps, 0, L * steps, L * steps,
+                    (4 * L + 1) * steps):
+                fail(f"phase 24b: {name} mesh: launches {c}")
+            _tp_add(launches, c)
+    finally:
+        A._FUSED_PARTIALS_BYTES = budget
+    backend = dist.get_backend()
+    rt.shutdown()
+    zero()
+    rc, lines = _train_lm_cli(["--preset", "small", "--steps", str(steps),
+                               "--batch_size", str(batch), "--seq_len",
+                               str(seq)], {"fsdp": -1}, {"dp": 1})
+    _tp_add(launches, read())
+    head = [x for x in lines if " mesh=" in x]
+    done = [x for x in lines if x.startswith("done: final loss ")]
+    out["hybrid"] = dict(shapes=shapes, losses=losses, cli=head + done,
+                         backend=backend)
+    print(f"[24b] small bf16 {batch} x {seq}, {steps} steps, NCCL world 1 "
+          f"({backend}) on {card}: hybrid mesh {shapes['hybrid']} losses "
+          f"{losses['hybrid']}, flat {shapes['flat']} losses "
+          f"{losses['flat']}; train_lm on the hybrid mesh: {head} {done}",
+          flush=True)
+    if shapes != {"hybrid": {"dp": 1, "fsdp": 1}, "flat": {"fsdp": 1}} or \
+            backend != "nccl":
+        fail(f"phase 24b: meshes {shapes} on {backend}")
+    if losses["hybrid"] != losses["flat"]:
+        fail(f"phase 24b: hybrid-mesh losses {losses['hybrid']} are not "
+             f"the flat mesh's {losses['flat']}")
+    if rc != 0 or not done or not head or \
+            "mesh={'dp': 1, 'fsdp': 1}" not in head[0]:
+        fail(f"phase 24b: train_lm on the hybrid mesh: exit {rc}, lines "
+             f"{lines[-3:]}")
+    return launches
+
+
+def phase_tp(report, card, serve):
+    """[24] Tensor-parallel decoding over emulated tp ranks and hybrid
+    meshes at world 1 (module docstring). tp ranks over NCCL need a host
+    with more cards. Returns the launches (K1, K5)."""
+    t_phase = time.perf_counter()
+    out = {}
+    launches = _tp_decode(out, card, serve)
+    out["decode_s"] = time.perf_counter() - t_phase
+    _tp_add(launches, _hybrid_mesh_steps(out, card))
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    print(f"[24] phase wall {out['wall_s']:.1f}s (24a {out['decode_s']:.1f}"
+          f"s: f32 {out['f32_s']:.1f}, bf16 {out['bf16_s']:.1f}, beam "
+          f"{out['beam']['wall_s']:.1f}); launches {launches}; tp ranks "
+          f"over NCCL need a host with more cards", flush=True)
+    report["tp"] = out
+    return launches
+
+
 def main(bisect: bool = False) -> int:
     """The whole script; with ``bisect`` (``--trace-loss-bisect``) marker
     captures follow every phase, to find the one after which a capture
@@ -7425,6 +7771,7 @@ def main(bisect: bool = False) -> int:
     pp = timed("21 pipeline", phase_pipeline, report, card)
     obs = timed("22 observability", phase_observability, report, card)
     fleet_k1, fleet_k5 = timed("23 fleet", phase_fleet, report, card, serve)
+    tp = timed("24 tp", phase_tp, report, card, serve)
     print("[phase walls] " + ", ".join(f"{k} {v}s" for k, v in walls.items()),
           flush=True)
     # launches on the main paths, each counted from 0 over its own run:
@@ -7448,21 +7795,24 @@ def main(bisect: bool = False) -> int:
     # phase 22's run_training steps (traced, under the ledger, under a
     # live capture: K1, K2, K5) and its ServeEngine (K1, K5); phase 23's
     # in-process replicas (K1, K5: the autoscale, the v1 tier of the
-    # rolling upgrade, the f32 drill)
+    # rolling upgrade, the f32 drill); phase 24's decode streams over
+    # emulated tp ranks and their unsharded twins (K1, K5) and the hybrid
+    # and flat meshes' training runs (K1, K3a, K3b, K5) and train_lm's
+    # (K1, K2, K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
                       + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
                       + moe["k1"] + cp["k1"] + pp["k1"] + obs["k1"]
-                      + fleet_k1)
+                      + fleet_k1 + tp["k1"])
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
                                 + files["k2"] + moe["k2"] + cp["k2"]
-                                + pp["k2"] + obs["k2"])
-    bwd["dq"]["launches"] = counts["k3a"] + files["k3a"]
-    bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"]
+                                + pp["k2"] + obs["k2"] + tp["k2"])
+    bwd["dq"]["launches"] = counts["k3a"] + files["k3a"] + tp["k3a"]
+    bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"] + tp["k3b"]
     k4["launches"] = counts["k4"] + moe["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
                                 + files["k5"] + moe["k5"] + cp["k5"]
-                                + pp["k5"] + obs["k5"] + fleet_k5)
+                                + pp["k5"] + obs["k5"] + fleet_k5 + tp["k5"])
     norms["ln"]["launches"] = bert["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -38,6 +38,15 @@ rows through ``global_batch``:
   place; offers off the interval run no ``broadcast_object_list`` or
   ``barrier``; a write that fails on rank 1 commits nothing and raises
   on both ranks at the next save;
+- hybrid (multi-slice) meshes, built by ``runtime.mesh(axes,
+  dcn_axes=...)`` as a job with ``tony.application.mesh.dcn`` builds
+  them: dp across 2 slices × tp inside (``{"tp": -1}`` × dcn ``{"dp":
+  2}``) trains along the JAX package's ``make_train_step`` on its
+  ``make_hybrid_mesh`` at rtol 1e-4 (the twin of
+  ``tests/test_parallel.py::TestHybridMesh::test_train_step_over_hybrid_mesh``),
+  and pp across the slices (``{"dp": -1}`` × dcn ``{"pp": 2}``, GPipe)
+  has the unpipelined loss at rtol 1e-5 (the twin of
+  ``test_pp_over_dcn``) and trains along the JAX hybrid mesh's step;
 - the fused optimizer refuses a mesh, and experts that do not split over
   ep are refused.
 """
@@ -60,6 +69,7 @@ import torch
 from tony_tpu.models import bert as JB
 from tony_tpu.models import train as JTR
 from tony_tpu.models import transformer as JT
+from tony_tpu.parallel.mesh import make_hybrid_mesh as jax_make_hybrid_mesh
 from tony_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from tony_tpu.parallel.sharding import shard_pytree as jax_shard_pytree
 from tony_tpu.serving.weightstore import tree_digest
@@ -97,14 +107,16 @@ class Case:
     """One sharded run: a model on a mesh of ``world`` processes."""
 
     def __init__(self, name, world, axes, model="lm", kw=None,
-                 steps=STEPS, ckpt=""):
+                 steps=STEPS, ckpt="", dcn=None):
         self.name, self.world, self.axes = name, world, axes
         self.model, self.kw, self.steps, self.ckpt = model, kw or {}, \
             steps, ckpt
+        self.dcn = dcn      # the slices' axes of a hybrid mesh, or None
 
     def plan(self) -> dict:
         return dict(name=self.name, axes=self.axes, model=self.model,
-                    kw=self.kw, steps=self.steps, ckpt=self.ckpt)
+                    kw=self.kw, steps=self.steps, ckpt=self.ckpt,
+                    dcn=self.dcn)
 
 
 def _setup(case: Case):
@@ -199,8 +211,11 @@ def _bert_setup():
     return jcfg, tcfg, jp, batches
 
 
-def _jax_trajectory(jloss, jcfg, axes_fn, jp, batches, world, axes):
-    mesh = jax_make_mesh(axes, devices=jax.devices()[:world])
+def _jax_trajectory(jloss, jcfg, axes_fn, jp, batches, world, axes,
+                    dcn=None):
+    devices = jax.devices()[:world]
+    mesh = (jax_make_hybrid_mesh(axes, dcn, devices=devices) if dcn
+            else jax_make_mesh(axes, devices=devices))
     params = jax_shard_pytree(jax.tree.map(jnp.asarray, jp), axes_fn(jcfg),
                               mesh)
     opt = JTR.default_optimizer(**OPT)
@@ -287,6 +302,8 @@ LM_CASES = [
     Case("cp2_tp2", 4, {"cp": 2, "tp": 2}, kw={"remat_policy": "attn"}),
     Case("dp2_cp2_ulysses", 4, {"dp": 2, "cp": 2},
          kw={"cp_strategy": "ulysses", "remat_policy": "dots"}),
+    Case("hybrid_dcn_dp2_tp2", 4, {"tp": -1}, dcn={"dp": 2}),
+    Case("hybrid_dcn_pp2_dp2", 4, {"dp": -1}, dcn={"pp": 2}),
 ]
 BERT_CASES = [
     Case("bert_fsdp2", 2, {"fsdp": 2}, model="bert"),
@@ -317,6 +334,8 @@ def group_results(tmp_path_factory):
 
 
 def _axes(case: Case) -> dict:
+    if case.dcn:        # make_hybrid_mesh infers the ici axes itself
+        return case.axes
     return {k: (case.world if v == -1 else v) for k, v in case.axes.items()}
 
 
@@ -332,9 +351,22 @@ def test_sharded_trajectory_matches_jax(case, group_results):
         jloss, axes_fn, tloss = JT.lm_loss, JT.logical_axes, TT.lm_loss
         first = batches["inputs"][0]
     want = _jax_trajectory(jloss, jcfg, axes_fn, jp, batches, case.world,
-                           _axes(case))
+                           _axes(case), case.dcn)
     _check_case(outs, want, _port_unsharded(tloss, tcfg, jp, batches), jp,
                 first)
+
+
+def test_pp_over_dcn_has_the_unpipelined_loss(group_results):
+    """pp across the slices of a hybrid mesh: the first step's loss (the
+    initial params') equals the JAX package's unpipelined loss at rtol
+    1e-5, on every rank."""
+    outs = group_results(4)["hybrid_dcn_pp2_dp2"]
+    jcfg, _, jp, batches = _lm_setup({})
+    ref = float(JT.lm_loss(jax.tree.map(jnp.asarray, jp),
+                           {k: jnp.asarray(v[0]) for k, v in
+                            batches.items()}, jcfg, None))
+    for o in outs:
+        np.testing.assert_allclose(float(o["loss"][0]), ref, rtol=1e-5)
 
 
 def test_sharded_checkpoint_resumes_in_a_new_group(group_results,

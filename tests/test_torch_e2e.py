@@ -19,7 +19,9 @@ worker holds one stage of the blocks (the twin of
 ``tests/test_e2e.py::test_distributed_pipeline_parallel_lm_trains``) and
 prints the schedule it resolved. Both workers' stdout must
 show the world-2 mesh line (``'ep': 2``, ``'cp': 2``, ``'pp': 2``) and
-``done:``, and the job must exit 0. A ten-step job with
+``done:``, and the job must exit 0. A job of 4 workers in 2 slices
+(``tony.worker.slices=2``, ``tony.application.mesh.dcn=dp=2``) trains
+on the hybrid mesh, dp across the slices and tp inside. A ten-step job with
 ``tony.task.profile.*`` set shows what the orchestrator reads of it: each
 worker's ``GOODPUT`` entry, the ``train.step`` spans of both, and a
 trace of steps [5, 8) in each task's profile directory. The job's
@@ -76,6 +78,46 @@ def _killed_from_outside(job_dir: str) -> bool:
     return bool(codes) and all(c == "-9" for c in codes)
 
 
+def _run_job(tmp_path, conf, command):
+    """Submit ``command`` as a job of ``conf`` (plus the launcher and a
+    staging directory a try) until it was not killed from outside, up
+    to 4 times: (exit code, the client)."""
+    conf = dict(conf, **{
+        "tony.application.python-binary-path": _executor_launcher(tmp_path)})
+    for attempt in range(4):
+        conf["tony.staging.dir"] = str(tmp_path / f"staging{attempt}")
+        client = TonyClient(TonyConfig(conf), command,
+                            shell_env={"PYTHONPATH": REPO,
+                                       "OMP_NUM_THREADS": "2"})
+        rc = client.run()
+        if rc == 0 or not _killed_from_outside(client.job_dir):
+            break
+    return rc, client
+
+
+def test_port_train_lm_runs_as_a_two_slice_job(tmp_path):
+    """``tony.worker.slices=2`` with a dcn mesh (the twin of
+    ``tests/test_e2e.py::TestE2E::test_multi_slice_env``): 4 workers in 2
+    gangs, ``runtime.mesh()`` builds the hybrid mesh, dp across the
+    slices and tp inside each, and every worker trains 2 steps."""
+    rc, client = _run_job(tmp_path, {
+        "tony.history.location": str(tmp_path / "tony-history"),
+        "tony.application.timeout": "180000",
+        "tony.worker.instances": "4",
+        "tony.worker.slices": "2",
+        "tony.application.mesh": "tp=-1",
+        "tony.application.mesh.dcn": "dp=2",
+    }, f"{sys.executable} -m tony_tpu_torch.train_lm --device cpu --preset "
+       f"tiny --steps 2 --batch_size 2 --seq_len 32")
+    assert rc == 0
+    for i in range(4):
+        out = open(os.path.join(client.job_dir, "logs",
+                                f"worker-{i}.stdout")).read()
+        assert (f"[worker:{i}] attempt=0 mesh={{'dp': 2, 'tp': 2}} "
+                f"devices=4") in out, out
+        assert "done: final loss" in out, out
+
+
 @pytest.mark.parametrize("framework,mesh,want", [
     ("jax", "fsdp=-1", "mesh={'fsdp': 2} devices=2"),
     ("pytorch", None, "mesh={'dp': 2} devices=2"),
@@ -90,7 +132,6 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
         "tony.application.timeout": "120000",
         "tony.worker.instances": "2",
         "tony.application.framework": framework,
-        "tony.application.python-binary-path": _executor_launcher(tmp_path),
     }
     if mesh:
         conf["tony.application.mesh"] = mesh
@@ -102,14 +143,7 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
         command += " --cp_strategy ulysses"
     if mesh and "pp" in mesh:
         command += " --pp_schedule 1f1b"
-    for attempt in range(4):
-        conf["tony.staging.dir"] = str(tmp_path / f"staging{attempt}")
-        client = TonyClient(TonyConfig(conf), command,
-                            shell_env={"PYTHONPATH": REPO,
-                                       "OMP_NUM_THREADS": "2"})
-        rc = client.run()
-        if rc == 0 or not _killed_from_outside(client.job_dir):
-            break
+    rc, client = _run_job(tmp_path, conf, command)
     assert rc == 0
     for i in range(2):
         out = open(os.path.join(client.job_dir, "logs",

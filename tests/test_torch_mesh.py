@@ -16,7 +16,11 @@ package's, with no process group.
   arm's environment; the env names equal ``tony_tpu.constants``'s;
 - ``tp_kv_heads`` against a brute-force check of the kernels' GQA rule,
   and the local-shard layout's refusals (cp, pp, ep; rules that split
-  the residual stream).
+  the residual stream);
+- ``runtime.mesh()`` under a mesh spec with dcn axes builds the hybrid
+  mesh of the JAX runtime's names and shape, refuses a process outside
+  its slice's block of ranks, refuses ``axis_order`` with the JAX
+  runtime's message, and the pytorch arm refuses dcn axes.
 """
 
 import dataclasses
@@ -308,3 +312,62 @@ def test_env_names_equal_the_jax_package_constants():
     assert len(names) == 28
     for n in names:
         assert getattr(constants, n) == getattr(jconst, n), n
+
+
+# -- multi-slice (hybrid) meshes through the runtime ---------------------
+
+def _slice_env(monkeypatch, pid, world, slice_id, axes, dcn):
+    for k in ALL_VARS:
+        monkeypatch.delenv(k, raising=False)
+    import json
+    monkeypatch.setenv("TONY_JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("TONY_JAX_PROCESS_ID", str(pid))
+    monkeypatch.setenv("TONY_JAX_NUM_PROCESSES", str(world))
+    monkeypatch.setenv("TONY_MESH_SPEC", json.dumps({"axes": axes,
+                                                     "dcn_axes": dcn}))
+    monkeypatch.setenv("TONY_SLICE_ID", str(slice_id))
+    monkeypatch.setenv("TONY_NUM_SLICES", "2")
+    monkeypatch.setattr(rt, "initialize", lambda device=None: rt.task_info())
+
+
+@pytest.mark.parametrize("axes,dcn", [({"tp": -1}, {"dp": 2}),
+                                      ({"dp": -1}, {"pp": 2}),
+                                      ({}, {"dp": 2})])
+def test_runtime_mesh_builds_the_hybrid_mesh_of_the_spec(axes, dcn,
+                                                         monkeypatch):
+    """The mesh spec's dcn axes make ``runtime.mesh()`` hybrid: the JAX
+    runtime's names and shape over 8 processes (slice-major: process 5
+    is in slice 1)."""
+    _slice_env(monkeypatch, 5, 8, 1, axes, dcn)
+    built = []
+    monkeypatch.setattr(PM, "make_hybrid_mesh", lambda ici, d: built.append(
+        PM.hybrid_mesh_layout(ici, d, 8)) or built[-1])
+    assert rt.mesh(device="cpu") == _jax_layout(jrt.mesh())
+    assert built
+
+
+def test_runtime_mesh_refuses_ranks_that_are_not_slice_major(monkeypatch):
+    _slice_env(monkeypatch, 5, 8, 0, {"tp": -1}, {"dp": 2})
+    monkeypatch.setattr(PM, "make_hybrid_mesh", lambda ici, d: None)
+    with pytest.raises(RuntimeError, match="slice-major"):
+        rt.mesh(device="cpu")
+
+
+def test_axis_order_with_dcn_axes_raises_as_jax(monkeypatch):
+    _slice_env(monkeypatch, 0, 8, 0, {"tp": -1}, {"dp": 2})
+    with pytest.raises(ValueError) as jerr:
+        jrt.mesh(axis_order=("tp", "dp"))
+    with pytest.raises(ValueError) as terr:
+        rt.mesh(axis_order=("tp", "dp"), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_pytorch_arm_refuses_dcn_axes(monkeypatch):
+    for k in ALL_VARS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("INIT_METHOD", "tcp://127.0.0.1:1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD", "2")
+    monkeypatch.setattr(rt, "initialize", lambda device=None: rt.task_info())
+    with pytest.raises(ValueError, match="dp mesh only"):
+        rt.mesh(dcn_axes={"dp": 2}, device="cpu")

@@ -41,6 +41,23 @@ An ``lm`` case whose ``kw`` sets ``pp_schedule`` to ``1f1b`` on a mesh
 with a pp axis trains through ``lm_value_and_grad`` (the step's
 ``value_and_grad_fn``).
 
+A ``decode`` case (``tests/test_torch_tp_decode.py``) holds an LM's
+weights and a ``prompt``; ``kw`` names the config (``cfg``: ``tiny`` or
+``beam``, and its overrides), the entry point (``kind``: ``greedy``,
+``sampled``, ``beam`` or ``long``) and whether the sharded tree is
+quantized (``int8``). Each rank lays the weights out by ``shard_pytree``
+(quantized after sharding), decodes on the mesh, and writes the outputs
+(``tokens``, ``logprobs``, ``scores``, ``logits``), the quantized tree
+gathered to full arrays (``q/<path>``, ``scale/<path>``), and, on rank
+0, the same entry point on the dict mesh of the same sizes (every rank
+emulated in this process) under ``emu/``. A ``mesh_env`` case builds
+``runtime.mesh()`` from a mesh spec with dcn axes and this rank's slice
+id in the environment (slice-major: rank // 2 of 2 slices), and writes
+the mesh's names, shape and rank grid.
+
+A case with ``dcn`` axes builds its mesh with them
+(``runtime.mesh(axes, dcn_axes=dcn)``, a hybrid mesh).
+
 ``ckpt`` is ``save`` (a sharded checkpoint every 2 steps under
 ``OUT_DIR/<name>``) or ``resume`` (``restore_or_init`` from that
 directory's latest step at attempt 1, then on to ``steps``); a resume
@@ -69,12 +86,17 @@ sys.path.insert(0, REPO)
 import tony_tpu_torch.runtime as rt  # noqa: E402
 from tony_tpu_torch import tree_leaves  # noqa: E402
 from tony_tpu_torch.models import bert as B  # noqa: E402
+from tony_tpu_torch.models import decode as D  # noqa: E402
+from tony_tpu_torch.models.quantize import (QuantizedWeight,  # noqa: E402
+                                            quantize_weights_int8)
 from tony_tpu_torch.models import transformer as T  # noqa: E402
 from tony_tpu_torch.models import train as TR  # noqa: E402
 from tony_tpu_torch.models.checkpoint import CheckpointManager  # noqa: E402
 from tony_tpu_torch.models.weights import (params_from_numpy,  # noqa: E402
                                            params_to_numpy)
+from tony_tpu_torch.ops import prng  # noqa: E402
 from tony_tpu_torch.parallel import constrain, mesh_shape  # noqa: E402
+from tony_tpu_torch.parallel.sharding import shard_pytree  # noqa: E402
 from tony_tpu_torch.parallel import pipeline as PL  # noqa: E402
 from tony_tpu_torch.parallel import ring_attention as R  # noqa: E402
 from tony_tpu_torch.parallel import spmd  # noqa: E402
@@ -189,6 +211,91 @@ def run_pipe(case: dict, data) -> dict:
     return out
 
 
+#: the beam-search twin's config (tests/test_decode.py::TestBeamSearch,
+#: its vocab cut to 16 so the lm_head splits over tp)
+BEAM_CFG = T.TransformerConfig(vocab_size=16, d_model=24, n_layers=2,
+                               n_heads=2, d_ff=48, max_seq=256,
+                               dtype=torch.float32,
+                               logits_dtype=torch.float32, remat=False)
+
+
+def decode_cfg(kw: dict):
+    model = {k: v for k, v in kw.items()
+             if k not in ("cfg", "kind", "int8", "new")}
+    base = BEAM_CFG if kw.get("cfg") == "beam" else T.PRESETS[
+        "tiny"].scaled(dtype=torch.float32, remat=False)
+    return base.scaled(**model)
+
+
+def decode_run(kind: str, params, prompt, cfg, new: int, mesh) -> dict:
+    """One decode entry point on ``params`` over ``mesh`` (a DeviceMesh,
+    or a dict of sizes to emulate): its outputs as numpy."""
+    if kind == "beam":
+        o = D.beam_search(params, prompt, cfg, max_new_tokens=new,
+                          beam_width=3, mesh=mesh)
+        return {"tokens": o.tokens.numpy(), "scores": o.scores.numpy(),
+                "lengths": o.lengths.numpy()}
+    if kind == "long":
+        sp = D.shard_params(params, cfg, mesh)
+        _, cache = D.prefill(sp, prompt, cfg, max_len=600)
+        nxt = torch.tensor([1, 2])
+        logits, _ = D.decode_step(sp, nxt, cache, cache["length"], cfg)
+        return {"logits": logits.numpy(),
+                "cache_heads": np.int64(cache["k"].shape[3])}
+    kw = (dict(rng=prng.PRNGKey(0), temperature=0.8, top_k=8)
+          if kind == "sampled" else {})
+    o = D.generate(params, prompt, cfg, new, mesh=mesh, **kw)
+    return {"tokens": o.tokens.numpy(), "logprobs": o.logprobs.numpy()}
+
+
+def run_decode(case: dict, data) -> dict:
+    name, kw = case["name"], case["kw"]
+    mesh = rt.mesh(case["axes"], device="cpu")
+    cfg = decode_cfg(kw)
+    weights = params_from_numpy(_unflat({
+        k[len(name) + 3:]: data[k] for k in data.files
+        if k.startswith(f"{name}/p/")}), device="cpu")
+    prompt = torch.from_numpy(data[f"{name}/prompt"]).long()
+    params = shard_pytree(weights, T.logical_axes(cfg), mesh)
+    out = {}
+    if kw.get("int8"):
+        params = quantize_weights_int8(params)
+        weights = quantize_weights_int8(weights)
+        for path, w in _flat(params, "").items():
+            if isinstance(w, QuantizedWeight):
+                out[f"q/{path}"] = w.q.full_tensor().numpy()
+                out[f"scale/{path}"] = w.scale.full_tensor().numpy()
+    out.update(decode_run(kw["kind"], params, prompt, cfg, kw["new"], mesh))
+    if dist.get_rank() == 0:
+        emu = decode_run(kw["kind"], weights, prompt, cfg, kw["new"],
+                         mesh_shape(mesh))
+        out.update({f"emu/{k}": v for k, v in emu.items()})
+    return out
+
+
+def run_mesh_env(case: dict) -> dict:
+    """``runtime.mesh()`` from the environment a multi-slice job's task
+    gets: the mesh spec's axes and dcn axes, and this rank's slice."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    saved = {k: os.environ.get(k) for k in
+             ("TONY_MESH_SPEC", "TONY_SLICE_ID", "TONY_NUM_SLICES")}
+    os.environ.update(
+        TONY_MESH_SPEC=json.dumps({"axes": case["axes"],
+                                   "dcn_axes": case["kw"]["dcn"]}),
+        TONY_SLICE_ID=str(rank // (world // 2)), TONY_NUM_SLICES="2")
+    try:
+        mesh = rt.mesh(device="cpu")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"names": np.array(mesh.mesh_dim_names),
+            "shape": np.array(mesh.mesh.shape),
+            "ranks": mesh.mesh.numpy()}
+
+
 def inject_write_faults() -> None:
     """The environment's faults (module docstring) on DCP's shard
     writer."""
@@ -281,7 +388,11 @@ def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
         return run_attention(case, data)
     if case["model"] == "pipe":
         return run_pipe(case, data)
-    mesh = rt.mesh(case["axes"], device="cpu")
+    if case["model"] == "decode":
+        return run_decode(case, data)
+    if case["model"] == "mesh_env":
+        return run_mesh_env(case)
+    mesh = rt.mesh(case["axes"], device="cpu", dcn_axes=case.get("dcn"))
     weights = _unflat({k[len(name) + 3:]: data[k] for k in data.files
                        if k.startswith(f"{name}/p/")})
     if case["model"] == "bert":

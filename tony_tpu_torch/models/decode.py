@@ -41,6 +41,21 @@ step never waits on the card.
 MoE configs decode through the same paths: the block's MLP is the
 training block's mixture of experts (:func:`_mlp`), whose capacity
 follows each call's own sequence length.
+
+Tensor parallelism: ``generate``, ``prefill``, ``prefill_rows``,
+``extend_step``, ``decode_step`` and ``beam_search`` take ``mesh=``, as
+``transformer.forward`` does — a ``DeviceMesh`` with the DTensor params
+of ``shard_pytree`` (quantized after sharding for int8 weights), or a
+dict of sizes that emulates every tp rank in this process (the form one
+card runs) — or a :class:`ShardedParams` from :func:`shard_params` in
+place of ``params``. Each rank runs its query heads (prefill: K1 on
+them and its kv heads), keeps its kv heads' cache, sums the
+row-parallel products (``wo``, ``w_down``) over the ranks, looks the
+embedding up vocab-parallel and gathers the vocab-split logits before
+any argmax, filter or sample, so every rank commits the same tokens.
+Every other entry point built on those (speculative decoding) takes a
+:class:`ShardedParams` the same way; the serving batcher takes no mesh,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,9 +69,13 @@ import torch.nn.functional as F
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import transformer as T
-from tony_tpu_torch.models.quantize import QuantizedWeight, layer
+from tony_tpu_torch.models.quantize import (QuantizedWeight, layer,
+                                            quantized_axes)
 from tony_tpu_torch.ops import prng
+from tony_tpu_torch.ops.attention import tp_kv_heads
 from tony_tpu_torch.ops.norms import rms_norm
+from tony_tpu_torch.parallel import spmd
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, logical_to_spec
 
 #: Token positions (the sequence axis) strictly above which a quantized
 #: product with bf16 activations casts the int8 weight to bf16 instead of
@@ -101,6 +120,123 @@ class BeamSearchOutput(NamedTuple):
     lengths: torch.Tensor    # [B, W] generated tokens incl. eos
 
 
+class ShardedParams(NamedTuple):
+    """A decode's params under tensor parallelism (:func:`shard_params`):
+    one tree per model-axis rank this process runs, each with the rank's
+    query heads, kv heads, MLP hidden and vocab slice, and the
+    collectives between the ranks. Every entry point takes one in place
+    of ``params``."""
+    shards: list                 # one param tree per rank in ``ranks``
+    ranks: spmd.ModelRanks
+
+
+def shard_params(params: dict, cfg: T.TransformerConfig, mesh,
+                 rules=DEFAULT_RULES) -> ShardedParams:
+    """``params`` laid out for tensor-parallel decoding on ``mesh``.
+
+    - a ``DeviceMesh``: ``params`` are the DTensors of
+      :func:`~tony_tpu_torch.parallel.sharding.shard_pytree` (float or
+      quantized after sharding); this rank keeps its model-axis shards,
+      gathered over the data axes
+      (:meth:`~tony_tpu_torch.parallel.spmd.Layout.local_params`), and
+      the collectives run in the model axis's group;
+    - a dict of sizes (``{"tp": 4}``): ``params`` are global tensors, cut
+      into every model-axis rank's shards, all run in this process
+      (:func:`~tony_tpu_torch.parallel.spmd.emulated_shards`).
+
+    The data axes replicate: every rank decodes the whole batch. Under
+    GQA the K/V projections replicate over tp (:func:`T.logical_axes`);
+    each rank keeps the kv heads its query heads read
+    (:func:`~tony_tpu_torch.ops.attention.tp_kv_heads`). cp, pp and ep
+    axes, and MoE under tp, raise ``NotImplementedError``."""
+    for logical, what in ((("batch", "seq"), "cp"), (("stage",), "pp"),
+                          (("batch", "expert"), "ep")):
+        entry = logical_to_spec(logical, mesh, rules)[-1]
+        if entry is not None:
+            raise NotImplementedError(
+                f"decoding on a mesh with a live {what} axis ({entry}) is "
+                f"not ported: decode runs over tp and the data axes")
+    axes = quantized_axes(params, T.logical_axes(cfg))
+    if isinstance(mesh, dict):
+        ranks, shards = spmd.emulated_shards(params, axes, mesh, rules)
+    else:
+        from torch.distributed.tensor import DTensor
+        if not isinstance(params["embed"], DTensor):
+            raise ValueError("decoding on a DeviceMesh takes the params "
+                             "laid out by shard_pytree (DTensors); a dict "
+                             "of sizes emulates the mesh on global params")
+        lay = spmd.Layout(mesh, rules)
+        ranks, shards = lay.model_ranks(), [lay.local_params(params)]
+    if ranks.size > 1 and cfg.num_experts:
+        raise NotImplementedError("mixture-of-experts decoding under "
+                                  "tensor parallelism is not ported")
+    return ShardedParams([_rank_kv(p, cfg, r, ranks.size)
+                          for r, p in zip(ranks.ranks, shards)], ranks)
+
+
+def _rank_kv(p: dict, cfg: T.TransformerConfig, rank: int,
+             size: int) -> dict:
+    """Under GQA with tp (K/V projections replicated), ``p`` with ``wk``
+    and ``wv`` cut to the kv heads rank ``rank`` reads."""
+    if size == 1 or cfg.kv_heads == cfg.n_heads:
+        return p
+    lo, hi = tp_kv_heads(cfg.n_heads, cfg.kv_heads, rank, size)
+
+    def cut(w):       # [L, d, KV, hd]; a quantized scale is [L, KV, hd]
+        if isinstance(w, QuantizedWeight):
+            return QuantizedWeight(w.q[:, :, lo:hi], w.scale[:, lo:hi])
+        return w[:, :, lo:hi]
+    blocks = dict(p["blocks"], wk=cut(p["blocks"]["wk"]),
+                  wv=cut(p["blocks"]["wv"]))
+    return dict(p, blocks=blocks)
+
+
+def _ranked(params, cfg: T.TransformerConfig, mesh=None) -> ShardedParams:
+    """``params`` as a :class:`ShardedParams`: as given when it is one,
+    laid out on ``mesh`` when there is one, else the one rank of an
+    unsharded run."""
+    if isinstance(params, ShardedParams):
+        return params
+    if mesh is not None:
+        return shard_params(params, cfg, mesh)
+    return ShardedParams([params], spmd.SOLO)
+
+
+def _rank_bufs(bufs: dict, i: int, n: int) -> dict:
+    """Rank ``i``'s view of a cache's buffers that hold ``n`` ranks' kv
+    heads side by side, rank-major, on the kv-head axis (the buffers
+    themselves when ``n`` is 1)."""
+    if n == 1:
+        return bufs
+    kv = bufs["k"].shape[3] // n
+    return {name: b[:, :, :, i * kv:(i + 1) * kv] for name, b in
+            bufs.items()}
+
+
+def _embed(sp: ShardedParams, tokens, cfg: T.TransformerConfig):
+    """The token embedding ``[B, S, D]`` in ``cfg.dtype``: under tp the
+    vocab-parallel lookup, each rank's part summed over the ranks."""
+    if sp.ranks.size == 1:
+        return sp.shards[0]["embed"][tokens.long()].to(cfg.dtype)
+    return sp.ranks.sum([spmd.embed_partial(p["embed"], tokens, r) for
+                         r, p in zip(sp.ranks.ranks, sp.shards)]
+                        ).to(cfg.dtype)
+
+
+def _head(sp: ShardedParams, x, cfg: T.TransformerConfig, select=None):
+    """Logits of block output ``x`` ``[..., D]``: on each rank the final
+    RMSNorm, ``select`` (the positions the head runs on, after the norm)
+    and its vocab slice of the lm_head; the slices gathered over the
+    ranks, so every rank holds the full ``[..., V]`` before any argmax,
+    filter or sample."""
+    parts = []
+    for p in sp.shards:
+        h = rms_norm(x, p["final_norm"])
+        parts.append(_lm_head(h if select is None else select(h),
+                              p["lm_head"], cfg))
+    return sp.ranks.gather(parts)
+
+
 # Length-aware decode attention: caches at or above this many positions
 # take the block-wise path whose cost follows the LIVE length; below it
 # the dense path is cheaper and matches the training forward exactly.
@@ -137,14 +273,31 @@ def _check_no_ring(cfg: T.TransformerConfig, what: str) -> None:
 
 
 def init_kv_cache(cfg: T.TransformerConfig, batch: int, max_len: int,
-                  device=None) -> dict:
+                  device=None, mesh=None) -> dict:
     """Zeroed cache on ``device`` (the card unless the caller passes
     ``"cpu"``), frontier 0: k/v of shape ``[L, B, rows, KV, hd]`` in
     ``cfg.dtype``, or int8 with ``k_scale``/``v_scale`` ``[L, B, rows,
     KV, 1]`` f32 when ``cfg.kv_cache_dtype == "int8"``. ``rows`` is
     ``max_len``, or ``cfg.kv_cache_capacity`` for a rolling cache (which
     warns at 4x the window or more: its attention reads every row each
-    step, so the cost per token is O(capacity), not O(window))."""
+    step, so the cost per token is O(capacity), not O(window)).
+
+    With a ``mesh`` (see :func:`shard_params`) ``KV`` holds only the kv
+    heads of the model-axis ranks this process runs: on a
+    ``DeviceMesh`` this rank's, on a dict of sizes every rank's, side by
+    side in rank order."""
+    if mesh is None:
+        ranks = spmd.SOLO
+    elif isinstance(mesh, dict):
+        ranks = spmd.emulated_ranks(mesh)
+    else:
+        ranks = spmd.Layout(mesh).model_ranks()
+    return _new_cache(cfg, batch, max_len, device, ranks)
+
+
+def _new_cache(cfg: T.TransformerConfig, batch: int, max_len: int, device,
+               ranks: spmd.ModelRanks) -> dict:
+    """:func:`init_kv_cache` for the model-axis ranks ``ranks``."""
     dev = resolve_device(device)
     cap = _ring_capacity(cfg)
     rows = cap or max_len
@@ -154,7 +307,9 @@ def init_kv_cache(cfg: T.TransformerConfig, batch: int, max_len: int,
             f"attn_window={cfg.attn_window}: ring-cache attention reads "
             "every capacity row per token (O(capacity), not O(window)) — "
             "size the capacity near the window", stacklevel=2)
-    shape = (cfg.n_layers, batch, rows, cfg.kv_heads, cfg.head_dim)
+    lo, hi = tp_kv_heads(cfg.n_heads, cfg.kv_heads, 0, ranks.size)
+    shape = (cfg.n_layers, batch, rows, (hi - lo) * len(ranks.ranks),
+             cfg.head_dim)
     if cfg.kv_quant:
         sshape = shape[:-1] + (1,)
         return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -419,11 +574,17 @@ def _mlp(h, p, cfg: T.TransformerConfig):
     return _weinsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
 
 
-def _finish_block(x, o, p, cfg: T.TransformerConfig):
+def _finish_block(x, os, ps, cfg: T.TransformerConfig,
+                  ranks: spmd.ModelRanks):
     """The output projection and residual, then RMSNorm, the MLP and its
-    residual — the training block's, through :func:`_weinsum`."""
-    x = x + _weinsum("bshk,hkd->bsd", o, p["wo"])
-    return x + _mlp(rms_norm(x, p["mlp_norm"]), p, cfg)
+    residual — the training block's, through :func:`_weinsum`. ``os`` and
+    ``ps`` are each rank's attention output and layer params: the
+    row-parallel products (``wo``, ``w_down``) give each rank a part of
+    the residual update, summed over the ranks."""
+    x = x + ranks.sum([_weinsum("bshk,hkd->bsd", o, p["wo"])
+                       for o, p in zip(os, ps)])
+    return x + ranks.sum([_mlp(rms_norm(x, p["mlp_norm"]), p, cfg)
+                          for p in ps])
 
 
 def _layer_params(params: dict, li: int) -> dict:
@@ -440,42 +601,51 @@ def _lm_head(x, w, cfg: T.TransformerConfig):
     return T.lm_head_logits(x, w, cfg)
 
 
-def _decode_block(x, p, bufs, li, pos, cfg, rope, q_range, window=None):
+def _decode_block(x, ps, bufs, li, pos, cfg, rope, q_range, window,
+                  ranks: spmd.ModelRanks):
     """Chunked decoder block. x: ``[B, K, D]`` at positions pos..pos+K-1;
+    on each rank (its layer params in ``ps``, its kv heads of ``bufs``)
     writes the chunk's K/V into the stacked cache in place (modulo the
     capacity for a rolling cache), then attends over it."""
-    q, k, v = _project_qkv(x, p, rope)
     cap = _ring_capacity(cfg)
-    if cap:
-        ring_pos = pos % cap if isinstance(pos, torch.Tensor) \
-            else int(pos) % cap
-        for n, c in _kv_writes(bufs, k, v).items():
-            _write_kv_chunk(bufs[n], c, li, ring_pos)
-        q_pos = pos if isinstance(pos, torch.Tensor) else torch.full(
-            (x.shape[0],), int(pos), device=x.device)
-        o = _ring_cached_attention(q, bufs, li, q_pos, cfg.attn_window)
-    else:
-        fits = q_range[1] < bufs["k"].shape[2]
-        for n, c in _kv_writes(bufs, k, v).items():
-            _write_kv_chunk(bufs[n], c, li, pos, fits, window)
-        o = _cached_attention(q, bufs, li, pos, cfg.attn_window or None,
-                              q_range)
-    return _finish_block(x, o, p, cfg)
+    os = []
+    for i, p in enumerate(ps):
+        rb = _rank_bufs(bufs, i, len(ps))
+        q, k, v = _project_qkv(x, p, rope)
+        if cap:
+            ring_pos = pos % cap if isinstance(pos, torch.Tensor) \
+                else int(pos) % cap
+            for n, c in _kv_writes(rb, k, v).items():
+                _write_kv_chunk(rb[n], c, li, ring_pos)
+            q_pos = pos if isinstance(pos, torch.Tensor) else torch.full(
+                (x.shape[0],), int(pos), device=x.device)
+            os.append(_ring_cached_attention(q, rb, li, q_pos,
+                                             cfg.attn_window))
+        else:
+            fits = q_range[1] < rb["k"].shape[2]
+            for n, c in _kv_writes(rb, k, v).items():
+                _write_kv_chunk(rb[n], c, li, pos, fits, window)
+            os.append(_cached_attention(q, rb, li, pos,
+                                        cfg.attn_window or None, q_range))
+    return _finish_block(x, os, ps, cfg, ranks)
 
 
-def _blocks_forward(params: dict, tokens, cache: dict, pos,
+def _blocks_forward(params, tokens, cache: dict, pos,
                     cfg: T.TransformerConfig, pos_range=None, window=None):
     """Run the decoder blocks over a K-token chunk at ``pos``, writing its
     K/V into the cache. Returns (block output ``[B, K, D]``, cache with
     the frontier advanced by K) — the body of :func:`extend_step`, and
-    the head-free K/V write of the speculative rounds."""
+    the head-free K/V write of the speculative rounds. ``params`` may be
+    a :class:`ShardedParams` (every rank it runs, in turn, a layer at a
+    time)."""
+    sp = _ranked(params, cfg)
     b, n_q = tokens.shape
     if _ring_capacity(cfg) and n_q > 1:
         raise ValueError(
             "rolling KV cache (kv_cache_capacity) supports single-token "
             "decode steps only — chunked verify (speculative decoding) "
             "needs the linear cache")
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = _embed(sp, tokens, cfg)
     rope = T.rope_tables(_q_positions(pos, b, n_q, tokens.device),
                          cfg.head_dim)
     if pos_range is None:
@@ -484,14 +654,16 @@ def _blocks_forward(params: dict, tokens, cache: dict, pos,
         q_range = (pos_range[0], pos_range[1] + n_q - 1)
     bufs = _kv_bufs(cache)
     for li in range(cfg.n_layers):
-        x = _decode_block(x, _layer_params(params, li), bufs, li, pos, cfg,
-                          rope, q_range, window)
+        x = _decode_block(x, [_layer_params(p, li) for p in sp.shards],
+                          bufs, li, pos, cfg, rope, q_range, window,
+                          sp.ranks)
     return x, dict(bufs, length=pos + n_q)
 
 
 @torch.no_grad()
-def extend_step(params: dict, tokens, cache: dict, pos,
-                cfg: T.TransformerConfig, pos_range=None, window=None):
+def extend_step(params, tokens, cache: dict, pos,
+                cfg: T.TransformerConfig, pos_range=None, window=None,
+                mesh=None):
     """Extend the cache with a K-token chunk at positions pos..pos+K-1.
     tokens: ``[B, K]``; returns (logits ``[B, K, V]`` in
     ``cfg.logits_storage_dtype`` — logits[:, i] is the next-token
@@ -499,83 +671,97 @@ def extend_step(params: dict, tokens, cache: dict, pos,
     ``[B]`` tensor; ``pos_range``: (min, max) of ``pos`` over rows as
     host ints (read back from ``pos`` when absent); ``window`` routes
     per-row writes through the bounded-window positions. The chunked
-    verify of speculative decoding; K=1 is the plain decode step."""
-    x, cache = _blocks_forward(params, tokens, cache, pos, cfg, pos_range,
+    verify of speculative decoding; K=1 is the plain decode step. With a
+    ``mesh`` (or a :class:`ShardedParams`) the step runs tensor-parallel
+    on the cache of :func:`init_kv_cache` for that mesh, and returns the
+    full logits."""
+    sp = _ranked(params, cfg, mesh)
+    x, cache = _blocks_forward(sp, tokens, cache, pos, cfg, pos_range,
                                window)
-    x = rms_norm(x, params["final_norm"])
-    return _lm_head(x, params["lm_head"], cfg), cache
+    return _head(sp, x, cfg), cache
 
 
 @torch.no_grad()
-def extend_rows(params: dict, tokens, cache: dict, pos: int, lengths,
+def extend_rows(params, tokens, cache: dict, pos: int, lengths,
                 cfg: T.TransformerConfig):
     """:func:`extend_step` of K right-padded chunks ``[K, S]`` at one
     host position ``pos``, keeping only each row's last REAL position:
     returns (logits ``[K, V]`` at positions ``lengths - 1`` of the
     chunks, ``lengths`` a ``[K]`` tensor; the cache). The head runs on
     those K rows alone, as :func:`prefill_rows`' does."""
-    x, cache = _blocks_forward(params, tokens, cache, pos, cfg)
-    x = rms_norm(x, params["final_norm"])
+    sp = _ranked(params, cfg)
+    x, cache = _blocks_forward(sp, tokens, cache, pos, cfg)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
-    return _lm_head(x[rows, lengths.long() - 1], params["lm_head"],
-                    cfg), cache
+    return _head(sp, x, cfg, lambda h: h[rows, lengths.long() - 1]), cache
 
 
 @torch.no_grad()
-def decode_step(params: dict, token, cache: dict, pos,
-                cfg: T.TransformerConfig, pos_range=None, window=None):
+def decode_step(params, token, cache: dict, pos,
+                cfg: T.TransformerConfig, pos_range=None, window=None,
+                mesh=None):
     """One decode step. token: ``[B]``; returns (logits ``[B, V]``, the
-    cache). ``pos`` is the position being written."""
+    cache). ``pos`` is the position being written; ``mesh`` as in
+    :func:`extend_step` (a step-by-step caller on a ``DeviceMesh`` lays
+    the params out once with :func:`shard_params` and passes that)."""
     logits, cache = extend_step(params, token[:, None], cache, pos, cfg,
-                                pos_range, window)
+                                pos_range, window, mesh)
     return logits[:, 0], cache
 
 
-def _prompt_forward(params, tokens, cfg, bufs):
+def _prompt_forward(sp: ShardedParams, tokens, cfg, bufs):
     """The prompt forward shared by :func:`prefill` and
     :func:`prefill_rows`: the layer loop over ``tokens [B, s]``, writing
     K/V into ``bufs`` in place — positions [0, s), or for a rolling
     cache only the last ``min(s, capacity)`` positions, each at its ring
     row ``position % capacity`` (older ones lie outside every later
-    query's window); an int8 cache quantizes at the write. Returns the
-    final-norm'd activations ``[B, s, D]``. No padding to kernel-friendly
-    lengths: the CUDA kernel masks ragged edges itself."""
+    query's window); an int8 cache quantizes at the write. Each rank
+    runs attention (K1 on the card) on its query heads and kv heads.
+    Returns the blocks' output ``[B, s, D]`` (before the final norm). No
+    padding to kernel-friendly lengths: the CUDA kernel masks ragged
+    edges itself."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = _embed(sp, tokens, cfg)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     rope = T.rope_tables(positions, cfg.head_dim)
     cap = _ring_capacity(cfg)
+    n = len(sp.shards)
     for li in range(cfg.n_layers):
-        p = _layer_params(params, li)
-        q, k, v = _project_qkv(x, p, rope)
-        o = T._attention(q, k, v, window=cfg.attn_window or None)
-        x = _finish_block(x, o, p, cfg)
-        if cap:
-            s0 = max(s - cap, 0)
-            idx = torch.arange(s0, s, device=tokens.device) % cap
-            for n, c in _kv_writes(bufs, k[:, s0:], v[:, s0:]).items():
-                bufs[n][li][:, idx] = c
-        else:
-            for n, c in _kv_writes(bufs, k, v).items():
-                _write_kv_chunk(bufs[n], c, li, 0)
-    return rms_norm(x, params["final_norm"]), bufs
+        ps = [_layer_params(p, li) for p in sp.shards]
+        os = []
+        for i, p in enumerate(ps):
+            q, k, v = _project_qkv(x, p, rope)
+            os.append(T._attention(q, k, v, window=cfg.attn_window or None))
+            rb = _rank_bufs(bufs, i, n)
+            if cap:
+                s0 = max(s - cap, 0)
+                idx = torch.arange(s0, s, device=tokens.device) % cap
+                for name, c in _kv_writes(rb, k[:, s0:], v[:, s0:]).items():
+                    rb[name][li][:, idx] = c
+            else:
+                for name, c in _kv_writes(rb, k, v).items():
+                    _write_kv_chunk(rb[name], c, li, 0)
+        x = _finish_block(x, os, ps, cfg, sp.ranks)
+    return x, bufs
 
 
 @torch.no_grad()
-def prefill(params: dict, tokens, cfg: T.TransformerConfig, max_len: int):
+def prefill(params, tokens, cfg: T.TransformerConfig, max_len: int,
+            mesh=None):
     """Process the whole prompt in one forward, filling a fresh cache of
     ``max_len`` rows (the capacity, for a rolling cache). tokens: ``[B,
     S]``; returns (last-position logits ``[B, V]``, cache with frontier
-    ``S``)."""
+    ``S``). With a ``mesh`` (or a :class:`ShardedParams`) the forward runs
+    tensor-parallel and the cache holds the ranks' kv heads."""
+    sp = _ranked(params, cfg, mesh)
     b, s = tokens.shape
-    cache = init_kv_cache(cfg, b, max_len, device=tokens.device)
-    x, bufs = _prompt_forward(params, tokens, cfg, _kv_bufs(cache))
-    logits = _lm_head(x[:, s - 1], params["lm_head"], cfg)
-    return logits, dict(bufs, length=s)
+    cache = _new_cache(cfg, b, max_len, tokens.device, sp.ranks)
+    x, bufs = _prompt_forward(sp, tokens, cfg, _kv_bufs(cache))
+    return _head(sp, x, cfg, lambda h: h[:, s - 1]), dict(bufs, length=s)
 
 
 @torch.no_grad()
-def prefill_rows(params: dict, tokens, lengths, cfg: T.TransformerConfig):
+def prefill_rows(params, tokens, lengths, cfg: T.TransformerConfig,
+                 mesh=None):
     """BUCKETED multi-prompt prefill: K prompts right-padded to one
     bucket length in one forward. tokens: ``[K, S_b]`` with each row's
     real prompt in its first ``lengths[k]`` positions (``lengths``: a
@@ -584,14 +770,15 @@ def prefill_rows(params: dict, tokens, lengths, cfg: T.TransformerConfig):
     frontiers at the true lengths). Causal masking keeps every real
     position independent of the padding after it, and the padding's K/V
     lie beyond each frontier, unreachable by any later query. Rolling
-    caches are rejected: a ring would wrap padding onto live rows."""
+    caches are rejected: a ring would wrap padding onto live rows.
+    ``mesh`` as in :func:`prefill`."""
     _check_no_ring(cfg, "bucketed prefill")
+    sp = _ranked(params, cfg, mesh)
     k_rows, s = tokens.shape
-    cache = init_kv_cache(cfg, k_rows, s, device=tokens.device)
-    x, bufs = _prompt_forward(params, tokens, cfg, _kv_bufs(cache))
+    cache = _new_cache(cfg, k_rows, s, tokens.device, sp.ranks)
+    x, bufs = _prompt_forward(sp, tokens, cfg, _kv_bufs(cache))
     rows = torch.arange(k_rows, device=tokens.device)
-    xl = x[rows, lengths.long() - 1]                          # [K, D]
-    logits = _lm_head(xl, params["lm_head"], cfg)
+    logits = _head(sp, x, cfg, lambda h: h[rows, lengths.long() - 1])
     return logits, dict(bufs, length=lengths.to(torch.int32))
 
 
@@ -694,16 +881,24 @@ def _sample(logits, rng, temperature: float, top_k: int,
 
 
 @torch.no_grad()
-def generate(params: dict, prompt, cfg: T.TransformerConfig,
+def generate(params, prompt, cfg: T.TransformerConfig,
              max_new_tokens: int, rng=None, temperature: float = 0.0,
-             top_k: int = 0, top_p: float = 0.0) -> GenerateOutput:
+             top_k: int = 0, top_p: float = 0.0,
+             mesh=None) -> GenerateOutput:
     """Prefill + decode. prompt: ``[B, S]``. Greedy at ``temperature ==
     0``; otherwise step ``i`` samples with key ``split(rng,
     max_new_tokens)[i]`` through :func:`_sample`'s filters — the JAX
     package's stream, so the same ``rng`` (a
-    :func:`~tony_tpu_torch.ops.prng.PRNGKey`) gives the same tokens."""
+    :func:`~tony_tpu_torch.ops.prng.PRNGKey`) gives the same tokens.
+
+    With a ``mesh`` (see :func:`shard_params`) it decodes
+    tensor-parallel: every rank gathers the full logits and draws the
+    same noise over the whole vocab, so every rank commits the same
+    token and returns the full ``[B, ...]`` outputs, as the JAX package
+    returns unsharded tokens from a replicated prompt."""
     if temperature != 0.0 and rng is None:
         raise ValueError("sampling (temperature > 0) needs an rng key")
+    params = _ranked(params, cfg, mesh)
     b, s = prompt.shape
     logits, cache = prefill(params, prompt, cfg, s + max_new_tokens)
     keys = (prng.split(torch.as_tensor(rng).to(prompt.device),
@@ -1078,10 +1273,10 @@ def speculative_generate_device(params: dict, draft_params: dict, prompt,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def beam_search(params: dict, prompt, cfg: T.TransformerConfig,
+def beam_search(params, prompt, cfg: T.TransformerConfig,
                 max_new_tokens: int, beam_width: int = 4,
                 length_penalty: float = 0.0,
-                eos_id: int | None = None) -> BeamSearchOutput:
+                eos_id: int | None = None, mesh=None) -> BeamSearchOutput:
     """KV-cache beam search: keep the ``beam_width`` highest-logprob
     continuations per prompt, expanding all beams in one batched decode
     step per token. The prompt prefills once per row and its cache tiles
@@ -1091,7 +1286,9 @@ def beam_search(params: dict, prompt, cfg: T.TransformerConfig,
     themselves with frozen scores. Beams come back sorted by ``score /
     length**length_penalty``, best first, with the RAW logprob sums in
     ``scores`` and per-beam generated lengths (eos included) in
-    ``lengths``; tokens after a beam's eos repeat the eos."""
+    ``lengths``; tokens after a beam's eos repeat the eos. With a
+    ``mesh`` (see :func:`shard_params`) the steps run tensor-parallel and
+    each rank gathers its own cache (its kv heads) by parent index."""
     b, s = prompt.shape
     w = beam_width
     if w < 1:
@@ -1099,6 +1296,7 @@ def beam_search(params: dict, prompt, cfg: T.TransformerConfig,
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     _check_no_ring(cfg, "beam search")
+    params = _ranked(params, cfg, mesh)
     v = cfg.vocab_size
     dev = prompt.device
     logits, cache = prefill(params, prompt, cfg, s + max_new_tokens)

@@ -22,6 +22,14 @@ Usage::
 
     sparams = quantize_weights_int8(params)     # serving snapshot
     out = decode.generate(sparams, prompt, cfg, n)
+
+Tensor-parallel serving quantizes AFTER sharding, as the JAX package
+does: ``quantize_weights_int8(shard_pytree(params, T.logical_axes(cfg),
+mesh))`` quantizes each rank's shard, its scales the global ones
+(:func:`_quantize_sharded`), and ``decode.generate(sparams, prompt, cfg,
+n, mesh=mesh)`` decodes on it. The emulation of a dict mesh quantizes
+the global tree and cuts q and scale per rank
+(:func:`quantized_axes`).
 """
 
 from __future__ import annotations
@@ -44,12 +52,66 @@ def _quantize(w: torch.Tensor, contract_axes: tuple[int, ...]
               ) -> QuantizedWeight:
     """absmax / 127 per output channel, clamped below at 1e-8; q rounds
     half to even and clips to ±127. The JAX package's arithmetic, so the
-    result is bitwise its ``_quantize`` on the same weight."""
+    result is bitwise its ``_quantize`` on the same weight; a DTensor goes
+    through :func:`_quantize_sharded`."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(w, DTensor):
+        return _quantize_sharded(w, contract_axes)
     w32 = w.float()
     scale = w32.abs().amax(dim=contract_axes, keepdim=True)
     scale = torch.clamp_min(scale / 127.0, 1e-8)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return QuantizedWeight(q, scale.squeeze(contract_axes))
+
+
+def _quantize_sharded(w, contract_axes: tuple[int, ...]
+                      ) -> QuantizedWeight:
+    """:func:`_quantize` of a DTensor, on each rank's local shard. Where
+    the mesh splits a contracted dimension (``wo``'s heads and
+    ``w_down``'s hidden over tp, a weight's ``d`` over fsdp) a rank's own
+    absmax covers part of the channel, so the absmax is all-reduced (MAX,
+    exact) over that mesh dimension first: every rank then holds the
+    global scales, as the JAX package's quantization of a sharded array
+    does (XLA reduces over the whole axis), and q and scale are bitwise
+    the unsharded ones. q keeps the weight's placements; the scale is
+    replicated over the contracted dimensions' mesh axes and keeps its
+    other splits (on its dimensions, past the squeezed ones)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = w.device_mesh
+    w32 = w.to_local().float()
+    absmax = w32.abs().amax(dim=contract_axes, keepdim=True)
+    scale_placements = []
+    for i, p in enumerate(w.placements):
+        if p.is_shard() and p.dim in contract_axes:
+            dist.all_reduce(absmax, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(i))
+            scale_placements.append(Replicate())
+        elif p.is_shard():
+            scale_placements.append(Shard(
+                p.dim - sum(a < p.dim for a in contract_axes)))
+        else:
+            scale_placements.append(p)
+    scale = torch.clamp_min(absmax / 127.0, 1e-8)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    scale_shape = torch.Size(n for d, n in enumerate(w.shape)
+                             if d not in contract_axes)
+    return QuantizedWeight(
+        DTensor.from_local(q, mesh, w.placements, run_check=False,
+                           shape=w.shape, stride=_strides(w.shape)),
+        DTensor.from_local(scale.squeeze(contract_axes), mesh,
+                           scale_placements, run_check=False,
+                           shape=scale_shape,
+                           stride=_strides(scale_shape)))
+
+
+def _strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= n
+    return tuple(reversed(out))
 
 
 #: blocks-tree weights served through matmuls, with the axes each
@@ -78,6 +140,23 @@ def quantize_weights_int8(params: dict) -> dict:
     out = dict(params, blocks=blocks)
     out["lm_head"] = _quantize(params["lm_head"], (0,))   # [d, v]
     return out
+
+
+def quantized_axes(params: dict, axes: dict) -> dict:
+    """The logical-axes tree of ``params``, which
+    :func:`quantize_weights_int8` may have quantized, from ``axes``, the
+    float tree's: a quantized leaf gets ``QuantizedWeight(the weight's
+    axes, the weight's axes without the contracted ones)`` — q is laid
+    out as the weight, the scale as its output channels."""
+    def leaf(w, logical, contract):
+        if not isinstance(w, QuantizedWeight):
+            return logical
+        return QuantizedWeight(logical, tuple(
+            a for d, a in enumerate(logical) if d not in contract))
+    blocks = {n: leaf(w, axes["blocks"][n], _BLOCK_AXES.get(n, ()))
+              for n, w in params["blocks"].items()}
+    return dict(axes, blocks=blocks,
+                lm_head=leaf(params["lm_head"], axes["lm_head"], (0,)))
 
 
 def layer(w, li: int):

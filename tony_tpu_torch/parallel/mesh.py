@@ -137,8 +137,11 @@ def make_hybrid_mesh(ici_axes: dict[str, int] | None,
                      dcn_axes: dict[str, int],
                      device_type: str | None = None):
     """A ``DeviceMesh`` laid out by :func:`hybrid_mesh_layout`: dcn axes
-    major, ici axes minor. Only the layout is ported; a model run across
-    slices is not (:func:`tony_tpu_torch.runtime.mesh` refuses one)."""
+    major, ici axes minor, ranks in row-major order, so each slice is a
+    contiguous block of ranks along the dcn axes (process ids are
+    slice-major; :func:`tony_tpu_torch.runtime.mesh` checks this
+    process's). A model runs on it as on a flat mesh of the same names:
+    the rules see only the axis names and sizes."""
     import torch.distributed as dist
     n = dist.get_world_size() if dist.is_initialized() else 1
     names, shape = hybrid_mesh_layout(ici_axes, dcn_axes, n)

@@ -51,6 +51,16 @@ The schedules are :mod:`~tony_tpu_torch.parallel.pipeline`'s;
 :class:`_SumOver` is the reference's ``psum_rep`` (all-reduce forward,
 identity backward).
 
+Inference (tensor-parallel decoding, ``models/decode.py``) runs outside
+autograd on the same shards: the data axes replicate (every rank decodes
+the whole batch), a rank runs its query heads, kv heads, MLP hidden and
+vocab slice, and :class:`ModelRanks` gives the plain sum after a
+row-parallel product and the gather of vocab-split logits. One rank body
+serves a ``DeviceMesh`` (this rank, collectives in its tp group) and a
+dict of sizes (every rank in turn in this process,
+:func:`emulated_shards`), adding the ranks' parts in rank order in both,
+so the two agree bit for bit.
+
 Rule tables that would split the residual stream raise
 ``NotImplementedError``.
 """
@@ -105,6 +115,20 @@ class _CopyTo(torch.autograd.Function):
         return _all_reduce(g, ctx.groups), None
 
 
+def model_axis(mesh, rules: Rules = DEFAULT_RULES):
+    """The one mesh axis ``"heads"``, ``"mlp"`` and ``"vocab"`` resolve to
+    on ``mesh`` (a ``DeviceMesh`` or its sizes), or None; rule tables
+    that split them over several axes, or over different ones, raise
+    ``NotImplementedError``."""
+    model = {name: logical_to_spec(("batch", name), mesh, rules)[1]
+             for name in ("heads", "mlp", "vocab")}
+    if len(set(model.values())) != 1 or isinstance(model["heads"], tuple):
+        raise NotImplementedError(
+            f"heads, mlp and vocab must resolve to one mesh axis (or "
+            f"none), got {model}")
+    return model["heads"]
+
+
 class Layout:
     """The local-shard layout of a mesh under a rule table, validated.
 
@@ -127,14 +151,7 @@ class Layout:
         self.data_axes = spec_axes(logical_to_spec(("batch",), mesh,
                                                    rules)[0])
         used = set(self.data_axes)
-        model = {name: logical_to_spec(("batch", name), mesh, rules)[1]
-                 for name in ("heads", "mlp", "vocab")}
-        if len(set(model.values())) != 1 or isinstance(
-                model["heads"], tuple):
-            raise NotImplementedError(
-                f"heads, mlp and vocab must resolve to one mesh axis (or "
-                f"none), got {model}")
-        self.model_axis = model["heads"]
+        self.model_axis = model_axis(mesh, rules)
         self.expert_axis = logical_to_spec(("batch", "expert"), mesh,
                                            rules)[1]
         if isinstance(self.expert_axis, tuple) or (
@@ -234,7 +251,9 @@ class Layout:
         expert axis and, over the model axis, as its shard
         where it is sharded, else replicated — or partial for the leaves
         whose paths (key tuples) are in ``partial``, those a rank reads
-        only in part (GQA's K/V projections under tp). Under pp a leaf
+        only in part (GQA's K/V projections under tp). A named tuple (a
+        quantized weight's q and scale) has each of its fields laid out
+        so. Under pp a leaf
         split over it (the stacked blocks) keeps its stage's shard and is
         gathered over the model axis too (a stage runs its blocks
         whole). Plain tensors pass through."""
@@ -242,6 +261,9 @@ class Layout:
         if isinstance(tree, dict):
             return {k: self.local_params(v, partial, _path + (k,))
                     for k, v in tree.items()}
+        if _is_record(tree):
+            return type(tree)(*(self.local_params(v, partial, _path)
+                                for v in tree))
         if not isinstance(tree, DTensor):
             return tree
         staged = self.pp_axis is not None and tree.placements[
@@ -320,6 +342,111 @@ class Layout:
             return x
         return _all_reduce(x.detach(), self._loss_groups)
 
+    def model_ranks(self) -> "ModelRanks":
+        """This rank of the model axis, with its group (see
+        :class:`ModelRanks`)."""
+        return ModelRanks(self.model_size, (self.model_rank,),
+                          self._model_groups[0] if self.model_size > 1
+                          else None)
+
+
+def _is_record(x) -> bool:
+    """A named tuple (a record of tensors, such as a quantized weight)."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+class ModelRanks:
+    """The model-axis (tp) ranks whose shards this process computes, and
+    the two collectives between them that inference needs, outside
+    autograd: :meth:`sum` after a row-parallel product and :meth:`gather`
+    of vocab-split logits. A rank body runs once for each of ``ranks``
+    and hands the collectives one part per rank, in rank order:
+
+    - distributed (a ``DeviceMesh``): ``ranks`` is this process's own
+      rank and ``group`` the model axis's process group;
+    - emulated (a dict of sizes): ``ranks`` is every rank of the axis,
+      run in turn in this process (the form one card runs), and no
+      group;
+    - unsharded: one rank of one.
+
+    Both forms add the ranks' parts in rank order — the distributed sum
+    gathers them first — so every rank and the emulation get the same
+    bits."""
+
+    def __init__(self, size: int, ranks, group=None):
+        self.size, self.ranks, self.group = size, tuple(ranks), group
+
+    def _everyone(self, parts: list) -> list:
+        if self.group is None:
+            return parts
+        x = parts[0].contiguous()
+        out = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(out, x, group=self.group)
+        return out
+
+    def sum(self, parts: list) -> torch.Tensor:
+        """The sum of every rank's part, added in rank order."""
+        parts = self._everyone(parts)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    def gather(self, parts: list, dim: int = -1) -> torch.Tensor:
+        """Every rank's part concatenated along ``dim`` in rank order."""
+        parts = self._everyone(parts)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+#: the model axis of an unsharded run: one rank, no collective
+SOLO = ModelRanks(1, (0,))
+
+
+def emulated_shards(tree, logical_tree, mesh,
+                    rules: Rules = DEFAULT_RULES) -> tuple:
+    """(:class:`ModelRanks` of every rank of the model axis, each rank's
+    local tree) of the global ``tree`` on ``mesh``, a dict of sizes: each
+    leaf cut along the dimension its logical axes (the same nested
+    dicts; a named tuple of axes for a named-tuple leaf) put on the model
+    axis, whole elsewhere — the data axes replicate, as
+    :meth:`Layout.local_params` gathers them."""
+    ranks = emulated_ranks(mesh, rules)
+    axis, size = model_axis(mesh, rules), ranks.size
+
+    def cut(t, logical, rank):
+        if isinstance(t, dict):
+            return {k: cut(v, logical[k], rank) for k, v in t.items()}
+        if _is_record(t):
+            return type(t)(*(cut(v, a, rank) for v, a in zip(t, logical)))
+        if size == 1:
+            return t
+        for dim, entry in enumerate(logical_to_spec(logical or (), mesh,
+                                                    rules)):
+            if axis not in spec_axes(entry):
+                continue
+            if spec_axes(entry) != (axis,):
+                raise NotImplementedError(
+                    f"dimension {dim} of a leaf is split over {entry}: "
+                    f"the emulation splits over {axis} alone")
+            if t.shape[dim] % size:
+                raise ValueError(f"dimension {dim} of a {tuple(t.shape)} "
+                                 f"leaf does not split evenly over "
+                                 f"{axis}={size}")
+            n = t.shape[dim] // size
+            # a buffer of its own, as a rank's shard is: products read it
+            # with the strides and alignment the distributed rank has
+            t = t.narrow(dim, rank * n, n).contiguous()
+        return t
+    return ranks, [cut(tree, logical_tree, r) for r in ranks.ranks]
+
+
+def emulated_ranks(mesh, rules: Rules = DEFAULT_RULES) -> ModelRanks:
+    """Every rank of the model axis of ``mesh``, a dict of sizes, run in
+    this process."""
+    axis = model_axis(mesh, rules)
+    size = mesh_shape(mesh)[axis] if axis else 1
+    return ModelRanks(size, range(size))
+
 
 def seq_parallel_size(mesh, rules: Rules = DEFAULT_RULES) -> int:
     """The number of chunks ``"seq"`` splits a sequence into on ``mesh``
@@ -379,11 +506,19 @@ def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, lay,
     ranks' rows are summed."""
     if not _model_live(lay) or w.shape[0] == vocab:
         return w[tokens.long()]
-    lo, hi = _vocab_range(lay, w.shape[0], vocab)
-    t = tokens.long() - lo
-    inside = (t >= 0) & (t < hi - lo)
-    x = w[t.clamp(0, hi - lo - 1)] * inside[..., None].to(w.dtype)
-    return reduce_from_model(x, lay)
+    _vocab_range(lay, w.shape[0], vocab)
+    return reduce_from_model(embed_partial(w, tokens, lay.model_rank), lay)
+
+
+def embed_partial(w: torch.Tensor, tokens: torch.Tensor,
+                  rank: int) -> torch.Tensor:
+    """Rank ``rank``'s part of a vocab-parallel lookup, ``w`` its ``[V/n,
+    D]`` slice of the vocab: its rows where a token falls in its range,
+    zeros elsewhere (the ranks' parts sum to ``w_full[tokens]``)."""
+    n = w.shape[0]
+    t = tokens.long() - rank * n
+    inside = (t >= 0) & (t < n)
+    return w[t.clamp(0, n - 1)] * inside[..., None].to(w.dtype)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, lay,

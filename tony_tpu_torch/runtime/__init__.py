@@ -187,19 +187,51 @@ def mesh(axes: dict[str, int] | None = None,
     :func:`initialize`). ``axes`` default to the config-shipped layout;
     one axis given as -1/0 is inferred from the process count; nothing
     configured gives ``{"dp": world}``. Under the pytorch arm the mesh is
-    ``{"dp": world}`` and a mesh spec asking for any other axis raises.
-    Multi-slice (dcn) layouts are not ported and raise."""
-    from tony_tpu_torch.parallel.mesh import make_mesh
+    ``{"dp": world}`` and a mesh spec asking for any other axis, or for
+    dcn axes, raises.
+
+    With dcn axes (``dcn_axes``, else the mesh spec's
+    ``tony.application.mesh.dcn``) the mesh spans slices: the dcn axes
+    major, the ici ``axes`` minor
+    (:func:`~tony_tpu_torch.parallel.mesh.make_hybrid_mesh`). Ranks fill
+    it in row-major order, so a slice's processes must be one contiguous
+    block of ranks; the orchestrator numbers processes slice-major, and a
+    process whose ``TONY_SLICE_ID`` says otherwise raises."""
+    from tony_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
     info = initialize(device)
     axes = dict(axes if axes is not None else mesh_axes())
+    dcn = dict(dcn_axes if dcn_axes is not None else mesh_dcn_axes())
     if info.framework == "pytorch":
         extra = {k: v for k, v in axes.items() if k != "dp" and v != 1}
+        extra.update({f"dcn {k}": v for k, v in dcn.items() if v != 1})
         if extra:
             raise ValueError(f"the pytorch arm (INIT_METHOD/RANK/WORLD) "
                              f"runs a dp mesh only; the mesh spec asks for "
                              f"{extra}: submit the job with the jax arm")
-        axes = {"dp": -1}
-    if dcn_axes if dcn_axes is not None else mesh_dcn_axes():
-        raise NotImplementedError("multi-slice (dcn) meshes are not ported "
-                                  "yet")
-    return make_mesh(axes, axis_order=axis_order)
+        return make_mesh({"dp": -1}, axis_order=axis_order)
+    if not dcn:
+        return make_mesh(axes, axis_order=axis_order)
+    if axis_order is not None:
+        # silently dropping the caller's order would remap their
+        # placements onto the wrong axes
+        raise ValueError("axis_order is not supported for hybrid "
+                         "(multi-slice) meshes: the order is fixed to "
+                         "dcn-major/ici-minor")
+    _check_slice_major(info)
+    return make_hybrid_mesh(axes, dcn)
+
+
+def _check_slice_major(info: TaskInfo) -> None:
+    """Raise unless this process's rank lies in its slice's block of
+    ranks (``slice_id · world/num_slices`` onward), which is what a
+    row-major rank order with the dcn axes major assumes."""
+    slice_id, num_slices = slice_info()
+    if num_slices <= 1 or info.num_processes % num_slices:
+        return
+    per_slice = info.num_processes // num_slices
+    if info.process_id // per_slice != slice_id:
+        raise RuntimeError(
+            f"process {info.process_id} of {info.num_processes} is in "
+            f"slice {slice_id} of {num_slices}, outside that slice's ranks "
+            f"[{slice_id * per_slice}, {(slice_id + 1) * per_slice}): the "
+            f"hybrid mesh needs slice-major process ids")
