@@ -343,6 +343,30 @@ result:
    train_lm's sharded path at world 1 on NCCL on the hybrid mesh of dcn
    ``{"dp": 1}`` × ``{"fsdp": -1}``: losses bitwise the flat ``{"fsdp":
    -1}`` run's; ``train_lm`` itself on that mesh (its mesh line);
+25. ResNet and MNIST, no kernel of the port's on the path (cuDNN's
+   convolutions stand where XLA's do): (a) the model FLOPs of a training
+   image of ResNet-50 at 224 x 224, 1000 classes (6 a multiply-add of the
+   convs and the head); ``train_resnet``'s step (bf16, channels_last, SGD
+   nesterov at lr 0.1) at batch 32 and 128 on two batches made on the
+   card: 2 warm-up steps, 6 timed, the last 3 under the profiler: step
+   ms and images/s (the 3 unprofiled), MFU against 989 TFLOP/s, device ms
+   and launches a step (all, and by class: cuDNN's and cuBLAS's kernels,
+   PyTorch's elementwise and reduction kernels, the rest), busy share,
+   peak memory, the top 5 kernels, every loss finite; ``python -m tony_tpu_torch.train_resnet --steps 3`` as a
+   process on the card (beside 25b-d, and done before (a)'s steps):
+   ``done:`` and exit 0; (b) one set of f32 weights, batch 4 at 224:
+   ``forward(train=True)`` on the card against the CPU (logits and
+   statistics within 1e-3 of the largest entry), bf16 logits against f32
+   (relative L2 within 0.25), and after a step each of the 53 norms' new
+   statistics against 0.9 · old + 0.1 · the mean and biased variance of
+   its input (1e-4); (c) 3 steps at batch 32 on a world-1 NCCL ``{"dp":
+   1}`` mesh, sync-BN's 2 all-reduces a norm run over the dp group (the
+   rules drop a size-1 axis, so the layouts are handed the group),
+   against the plain step: losses bitwise (cuDNN deterministic); (d)
+   ``mnist_distributed``'s loop (200 steps, global batch 256, hidden 256)
+   in this process on a world-1 NCCL runtime: accuracy >= 0.95 and its
+   img/s; ``mlp_forward`` and ``cnn_forward`` at batch 256, card against
+   the CPU in f32 (1e-4 of the largest logit);
 then a line of each phase's wall, a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -371,7 +395,9 @@ ORIGIN ("given on the command line" by default). The whole script runs
 """
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -389,7 +415,10 @@ MASKS = ((True, None), (True, 24), (True, 64), (True, 100), (False, None))
 
 
 def fail(msg: str) -> None:
+    """Print the failed check on both streams (a caller that keeps only
+    the end of standard error still sees it) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -6676,7 +6705,9 @@ def phase_observability(report, card):
     lines = proc.stdout.splitlines()
     if proc.returncode != 0 or not lines:
         print("\n".join(lines) + "\n" + proc.stderr[-4000:], flush=True)
-        fail(f"phase 22's process exited {proc.returncode}")
+        said = [x for x in lines if x.startswith("FAIL: ")]
+        fail(f"phase 22's process exited {proc.returncode}: "
+             + (said[-1] if said else proc.stderr[-1000:]))
     print("\n".join(lines[:-1]), flush=True)
     out = json.loads(lines[-1])
     report["observability"] = out["observability"]
@@ -7722,6 +7753,409 @@ def phase_tp(report, card, serve):
     return launches
 
 
+RN_BATCHES = (32, 128)
+# cut from 3 + 10 steps for the whole script's 1200 s limit
+RN_WARM, RN_TIMED, RN_PROFILED = 2, 6, 3
+RN_IMAGE, RN_CLASSES, RN_DEPTH = 224, 1000, 50
+RN_DEVICE = "cuda"
+RN_PARITY_BATCH = 4
+MNIST_BATCH = 256
+
+
+def resnet_train_flops_per_image(depth: int, image: int,
+                                 classes: int) -> float:
+    """Model FLOPs of one training image, from the conv and head shapes:
+    2 a multiply-add, times 3 (the forward, and a backward of twice
+    its work). Norms, pools and ReLUs are not counted."""
+    from tony_tpu_torch.models import resnet as R
+    macs = 0
+
+    def conv(h, k, s, cin, cout):
+        nonlocal macs
+        out = -(-h // s)
+        macs += out * out * k * k * cin * cout
+        return out
+
+    h = -(-conv(image, 7, 2, 3, 64) // 2)       # the stem, the pool
+    in_c = 64
+    for si, blocks in enumerate(R.STAGE_SIZES[depth]):
+        width = 64 * 2 ** si
+        for bi in range(blocks):
+            s = 2 if bi == 0 and si > 0 else 1
+            if bi == 0:
+                conv(h, 1, s, in_c, 4 * width)
+            conv(h, 1, 1, in_c, width)
+            h = conv(h, 3, s, width, width)
+            conv(h, 1, 1, width, 4 * width)
+            in_c = 4 * width
+    macs += in_c * classes
+    return 6.0 * macs
+
+
+def _rn_images(n, size, seed, device):
+    """A batch of the entry point's shape, made on ``device`` from a
+    seed: the timed steps measure the step, not the host's numpy."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"image": torch.randn((n, size, size, 3), generator=g,
+                                 device=device),
+            "label": torch.randint(0, RN_CLASSES, (n,), generator=g,
+                                   device=device, dtype=torch.int32)}
+
+
+def _rn_setup(dtype, mesh=None, seed=0, lr=0.1, classes=RN_CLASSES):
+    """(state, step) of train_resnet's code path on the card: random
+    weights from ``seed``, SGD nesterov at ``lr``."""
+    import torch
+    from tony_tpu_torch import train_resnet
+    from tony_tpu_torch.models import resnet as R
+    from tony_tpu_torch.models.train import (SGD, init_state,
+                                             replicated_axes)
+    params, stats = R.init_resnet(torch.Generator().manual_seed(seed),
+                                  RN_DEPTH, classes, dtype,
+                                  device=RN_DEVICE)
+    opt = SGD(lr, momentum=0.9, nesterov=True)
+    return (dict(init_state(params, opt, mesh, replicated_axes(params)),
+                 stats=stats),
+            train_resnet.make_step(opt, RN_DEPTH, dtype, mesh))
+
+
+#: substrings of the kernels cuDNN and cuBLAS run for the convolutions
+#: and the head's product
+_RN_CONV_NAMES = ("xmma", "cudnn", "conv", "implicit", "cutlass", "gemm",
+                  "nhwc", "Nhwc", "sm90_", "sm80_")
+
+
+def _rn_classes(prof) -> dict:
+    """{class: [device microseconds, launches]} of a profiled window:
+    ``conv`` (cuDNN's and cuBLAS's kernels), ``elementwise`` (PyTorch's
+    elementwise and reduction kernels: the norms' f32 arithmetic, ReLUs,
+    residual adds, casts and the optimizer), ``other``."""
+    out = {"conv": [0.0, 0], "elementwise": [0.0, 0], "other": [0.0, 0]}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0:
+            continue
+        name = e.key
+        cls = ("conv" if any(n in name for n in _RN_CONV_NAMES) else
+               "elementwise" if "at::native" in name and (
+                   "elementwise" in name or "reduce" in name) else "other")
+        out[cls][0] += us
+        out[cls][1] += e.count
+    return out
+
+
+def _rn_throughput(out, card, batch, flops):
+    """25a at one batch size: RN_WARM steps, then RN_TIMED, the wall of
+    all but the last RN_PROFILED, which run under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batches = [_rn_images(batch, RN_IMAGE, s, RN_DEVICE) for s in (1, 2)]
+    torch.cuda.reset_peak_memory_stats()
+    state, step = _rn_setup(torch.bfloat16)
+    losses = []
+    for i in range(RN_WARM):
+        state, m = step(state, batches[i % 2])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = RN_TIMED - RN_PROFILED
+    for i in range(timed):
+        state, m = step(state, batches[i % 2])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / timed
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(RN_PROFILED):
+            state, m = step(state, batches[i % 2])
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev, launches = _device_times(prof)
+    classes = {k: (us / 1e3 / RN_PROFILED, n / RN_PROFILED)
+               for k, (us, n) in _rn_classes(prof).items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 25a: batch {batch}: losses {losses}")
+    total_us = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    img_s = batch / wall
+    row = dict(batch=batch, step_ms=wall * 1e3, images_s=img_s,
+               mfu=flops * img_s / BF16_FLOPS,
+               device_ms=total_us / 1e3 / RN_PROFILED if total_us else None,
+               launches=launches / RN_PROFILED,
+               busy=total_us / 1e6 / prof_wall if total_us else None,
+               peak_gib=peak, losses=losses, classes=classes,
+               top=[(n, us / 1e3 / RN_PROFILED) for n, us in top])
+    out.setdefault("train", []).append(row)
+    print(f"[25a] ResNet-50 bf16 {batch} x {RN_IMAGE}^2 on {card}: step "
+          f"{row['step_ms']:.2f} ms, {img_s:,.1f} images/s, MFU "
+          f"{row['mfu']:.4f}; {RN_PROFILED} profiled steps: "
+          f"{_ms(row['device_ms'])} device and {row['launches']:.1f} "
+          f"launches a step, busy share "
+          + ("not measured" if row["busy"] is None else f"{row['busy']:.3f}")
+          + f"; peak {peak:.2f} GiB; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}; a step by class: "
+          + ", ".join(f"{k} {ms:.2f} ms in {n:.1f} launches"
+                      for k, (ms, n) in classes.items())
+          + "; top: "
+          + "; ".join(f"{n[:56]} {ms:.2f} ms" for n, ms in row["top"]),
+          flush=True)
+
+
+def _rn_cli_start():
+    """``python -m tony_tpu_torch.train_resnet --steps 3`` on the card,
+    as a user runs it (a lone process: its world-1 group in memory)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TONY_JAX_", "TONY_MESH_SPEC"))}
+    env["PYTHONPATH"] = HERE
+    return subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.train_resnet", "--steps",
+         "3"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _rn_cli_finish(out, proc, t0):
+    try:
+        text, _ = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+        fail(f"phase 25a: train_resnet did not finish in 240 s: "
+             f"{text[-2000:]}")
+    lines = text.splitlines()
+    out["cli"] = dict(rc=proc.returncode, lines=lines[-6:],
+                      wall_s=time.perf_counter() - t0)
+    print(f"[25a] python -m tony_tpu_torch.train_resnet --steps 3: exit "
+          f"{proc.returncode} in {out['cli']['wall_s']:.1f} s: "
+          f"{lines[:1] + lines[-2:]}", flush=True)
+    if proc.returncode != 0 or not any(x.startswith("done: final loss ")
+                                       for x in lines):
+        fail(f"phase 25a: train_resnet exit {proc.returncode}: "
+             f"{text[-2000:]}")
+
+
+def _tree_err(got, want) -> float:
+    """The largest error of any leaf over that leaf's largest entry."""
+    from tony_tpu_torch import tree_leaves
+    return max(float((g.float().cpu() - w.float().cpu()).abs().max()
+                     / max(float(w.float().abs().max()), 1e-30))
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _rn_parity(out, card):
+    """25b: at one set of f32 weights and one batch of RN_PARITY_BATCH at
+    RN_IMAGE, forward(train=True) on the card against the CPU (logits,
+    new statistics), bf16 against f32 on the card, and each norm's new
+    statistics after a step against 0.9 · old + 0.1 · the batch's (the
+    mean and biased variance of the norm's input, in f64)."""
+    import torch
+    from tony_tpu_torch import tree_map
+    from tony_tpu_torch.models import resnet as R
+    params, stats = R.init_resnet(torch.Generator().manual_seed(1),
+                                  RN_DEPTH, RN_CLASSES, torch.float32,
+                                  device="cpu")
+    x = _rn_images(RN_PARITY_BATCH, RN_IMAGE, 3, "cpu")
+    with torch.no_grad():
+        want, want_s = R.forward(params, stats, x["image"], RN_DEPTH)
+        dev = lambda t: t.to(RN_DEVICE)                     # noqa: E731
+        p32, s32 = tree_map(dev, params), tree_map(dev, stats)
+        img = x["image"].to(RN_DEVICE)
+        got, got_s = R.forward(p32, s32, img, RN_DEPTH)
+        p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+        b16, _ = R.forward(p16, s32, img.to(torch.bfloat16), RN_DEPTH)
+    scale = float(want.abs().max())
+    logit_err = float((got.cpu() - want).abs().max()) / scale
+    stat_err = _tree_err(got_s, want_s)
+    bf16_l2 = float((b16 - got).norm() / got.norm())
+    # the statistics' rule, on two steps of the f32 model on the card
+    state, step = _rn_setup(torch.float32, seed=1)
+    batch = {k: v.to(RN_DEVICE) for k, v in x.items()}
+    seen = []
+    orig = R._batch_norm
+
+    def recording(x, p, s, train, momentum=0.9, eps=1e-5, lay=None):
+        y, new = orig(x, p, s, train, momentum, eps, lay)
+        seen.append((x.detach().double(), s, new))
+        return y, new
+
+    losses = []
+    state, m = step(state, batch)
+    losses.append(float(m["loss"]))
+    R._batch_norm = recording
+    try:
+        state, m = step(state, batch)
+    finally:
+        R._batch_norm = orig
+    losses.append(float(m["loss"]))
+    rule_err = 0.0
+    for xin, old, new in seen:
+        mean = xin.mean(dim=(0, 1, 2))
+        var = xin.var(dim=(0, 1, 2), unbiased=False)
+        for k, batch_v in (("mean", mean), ("var", var)):
+            want_v = 0.9 * old[k].double() + 0.1 * batch_v
+            rule_err = max(rule_err, float(
+                (new[k].double() - want_v).abs().max()
+                / max(float(want_v.abs().max()), 1e-30)))
+    out["parity"] = dict(logit_err=logit_err, stat_err=stat_err,
+                         bf16_l2=bf16_l2, rule_err=rule_err,
+                         norms=len(seen), losses=losses)
+    print(f"[25b] f32 forward(train=True) at {RN_PARITY_BATCH} x "
+          f"{RN_IMAGE}^2, card ({card}) against the CPU: logits "
+          f"{logit_err:.3e} of the largest (limit 1e-3), statistics "
+          f"{stat_err:.3e} (limit 1e-3); bf16 logits against f32 "
+          f"{bf16_l2:.4f} in relative L2 (limit 0.25); after a step, "
+          f"{len(seen)} norms' statistics against 0.9 old + 0.1 batch "
+          f"(biased variance): {rule_err:.3e} (limit 1e-4); losses "
+          f"{losses}", flush=True)
+    if logit_err > 1e-3 or stat_err > 1e-3 or bf16_l2 > 0.25 or \
+            rule_err > 1e-4 or len(seen) != 53 or not all(
+                math.isfinite(v) for v in losses):
+        fail(f"phase 25b: {out['parity']}")
+
+
+def _rn_dp_mesh(out, card):
+    """25c: 3 steps of batch 32 through the mesh path on a world-1 NCCL
+    ``{"dp": 1}`` against 3 plain steps from the same weights and
+    batches, cuDNN deterministic: bitwise. The rules drop an axis of
+    size 1 (as the reference's do), so a world-1 layout has no data
+    group; here its layouts are given the dp group, and sync-BN's
+    all-reduces (and their all-reduce backwards) run over NCCL."""
+    import torch
+    import torch.distributed as dist
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch.parallel import mesh_shape, spmd
+    batches = [_rn_images(32, RN_IMAGE, s, RN_DEVICE) for s in (4, 5, 6)]
+    syncs = []
+    orig_sync, orig_init = spmd.Layout.sync_data, spmd.Layout.__init__
+
+    def counting(self, x):
+        syncs.append(len(self._data_groups))
+        return orig_sync(self, x)
+
+    def with_dp_group(self, mesh, *args, **kw):
+        orig_init(self, mesh, *args, **kw)
+        self._data_groups = self._data_groups or [mesh.get_group("dp")]
+
+    losses = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _world1_env({"dp": -1})
+    spmd.Layout.sync_data = counting
+    spmd.Layout.__init__ = with_dp_group
+    try:
+        rt.initialize(RN_DEVICE)
+        mesh = rt.mesh(device=RN_DEVICE)
+        shape, backend = mesh_shape(mesh), dist.get_backend()
+        for name, m in (("plain", None), ("mesh", mesh)):
+            state, step = _rn_setup(torch.bfloat16, mesh=m)
+            losses[name] = []
+            for b in batches:
+                state, metrics = step(state, b)
+                losses[name].append(float(metrics["loss"]))
+    finally:
+        spmd.Layout.sync_data, spmd.Layout.__init__ = orig_sync, orig_init
+        torch.backends.cudnn.deterministic = det
+        rt.shutdown()
+    out["dp"] = dict(shape=shape, backend=backend, losses=losses,
+                     syncs=len(syncs), groups=sorted(set(syncs)))
+    print(f"[25c] batch 32, 3 steps on {card}: mesh {shape} ({backend}) "
+          f"losses {losses['mesh']}, plain {losses['plain']}; "
+          f"{len(syncs)} sync-BN all-reduces over "
+          f"{sorted(set(syncs))} group(s)", flush=True)
+    if shape != {"dp": 1} or backend != "nccl" or \
+            losses["mesh"] != losses["plain"] or \
+            len(syncs) != 2 * 53 * 3 or set(syncs) != {1}:
+        fail(f"phase 25c: {out['dp']}")
+
+
+def _mnist(out, card):
+    """25d: mnist_distributed's loop as the JAX script runs it (200
+    steps, global batch 256, hidden 256) in this process on a world-1
+    NCCL runtime; then ``mlp_forward`` and ``cnn_forward`` at batch 256
+    on the card against the CPU (f32)."""
+    import contextlib
+    import io
+
+    import torch
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch import mnist_distributed, tree_map
+    from tony_tpu_torch.models import mnist as M
+    _world1_env({"dp": -1})
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = mnist_distributed.main(["--device", RN_DEVICE])
+    finally:
+        rt.shutdown()
+    lines = text.getvalue().splitlines()
+    done = [x for x in lines if x.startswith("done: ")]
+    m = re.search(r"\((\d+) img/s\).* acc ([\d.]+)", done[0] if done
+                  else "")
+    errs = {}
+    for name, init, fwd in (("mlp", M.init_mlp, M.mlp_forward),
+                            ("cnn", M.init_cnn, M.cnn_forward)):
+        params = init(torch.Generator().manual_seed(2), device="cpu")
+        x = M.synthetic_batch(torch.Generator().manual_seed(3),
+                              MNIST_BATCH, device="cpu")["image"]
+        with torch.no_grad():
+            want = fwd(params, x)
+            got = fwd(tree_map(lambda t: t.to(RN_DEVICE), params),
+                      x.to(RN_DEVICE)).cpu()
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+    out["mnist"] = dict(rc=rc, lines=lines[-3:], errs=errs,
+                        img_s=int(m.group(1)) if m else None,
+                        acc=float(m.group(2)) if m else None)
+    print(f"[25d] mnist_distributed on {card} (200 steps, global batch "
+          f"256, hidden 256): {done[:1]}, exit {rc}; f32 at batch "
+          f"{MNIST_BATCH}, card against the CPU: mlp_forward "
+          f"{errs['mlp']:.3e}, cnn_forward {errs['cnn']:.3e} of the "
+          f"largest logit (limit 1e-4)", flush=True)
+    if rc != 0 or m is None or float(m.group(2)) < 0.95 or \
+            max(errs.values()) > 1e-4:
+        fail(f"phase 25d: {out['mnist']}")
+
+
+def phase_resnet(report, card):
+    """[25] ResNet-50 data-parallel training with sync-BN and the MNIST
+    recipe (module docstring). No kernel of the port's is on this path:
+    cuDNN's convolutions stand where XLA's do in the reference."""
+    t_phase = time.perf_counter()
+    out = {}
+    flops = resnet_train_flops_per_image(RN_DEPTH, RN_IMAGE, RN_CLASSES)
+    out["flops_per_image"] = flops
+    print(f"[25a] ResNet-{RN_DEPTH} at {RN_IMAGE}^2, {RN_CLASSES} classes: "
+          f"{flops / 1e9:.3f} G model FLOPs a training image (convs and "
+          f"head, 6 a multiply-add)", flush=True)
+    # the entry point's process first, beside the checks; the timed steps
+    # after it has exited, with the card and the host to themselves
+    t_cli = time.perf_counter()
+    cli = _rn_cli_start()
+    try:
+        _rn_parity(out, card)
+        _rn_dp_mesh(out, card)
+        _mnist(out, card)
+    except BaseException:
+        cli.kill()
+        cli.wait()
+        raise
+    out["checks_s"] = time.perf_counter() - t_cli
+    _rn_cli_finish(out, cli, t_cli)
+    t_train = time.perf_counter()
+    for batch in RN_BATCHES:
+        _rn_throughput(out, card, batch, flops)
+    out["train_s"] = time.perf_counter() - t_train
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[25] phase wall {out['wall_s']:.1f}s (25b-d {out['checks_s']:.1f}"
+          f" s beside the train_resnet process's {out['cli']['wall_s']:.1f}"
+          f" s, then 25a's steps {out['train_s']:.1f} s)", flush=True)
+    report["resnet"] = out
+
+
 def main(bisect: bool = False) -> int:
     """The whole script; with ``bisect`` (``--trace-loss-bisect``) marker
     captures follow every phase, to find the one after which a capture
@@ -7772,6 +8206,7 @@ def main(bisect: bool = False) -> int:
     obs = timed("22 observability", phase_observability, report, card)
     fleet_k1, fleet_k5 = timed("23 fleet", phase_fleet, report, card, serve)
     tp = timed("24 tp", phase_tp, report, card, serve)
+    timed("25 resnet", phase_resnet, report, card)
     print("[phase walls] " + ", ".join(f"{k} {v}s" for k, v in walls.items()),
           flush=True)
     # launches on the main paths, each counted from 0 over its own run:

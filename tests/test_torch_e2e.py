@@ -17,7 +17,12 @@ each worker trains on half of every sequence, and a pipeline job
 (``--pp_schedule 1f1b``) on ``tony.application.mesh=pp=2,dp=-1``: each
 worker holds one stage of the blocks (the twin of
 ``tests/test_e2e.py::test_distributed_pipeline_parallel_lm_trains``) and
-prints the schedule it resolved. Both workers' stdout must
+prints the schedule it resolved. The north-star MNIST recipe
+(``tony_tpu_torch.mnist_distributed``) and ResNet with synchronised
+batch norm (``tony_tpu_torch.train_resnet``) run as 2-worker jobs on
+``dp=-1``, the twins of ``tests/test_e2e.py``'s
+``test_distributed_jax_mnist_trains`` and
+``test_distributed_resnet_dp_trains``. Both workers' stdout must
 show the world-2 mesh line (``'ep': 2``, ``'cp': 2``, ``'pp': 2``) and
 ``done:``, and the job must exit 0. A job of 4 workers in 2 slices
 (``tony.worker.slices=2``, ``tony.application.mesh.dcn=dp=2``) trains
@@ -152,6 +157,47 @@ def test_port_train_lm_runs_as_a_two_worker_job(framework, mesh, want,
         assert "done: final loss" in out, out
         if mesh and "pp" in mesh:
             assert "pipeline schedule: 1f1b" in out, out
+
+
+def _both_stdouts(client) -> str:
+    return "".join(open(os.path.join(client.job_dir, "logs",
+                                     f"worker-{i}.stdout")).read()
+                   for i in range(2))
+
+
+def test_port_mnist_runs_as_a_two_worker_job(tmp_path):
+    """The north-star recipe (the twin of
+    ``tests/test_e2e.py::TestE2E::test_distributed_jax_mnist_trains``):
+    2 workers on ``dp=-1`` federate into one data-parallel program, and
+    the job exits 0 only if it reached its target accuracy."""
+    rc, client = _run_job(tmp_path, {
+        "tony.history.location": str(tmp_path / "tony-history"),
+        "tony.application.timeout": "120000",
+        "tony.worker.instances": "2",
+        "tony.application.mesh": "dp=-1",
+    }, f"{sys.executable} -m tony_tpu_torch.mnist_distributed --device cpu "
+       f"--steps 60 --batch_size 128")
+    out = _both_stdouts(client)
+    assert rc == 0, out
+    assert "2 global devices" in out, out
+    assert "done:" in out, out
+
+
+def test_port_resnet_runs_as_a_two_worker_job(tmp_path):
+    """ResNet with sync-BN across 2 processes (the twin of
+    ``tests/test_e2e.py::TestE2E::test_distributed_resnet_dp_trains``)."""
+    rc, client = _run_job(tmp_path, {
+        "tony.history.location": str(tmp_path / "tony-history"),
+        "tony.application.timeout": "180000",
+        "tony.worker.instances": "2",
+        "tony.application.mesh": "dp=-1",
+    }, f"{sys.executable} -m tony_tpu_torch.train_resnet --device cpu "
+       f"--steps 3 --batch_size 4 --image_size 32 --num_classes 10 "
+       f"--lr 0.01")
+    out = _both_stdouts(client)
+    assert rc == 0, out
+    assert "[worker:0] devices=2 mesh={'dp': 2}" in out, out
+    assert out.count("done: final loss") == 2, out
 
 
 def test_port_train_lm_job_feeds_goodput_spans_and_traces(tmp_path):

@@ -55,7 +55,8 @@ def test_port_modules_import_neither_jax_nor_tony_tpu():
                 "parallel.spmd", "parallel.ring_attention",
                 "parallel.ulysses", "parallel.pipeline",
                 "channels.registry", "train_pipeline", "serving.fleet",
-                "serving.simfleet", "serving.netem"):
+                "serving.simfleet", "serving.netem", "models.resnet",
+                "models.mnist", "train_resnet", "mnist_distributed"):
         assert f"tony_tpu_torch.{mod}" in rep["modules"]
     bad = [m for m in rep["new"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -110,13 +111,21 @@ def test_no_source_file_names_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
-    from tony_tpu_torch.models import decode, transformer
+    from tony_tpu_torch import mnist_distributed, train_resnet
+    from tony_tpu_torch.models import decode, mnist, resnet, transformer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = transformer.PRESETS["tiny"].scaled(dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode.init_kv_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet.init_resnet(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mnist.init_mlp(torch.Generator().manual_seed(0))
+    for main in (train_resnet.main, mnist_distributed.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tony_tpu_torch.resolve_device("cuda")
     assert tony_tpu_torch.resolve_device("cpu").type == "cpu"

@@ -55,6 +55,23 @@ emulated in this process) under ``emu/``. A ``mesh_env`` case builds
 id in the environment (slice-major: rank // 2 of 2 slices), and writes
 the mesh's names, shape and rank grid.
 
+A ``resnet`` case (``tests/test_torch_resnet.py``) holds a ResNet's
+``params`` and ``stats`` (under ``<name>/p/params/…`` and
+``<name>/p/stats/…``), one global batch of ``image`` and ``label`` and
+the depth (``kw["depth"]``): each rank feeds its rows through
+``global_batch`` and differentiates ``classification_loss`` on the dp
+mesh (sync-BN), then twice more as a faulty data-parallel BN would
+run: with the statistics' sums all-reduced but with an identity
+backward (``identity/``), and with each rank's statistics of its own
+rows and the loss and gradients averaged over the ranks (``local/``).
+It writes the loss, the new statistics (``stats/<path>``) and every
+gradient gathered to a full array (``grad/<path>``) under each prefix.
+The same three ways it runs one batch norm alone (``_batch_norm`` on
+the global ``bn_x`` and a cotangent ``bn_cot``, its params and
+statistics under ``<name>/p/bn/{p,s}/…``) and writes ``bn/y`` and
+``bn/grad/x`` (this rank's rows), ``bn/grad/{scale,bias}`` (summed
+over the ranks) and ``bn/stats/…``.
+
 A case with ``dcn`` axes builds its mesh with them
 (``runtime.mesh(axes, dcn_axes=dcn)``, a hybrid mesh).
 
@@ -87,6 +104,7 @@ import tony_tpu_torch.runtime as rt  # noqa: E402
 from tony_tpu_torch import tree_leaves  # noqa: E402
 from tony_tpu_torch.models import bert as B  # noqa: E402
 from tony_tpu_torch.models import decode as D  # noqa: E402
+from tony_tpu_torch.models import resnet as RN  # noqa: E402
 from tony_tpu_torch.models.quantize import (QuantizedWeight,  # noqa: E402
                                             quantize_weights_int8)
 from tony_tpu_torch.models import transformer as T  # noqa: E402
@@ -382,6 +400,84 @@ def run_async_checkpoint(case: dict, state, fresh, out_dir: str) -> dict:
     return out
 
 
+def _resnet_grads(params, stats, batch, depth, mesh):
+    """(loss, new stats, grads as full arrays) of one sync-BN step's
+    value_and_grad."""
+    (loss, new), grads = TR.value_and_grad(
+        RN.classification_loss, params, stats, batch, depth, mesh,
+        has_aux=True)
+    return (float(loss), _flat(params_to_numpy(new), ""),
+            _flat(params_to_numpy(grads), ""))
+
+
+def run_resnet(case: dict, data) -> dict:
+    name, depth = case["name"], case["kw"]["depth"]
+    mesh = rt.mesh(case["axes"], device="cpu")
+    lay = spmd.Layout(mesh)
+    tree = _unflat({k[len(name) + 3:]: data[k] for k in data.files
+                    if k.startswith(f"{name}/p/")})
+    plain = params_from_numpy(tree["params"], device="cpu")
+    params = shard_pytree(plain, TR.replicated_axes(plain), mesh)
+    stats = params_from_numpy(tree["stats"], device="cpu")
+    local = {n: torch.from_numpy(data[f"{name}/{n}"][0]) for n in
+             ("image", "label")}
+    local = {n: lay.local(v) for n, v in local.items()}
+    glob = TR.global_batch(TR.batch_sharding(mesh), local)
+    out = {}
+
+    def record(prefix, loss, new, grads):
+        out[f"{prefix}/loss"] = loss
+        out.update({f"{prefix}/stats/{k}": v for k, v in new.items()})
+        out.update({f"{prefix}/grad/{k}": v for k, v in grads.items()})
+
+    bn_x, bn_cot = (lay.local(torch.from_numpy(data[f"{name}/{n}"]))
+                    for n in ("bn_x", "bn_cot"))
+    bn_p = params_from_numpy(tree["bn"]["p"], device="cpu")
+    bn_s = params_from_numpy(tree["bn"]["s"], device="cpu")
+
+    def batch_norm(prefix, bn_lay):
+        """One norm's output, statistics and gradients of ``sum(y ·
+        cot)`` over the ranks: x's for this rank's rows, scale's and
+        bias's summed over the ranks."""
+        x = bn_x.clone().requires_grad_(True)
+        p = {k: v.clone().requires_grad_(True) for k, v in bn_p.items()}
+        y, new = RN._batch_norm(x, p, bn_s, True, lay=bn_lay)
+        gx, gs, gb = torch.autograd.grad((y * bn_cot).sum(),
+                                         [x, p["scale"], p["bias"]])
+        for g in (gs, gb):
+            dist.all_reduce(g)
+        out.update({f"{prefix}/bn/y": y.detach().numpy(),
+                    f"{prefix}/bn/grad/x": gx.numpy(),
+                    f"{prefix}/bn/grad/scale": gs.numpy(),
+                    f"{prefix}/bn/grad/bias": gb.numpy()})
+        out.update({f"{prefix}/bn/stats/{k}": v.numpy()
+                    for k, v in new.items()})
+
+    record("sync", *_resnet_grads(params, stats, glob, depth, mesh))
+    batch_norm("sync", lay)
+    sync_data = spmd.Layout.sync_data
+    spmd.Layout.sync_data = lambda self, x: spmd._SumOver.apply(
+        x, self._data_groups)
+    try:
+        record("identity", *_resnet_grads(params, stats, glob, depth, mesh))
+        batch_norm("identity", lay)
+    finally:
+        spmd.Layout.sync_data = sync_data
+    # rank-local statistics: each rank a model of its own rows, the loss
+    # and the gradients averaged over the ranks afterwards
+    loss, new, grads = _resnet_grads(plain, stats, local, depth, None)
+    world = dist.get_world_size()
+    for k, g in grads.items():
+        t = torch.from_numpy(g)
+        dist.all_reduce(t)
+        grads[k] = (t / world).numpy()
+    t = torch.tensor([loss])
+    dist.all_reduce(t)
+    record("local", float(t[0]) / world, new, grads)
+    batch_norm("local", None)
+    return out
+
+
 def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     name = case["name"]
     if case["model"] == "attn":
@@ -392,6 +488,8 @@ def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
         return run_decode(case, data)
     if case["model"] == "mesh_env":
         return run_mesh_env(case)
+    if case["model"] == "resnet":
+        return run_resnet(case, data)
     mesh = rt.mesh(case["axes"], device="cpu", dcn_axes=case.get("dcn"))
     weights = _unflat({k[len(name) + 3:]: data[k] for k in data.files
                        if k.startswith(f"{name}/p/")})

@@ -16,6 +16,9 @@ local shard (:mod:`tony_tpu_torch.parallel.spmd`); the gradients come
 back on the params' placements and the global-norm clip sees every
 shard. The fused optimizer (K4) refuses a mesh, as in the JAX package.
 
+:class:`SGD` is ``optax.sgd`` (momentum, Nesterov), what the ResNet and
+MNIST recipes train with.
+
 Two optimizers come from :func:`default_optimizer`, as in the JAX package:
 
 - ``fused=False`` (the default): clip by global norm 1.0 + AdamW +
@@ -143,6 +146,39 @@ class ClippedAdamW:
         return params, new_state, gnorm
 
 
+class SGD:
+    """``optax.sgd(learning_rate, momentum, nesterov)`` in plain torch:
+    the trace ``t ← g + momentum · t`` (in the params' dtype, as optax
+    keeps it), the update ``-lr · t``, or ``-lr · (g + momentum · t)``
+    with ``nesterov``, params updated as ``p + u``; no clipping, no
+    decay. Same interface as :class:`ClippedAdamW`: params and trace are
+    updated in place (DTensor leaves shard by shard), and :meth:`apply`
+    returns ``(params, state, gnorm)``, the norm of the whole gradient
+    tree in f32 (for the step's metrics; it scales nothing)."""
+
+    def __init__(self, learning_rate: float, momentum: float,
+                 nesterov: bool = False):
+        self.lr, self.momentum, self.nesterov = (learning_rate, momentum,
+                                                 nesterov)
+
+    def init(self, params) -> dict:
+        return {"count": 0,
+                "trace": tree_map(lambda p: torch.zeros_like(p), params)}
+
+    @torch.no_grad()
+    def apply(self, grads, state: dict, params):
+        leaves_g = tree_leaves(grads)
+        gnorm = _global_norm(leaves_g)
+        for p, g, t in zip(map(_local, tree_leaves(params)),
+                           map(_local, leaves_g),
+                           map(_local, tree_leaves(state["trace"]))):
+            t.copy_(g + self.momentum * t)
+            u = g + self.momentum * t if self.nesterov else t
+            p.add_(u * -self.lr)
+        return params, {"count": state["count"] + 1,
+                        "trace": state["trace"]}, gnorm
+
+
 def _local(t):
     """A DTensor's local shard (the same storage), a tensor as it is."""
     return t.to_local() if hasattr(t, "to_local") else t
@@ -173,6 +209,35 @@ def init_state(params, optimizer, mesh=None, axes=None,
             "step": 0}
 
 
+def replicated_axes(tree):
+    """The logical axes of a tree every leaf of which replicates (the
+    ``axes`` of :func:`init_state` for a plain data-parallel model)."""
+    return tree_map(lambda t: (None,) * t.dim(), tree)
+
+
+def value_and_grad(loss_fn: Callable, params, *args,
+                   has_aux: bool = False):
+    """``jax.value_and_grad(loss_fn, has_aux=has_aux)(params, *args)``:
+    ``(loss, grads)``, or ``((loss, aux), grads)`` when ``loss_fn``
+    returns ``(loss, aux)``; ``grads`` has ``params``' structure. A leaf
+    the loss does not read (BERT's type_embed without type_ids) gets a
+    zero gradient, as jax.grad gives it."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        out = loss_fn(params, *args)
+        loss = out[0] if has_aux else out
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    it = (torch.zeros_like(t) if g is None else g
+          for t, g in zip(leaves, grads))
+    out = (loss.detach(), out[1]) if has_aux else loss.detach()
+    return out, tree_map(lambda _: next(it), params)
+
+
 def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor] | None,
                     optimizer, mesh=None,
                     value_and_grad_fn: Callable | None = None) -> Callable:
@@ -199,23 +264,8 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor] | None,
         raise ValueError("fused optimizers are single-device only: use "
                          "default_optimizer(fused=False) with a mesh")
 
-    def value_and_grad(params, batch):
-        leaves = tree_leaves(params)
-        for t in leaves:
-            t.requires_grad_(True)
-        try:
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        finally:
-            for t in leaves:
-                t.requires_grad_(False)
-        # a leaf the loss does not read (BERT's type_embed without
-        # type_ids) gets a zero gradient, as jax.grad gives it
-        it = (torch.zeros_like(t) if g is None else g
-              for t, g in zip(leaves, grads))
-        return loss, tree_map(lambda _: next(it), params)
-
-    vag = value_and_grad_fn or value_and_grad
+    vag = value_and_grad_fn or (
+        lambda params, batch: value_and_grad(loss_fn, params, batch))
 
     def step(state: TrainState, batch: Any):
         params = state["params"]

@@ -15,7 +15,9 @@ torch tensors (a weight artifact landed by
 :func:`~tony_tpu_torch.serving.weightstore.pull_weights` keeps its
 bfloat16 leaves as tensors); they are moved as they are. An MoE tree's
 router is f32 in a model of any dtype (``transformer.init_params``): it
-crosses as f32, and a cast to the model's dtype leaves it f32.
+crosses as f32, and a cast to the model's dtype leaves it f32. A ResNet
+``(params, stats)`` pair converts tree by tree; its statistics are f32
+in a model of any dtype, so they cross without a cast.
 """
 
 from __future__ import annotations

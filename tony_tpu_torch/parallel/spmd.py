@@ -336,6 +336,17 @@ class Layout:
             return x
         return _SumOver.apply(x, self._loss_groups)
 
+    def sync_data(self, x):
+        """Sum over the data ranks, all-reduce backward too: for a
+        statistic of the global batch that feeds every rank's rows
+        (sync-BN's sums), whose cotangent each rank holds only in part.
+        (:meth:`sum_data`'s identity backward would drop the other
+        ranks' parts.)"""
+        if not self._data_groups:
+            return x
+        groups = self._data_groups
+        return _SumOver.apply(_CopyTo.apply(x, groups), groups)
+
     def count_data(self, x):
         """Sum over the data and cp ranks, outside autograd."""
         if not self._loss_groups:
