@@ -367,6 +367,32 @@ result:
    in this process on a world-1 NCCL runtime: accuracy >= 0.95 and its
    img/s; ``mlp_forward`` and ``cnn_forward`` at batch 256, card against
    the CPU in f32 (1e-4 of the largest logit);
+26. the last mesh combinations, every rank emulated on the card: (a) the
+   MoE cp routing arm at small's widths, 8 experts top 2 factor 1.25,
+   [2, 4096, 512] f32 (every token offset by one shared vector, so
+   capacity drops tokens) over 4 chunks against the whole-sequence
+   ``moe_ffn``: every dispatch slot and combine weight equal, the aux
+   and the dropped fraction within 1e-6, the output within 1e-5 of its
+   largest entry, the dropped fraction > 0; then one ``small`` 8-expert
+   step at [2, 4096] unsplit and on ``{"cp": 4}`` (the ring), in f32
+   (loss within 1e-5, grad norm 1e-4 relative) and bf16 (loss 1e-3,
+   phase 9's; grad norm 1e-2, phase 21's for a split bf16 step; the
+   split bf16 gradient's L2 distance from the f32 one within 2x the
+   unsplit bf16 gradient's), K1 ``2·L·10``, K2 ``L·10`` a step (10
+   causal hops), the bf16 step's wall and device ms beside the unsplit
+   step's; (b) ``small`` bf16 8 x 1024 on ``{"pp": 2}`` and ``{"pp": 2,
+   "cp": 2}`` (cp replicated inside the pipeline) under GPipe and 1F1B
+   on the two-pass backward: loss and every gradient bit for bit (the
+   same arithmetic by construction: a dict mesh's pipeline never reads
+   cp), both within phase 21's limits of the unpipelined step, K1 a
+   step; (c) BERT-base bf16 16 x 512 on ``{"cp": 2}`` (the non-causal
+   ring: K1 and K2 4 a layer; also in f32) and ``{"pp": 2}`` (the
+   unsharded forward by construction on a dict mesh) against the
+   unsharded step (26a's limits; K1, K2 and K6 a step); (d) a
+   ``small`` 8-expert MoE greedy in f32, 8 prompts of 16-64, 16 tokens,
+   on ``{"tp": 2}`` and ``{"ep": 2, "tp": 2}``: every stream equal to
+   the unsharded run's, K1/K5 by phase 24's formulas, launches, device
+   and wall ms of the last 4 steps beside the unsharded run's;
 then a line of each phase's wall, a JSON line of per-kernel numbers, the card line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -6237,7 +6263,7 @@ OBS_TRACED = 3
 OBS_TRACES = 3
 OBS_MARKERS, OBS_MARKER_GAP_US = 400, 50.0
 OBS_LEDGER_STEPS, OBS_QUIET_STEPS = 10, 12
-OBS_LIVE_STEPS, OBS_LIVE_MS = 10, 400
+OBS_LIVE_STEPS, OBS_LIVE_MS = 10, 2000
 OBS_COST_ITERS = 20000
 
 
@@ -6551,11 +6577,20 @@ def _obs_cost(out):
 def _obs_live(out, card, cfg, params, directory):
     """(b) A live capture through maybe_start, asked for from another
     thread while run_training runs steps on this one; a second request
-    overlapping it is refused."""
+    overlapping it is refused. Step 1 waits until the capture records and
+    the last step until it has answered, so the window holds whole steps
+    however slow the host is under the profiler."""
     import socket
     import threading
 
     from tony_tpu_torch.runtime import profiler as P
+    recording = threading.Event()
+
+    class _Signalled(P._Capture):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            recording.set()
+
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -6571,14 +6606,16 @@ def _obs_live(out, card, cfg, params, directory):
     def hook(step):
         if step == 1:
             asker.start()
-            deadline = time.monotonic() + 60
-            while not P._capture_lock.locked():
-                if time.monotonic() > deadline:
-                    fail("the live capture never started")
-                time.sleep(0.001)
+            if not recording.wait(60):
+                fail("the live capture never started")
             answers["overlap"] = _capture_request(port, 50)
+        elif step == OBS_LIVE_STEPS - 1:
+            answers["open_at_last"] = asker.is_alive()
+            asker.join(120)
 
+    capture_class = P._Capture
     try:
+        P._Capture = _Signalled
         P._reset_server_state_for_tests()
         t0 = time.perf_counter()
         if not P.maybe_start():
@@ -6588,6 +6625,7 @@ def _obs_live(out, card, cfg, params, directory):
                    seq=OBS_SEQ, step_hook=hook)
         asker.join(120)
     finally:
+        P._Capture = capture_class
         P._reset_server_state_for_tests()
         for k, v in saved.items():
             if v is None:
@@ -6606,10 +6644,13 @@ def _obs_live(out, card, cfg, params, directory):
           f"listener up in {start_s:.2f} s, its warm-up included), asked "
           f"for from another thread during {OBS_LIVE_STEPS} steps on "
           f"{card}: the port's kernels {traced}, {ops} aten ops of the "
-          f"training thread; an overlapping request answered {ocode} "
-          f"({obody.get('error')})", flush=True)
+          f"training thread (the window still open when step "
+          f"{OBS_LIVE_STEPS - 1} began: {answers.get('open_at_last')}); an "
+          f"overlapping request answered {ocode} ({obody.get('error')})",
+          flush=True)
     out["live"] = dict(kernels=traced, training_thread_ops=ops,
-                       overlap=[ocode, obody], listener_start_s=start_s)
+                       overlap=[ocode, obody], listener_start_s=start_s,
+                       open_at_last=answers.get("open_at_last"))
     if not traced.get("K1") or not traced.get("K2"):
         fail(f"the live capture holds K1/K2 {traced}, want both")
     if not ops:
@@ -7434,20 +7475,22 @@ TP_HYBRID = (3, 8, 512)
 
 
 def _tp_counts():
-    """(zero, read) of K1, K2, K3a, K3b and K5's launch counts."""
+    """(zero, read) of K1, K2, K3a, K3b, K5 and K6's launch counts."""
     from tony_tpu_torch.ops import attention as A
     from tony_tpu_torch.ops import norms as N
 
     def zero():
         A.reset_launches()
         N.rms_norm_forward.launches = 0
+        N.layer_norm_forward.launches = 0
 
     def read():
         return dict(k1=A.flash_forward.launches,
                     k2=A.flash_backward_fused.launches,
                     k3a=A.flash_backward_dq.launches,
                     k3b=A.flash_backward_dkv.launches,
-                    k5=N.rms_norm_forward.launches)
+                    k5=N.rms_norm_forward.launches,
+                    k6=N.layer_norm_forward.launches)
     return zero, read
 
 
@@ -8156,6 +8199,472 @@ def phase_resnet(report, card):
     report["resnet"] = out
 
 
+#: phase 26's shapes: the MoE routing arm and step (batch, sequence,
+#: experts, emulated cp ranks), the pipelined steps (batch, sequence),
+#: BERT's steps (batch, sequence) and the MoE decode (prompts, new
+#: tokens, their shortest and longest prompt)
+COMBO_MOE = (2, 4096, 8, 4)
+COMBO_PP = (8, 1024)
+COMBO_BERT = (16, 512)
+COMBO_DECODE = (8, 16, 16, 64)
+COMBO_DEVICE = "cuda"
+
+
+def _combo_grads(value_and_grad, params):
+    """(loss, grad norm, grads) of ``value_and_grad(params) -> (loss,
+    grads)``, the norm in f32 over every leaf."""
+    import torch
+    from tony_tpu_torch import tree_leaves
+    loss, grads = value_and_grad(params)
+    flat = tree_leaves(grads)
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in flat))
+    return float(loss), float(norm), flat
+
+
+def _combo_step(label, card, value_and_grad, params, want, timed=True):
+    """One gradient step of ``value_and_grad`` counted from 0 (its
+    launches must equal ``want``, the keys it names), then, ``timed``
+    (bf16: its attention launches all on the tensor cores), a second
+    on the host's clock (the first carries a fresh process's one-time
+    costs) and a third profiled: (loss, grad norm, grads, record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    zero, read = _tp_counts()
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    loss, norm, grads = _combo_grads(value_and_grad, params)
+    wall = time.perf_counter() - t0
+    c = read()
+    if any(c[k] != n for k, n in want.items()):
+        fail(f"phase 26 {label}: launches {c}, want {want}")
+    if not (math.isfinite(loss) and math.isfinite(norm)):
+        fail(f"phase 26 {label}: loss {loss}, grad norm {norm}")
+    if not timed:
+        return loss, norm, grads, dict(loss=loss, grad_norm=norm,
+                                       launches=c, step_ms=wall * 1e3)
+    _check_tc_variants(f"phase 26 {label}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _combo_grads(value_and_grad, params)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _combo_grads(value_and_grad, params)
+        torch.cuda.synchronize()
+    dev, _ = _device_times(prof)
+    rec = dict(loss=loss, grad_norm=norm, launches=c,
+               step_ms=wall * 1e3,
+               device_ms=sum(dev.values()) / 1e3 if dev else None)
+    return loss, norm, grads, rec
+
+
+def _combo_rel(label, rec, ref, loss_lim, norm_lim):
+    """Hold ``rec``'s loss and grad norm to ``ref``'s (relative)."""
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    rec["norm_rel"] = (abs(rec["grad_norm"] - ref["grad_norm"])
+                       / abs(ref["grad_norm"]))
+    if not (rec["loss_rel"] <= loss_lim and rec["norm_rel"] <= norm_lim):
+        fail(f"phase 26 {label}: loss {rec['loss']} and grad norm "
+             f"{rec['grad_norm']} against {ref['loss']} and "
+             f"{ref['grad_norm']}: relative {rec['loss_rel']:.2e}, "
+             f"{rec['norm_rel']:.2e} (limits {loss_lim}, {norm_lim})")
+
+
+def _grad_dist(grads, ref) -> float:
+    """The relative L2 distance of ``grads`` from ``ref`` over every
+    leaf: |grads - ref| / |ref|, in f32."""
+    import torch
+    num = sum(((g.float() - r.float()) ** 2).sum()
+              for g, r in zip(grads, ref))
+    den = sum((r.float() ** 2).sum() for r in ref)
+    return float(torch.sqrt(num / den))
+
+
+def _combo_split(label, run, params, cfg, mesh, want, card):
+    """A step split over ``mesh`` (emulated) against the unsplit step,
+    bf16 and f32. ``run(cfg, mesh)`` is the step's value_and_grad on
+    ``cfg``'s dtype. f32, the check of the function: the split step's
+    loss within 1e-5 and grad norm within 1e-4 of the unsplit step's
+    (relative). bf16: loss within 1e-3 (phase 9's limit) and grad norm
+    within 1e-2 (phase 21's, for a bf16 step split over emulated ranks:
+    a bf16 step's grad norm moves by ~1e-3 with the order of its sums
+    alone, which a split changes), and the check that can tell rounding
+    from a fault: the split bf16 gradient's L2 distance from the unsplit
+    f32 gradient within 2x the unsplit bf16 gradient's. ``want(mesh)``
+    gives a step's launches. Returns (bf16 unsplit record, bf16 split
+    record, every record)."""
+    import dataclasses
+
+    import torch
+    from tony_tpu_torch import tree_map
+    p32 = tree_map(lambda t: t.float(), params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    recs, grads = {}, {}
+    for tag, m in (("unsplit", None), ("split", mesh)):
+        _, _, grads[tag], recs[tag] = _combo_step(
+            f"{label} bf16 {tag}", card, run(cfg, m), params, want(m))
+        _, _, g32, recs[f"{tag}_f32"] = _combo_step(
+            f"{label} f32 {tag}", card, run(c32, m), p32, want(m),
+            timed=False)
+        if tag == "unsplit":
+            grads["f32"] = g32
+        del g32
+    del p32
+    ref, r = recs["unsplit"], recs["split"]
+    ref32, r32 = recs["unsplit_f32"], recs["split_f32"]
+    ref["f32_dist"] = _grad_dist(grads["unsplit"], grads["f32"])
+    r["f32_dist"] = _grad_dist(grads["split"], grads["f32"])
+    del grads
+    torch.cuda.empty_cache()
+    _combo_rel(f"{label} f32", r32, ref32, 1e-5, 1e-4)
+    _combo_rel(f"{label} bf16 rounding", ref, ref32, float("inf"),
+               float("inf"))
+    _combo_rel(f"{label} bf16", r, ref, *_BF16_SPLIT_LIMITS)
+    if not r["f32_dist"] <= _BF16_DIST_RATIO * ref["f32_dist"]:
+        fail(f"phase 26 {label}: the split bf16 gradient lies "
+             f"{r['f32_dist']:.4e} from the f32 gradient, the unsplit bf16 "
+             f"one {ref['f32_dist']:.4e} (limit {_BF16_DIST_RATIO}x)")
+    return ref, r, recs
+
+
+#: (loss, grad norm) relative limits of a bf16 step split over emulated
+#: ranks against the unsplit step: phase 9's and phase 21's
+_BF16_SPLIT_LIMITS = (1e-3, 1e-2)
+#: the split bf16 gradient's L2 distance from the f32 gradient, at most
+#: this many times the unsplit bf16 gradient's
+_BF16_DIST_RATIO = 2.0
+
+
+def _combo_limits(r, ref, r32) -> str:
+    """The printed account of :func:`_combo_split`'s checks."""
+    return (f"relative to unsplit: loss {r['loss_rel']:.2e}, grad norm "
+            f"{r['norm_rel']:.2e} (limits 1e-3, 1e-2; the unsplit bf16 "
+            f"step's own distance from f32: {ref['loss_rel']:.2e}, "
+            f"{ref['norm_rel']:.2e}); L2 distance of the gradient from "
+            f"the f32 one: split {r['f32_dist']:.4e}, unsplit "
+            f"{ref['f32_dist']:.4e} (ratio "
+            f"{r['f32_dist'] / ref['f32_dist']:.3f}, limit "
+            f"{_BF16_DIST_RATIO}); f32 split vs unsplit: loss "
+            f"{r32['loss_rel']:.2e} (limit 1e-5), grad norm "
+            f"{r32['norm_rel']:.2e} (limit 1e-4)")
+
+
+def _lm_vag(cfg, batch, mesh, schedule="gpipe"):
+    from tony_tpu_torch.models import train as TR
+    from tony_tpu_torch.models import transformer as T
+    if schedule == "1f1b":
+        return lambda p: T.lm_value_and_grad(p, batch, cfg, mesh)
+    return lambda p: TR.value_and_grad(
+        lambda q, b: T.lm_loss(q, b, cfg, mesh), p, batch)
+
+
+def _combo_moe(out, card, cfg, params):
+    """26a: the MoE cp routing arm over emulated chunks against the
+    whole sequence (f32), then a step of the `small` MoE ``params``
+    under an emulated cp mesh against the unsplit step. Returns the
+    launches."""
+    import torch
+    import torch.nn.functional as F
+    from tony_tpu_torch.parallel import moe as M
+    from tony_tpu_torch.parallel import spmd
+    t_routing = time.perf_counter()
+    b, s, e, cp = COMBO_MOE
+    d, f, k, cf = (cfg.d_model, cfg.d_ff, cfg.moe_top_k,
+                   cfg.moe_capacity_factor)
+    dev = COMBO_DEVICE
+    g = torch.Generator(device=dev).manual_seed(26)
+    # one offset shared by every token skews the router toward some
+    # experts: capacity drops tokens, so the lower chunks' counts decide
+    # the upper chunks' slots
+    x = (torch.randn((b, s, d), generator=g, device=dev)
+         + torch.randn((d,), generator=g, device=dev))
+    router = torch.randn((d, e), generator=g, device=dev) * d ** -0.5
+    w_in = torch.randn((e, d, f), generator=g, device=dev) * d ** -0.5
+    w_out = torch.randn((e, f, d), generator=g, device=dev) * f ** -0.5
+    cap = M.default_capacity(s, e, k, cf)
+    with torch.no_grad():
+        logits = torch.einsum("bsd,de->bse", x, router)
+        wd, wc, _ = M.router_dispatch(logits, e, top_k=k, capacity=cap)
+        chunks = logits.chunk(cp, dim=1)
+        lowers = M._exclusive_scan([M.assignments(M._gates(c, k))
+                                    for c in chunks])
+        n = s // cp
+        slots_equal = True
+        for i, (c, lo) in enumerate(zip(chunks, lowers)):
+            gd, gc, _ = M.router_dispatch(c, e, top_k=k, capacity=cap,
+                                          lower=lo)
+            sl = slice(i * n, (i + 1) * n)
+            slots_equal &= (torch.equal(gd, wd[:, sl])
+                            and torch.equal(gc, wc[:, sl]))
+        del wd, wc, gd, gc
+        whole, m1 = M.moe_ffn(x, router, w_in, w_out, top_k=k,
+                              capacity_factor=cf, activation=F.silu)
+        emu, m2 = M.moe_ffn(x, router, w_in, w_out, top_k=k,
+                            capacity_factor=cf, activation=F.silu,
+                            lay=spmd.EmulatedCp(cp))
+    err = (emu - whole).abs().max().item()
+    scale = whole.abs().max().item()
+    aux = (float(m1.aux_loss), float(m2.aux_loss))
+    dropped = (float(m1.dropped_fraction), float(m2.dropped_fraction))
+    routing = dict(capacity=cap, slots_equal=slots_equal, max_abs_err=err,
+                   bound=1e-5 * scale, aux=aux, dropped=dropped,
+                   wall_s=time.perf_counter() - t_routing)
+    out["moe_routing"] = routing
+    print(f"[26a] MoE cp routing arm, {e} experts top {k} factor {cf}, "
+          f"[{b}, {s}, {d}] f32 over {cp} emulated chunks on {card}: "
+          f"capacity {cap}, every dispatch slot and combine weight equal "
+          f"to the whole sequence's: {slots_equal}; output max |chunks - "
+          f"whole| {err:.3e} (bound {1e-5 * scale:.3e}, 1e-5 of the "
+          f"largest entry); aux {aux[1]:.8f} vs {aux[0]:.8f}, dropped "
+          f"fraction {dropped[1]:.6f} vs {dropped[0]:.6f} (limit 1e-6); "
+          f"{routing['wall_s']:.1f} s", flush=True)
+    if not slots_equal or not err <= 1e-5 * scale or \
+            abs(aux[0] - aux[1]) > 1e-6 or abs(dropped[0] - dropped[1]) > \
+            1e-6 or not dropped[0] > 0:
+        fail(f"phase 26a: the cp routing arm against the whole sequence: "
+             f"{routing}")
+    del x, w_in, w_out, whole, emu, logits
+    torch.cuda.empty_cache()
+    # one training step of the MoE LM, unsplit and over cp ranks
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g,
+                           device=dev)
+    L, hops = cfg.n_layers, cp * (cp + 1) // 2
+
+    def want(mesh):
+        h = hops if mesh else 1
+        return dict(k1=2 * L * h, k2=L * h, k3a=0, k3b=0, k5=4 * L + 1)
+    ref, r, steps = _combo_split(
+        "a MoE step", lambda c, m: _lm_vag(c, {"tokens": tokens}, m),
+        params, cfg, {"cp": cp}, want, card)
+    print(f"[26a] small MoE ({e} experts) bf16 {b}x{s} step, {{'cp': {cp}}} "
+          f"emulated (ring) on {card}: loss {r['loss']:.6f} vs unsplit "
+          f"{ref['loss']:.6f}, grad norm {r['grad_norm']:.6f} vs "
+          f"{ref['grad_norm']:.6f}; "
+          + _combo_limits(r, ref, steps["split_f32"])
+          + f"; a step: K1 {r['launches']['k1']} and K2 "
+          f"{r['launches']['k2']} (unsplit "
+          f"{ref['launches']['k1']}, {ref['launches']['k2']}), wall "
+          f"{r['step_ms']:.2f} ms (unsplit {ref['step_ms']:.2f}), device "
+          f"{_ms(r['device_ms'])} (unsplit {_ms(ref['device_ms'])}); the "
+          f"f32 steps' walls {steps['split_f32']['step_ms']:.1f} and "
+          f"{steps['unsplit_f32']['step_ms']:.1f} ms", flush=True)
+    out["moe_step"] = steps
+    torch.cuda.empty_cache()
+    return _combo_sum(steps.values())
+
+
+def _combo_sum(recs):
+    total = dict.fromkeys(("k1", "k2", "k3a", "k3b", "k5", "k6"), 0)
+    for r in recs:
+        for key in total:
+            total[key] += r["launches"][key]
+    return total
+
+
+def _combo_pp(out, card):
+    """26b: `small` bf16 under {pp: 2, cp: 2} (cp replicated inside the
+    pipeline), GPipe and 1F1B, against {pp: 2} bit for bit and the
+    unpipelined step within phase 21's limits, on the two-pass backward
+    (K3a, K3b: K2's dQ atomics change a gradient's bits from run to
+    run). On a dict mesh the pipeline never reads cp, so the bitwise
+    check holds by construction: it shows the emulation takes the mesh;
+    the distributed code of pp x cp (the layout dropping cp under pp)
+    runs in the CPU's gloo groups only. Returns the launches."""
+    import numpy as np
+    import torch
+    from tony_tpu_torch import train_lm
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.ops import attention as A
+    batch_n, seq = COMBO_PP
+    cfg, params = train_lm.build("small", COMBO_DEVICE)
+    L = cfg.n_layers
+    tokens = torch.from_numpy(np.random.RandomState(26).randint(
+        0, cfg.vocab_size, size=(batch_n, seq + 1))).to(COMBO_DEVICE)
+    batch = {"tokens": tokens}
+    pp, m = T._pp_layout(cfg, {"pp": 2}, batch_n)
+    recs = {}
+    budget = A._FUSED_PARTIALS_BYTES
+    A._FUSED_PARTIALS_BYTES = 0
+    try:
+        _, _, _, ref = _combo_step(
+            "b unpipelined", card, _lm_vag(cfg, batch, None), params,
+            dict(k1=2 * L, k2=0, k3a=L, k3b=L, k5=4 * L + 1))
+        recs["unpipelined"] = ref
+        for schedule in ("gpipe", "1f1b"):
+            want = _pp_expected(L, pp, m, schedule)
+            want = dict(k1=want["k1"], k2=0, k3a=want["k2"],
+                        k3b=want["k2"], k5=want["k5"])
+            got = {}
+            for tag, mesh in (("pp2", {"pp": 2}),
+                              ("pp2_cp2", {"pp": 2, "cp": 2})):
+                got[tag] = _combo_step(f"b {schedule} {tag}", card,
+                                       _lm_vag(cfg, batch, mesh, schedule),
+                                       params, want,
+                                       timed=tag == "pp2_cp2")
+            (l0, _, g0, r0), (l1, _, g1, r1) = got["pp2"], got["pp2_cp2"]
+            same = l0 == l1 and all(torch.equal(a, c)
+                                    for a, c in zip(g0, g1))
+            _combo_rel(f"b {schedule}", r1, ref, 1e-3, 1e-2)
+            r1["bitwise_pp2"] = same
+            recs[f"{schedule}_pp2"], recs[f"{schedule}_pp2_cp2"] = r0, r1
+            print(f"[26b] small bf16 {batch_n}x{seq} {schedule} on "
+                  f"{{'pp': 2, 'cp': 2}} emulated (M={m}) on {card}: loss "
+                  f"and every gradient equal to {{'pp': 2}}'s bit for bit "
+                  f"(the same arithmetic by construction: a dict mesh's "
+                  f"pipeline never reads cp): {same}; loss {r1['loss']:.6f} vs unpipelined "
+                  f"{ref['loss']:.6f} (relative {r1['loss_rel']:.2e}, "
+                  f"limit 1e-3), grad norm {r1['grad_norm']:.6f} vs "
+                  f"{ref['grad_norm']:.6f} ({r1['norm_rel']:.2e}, limit "
+                  f"1e-2); a step: K1 {r1['launches']['k1']} (unpipelined "
+                  f"{ref['launches']['k1']}), wall {r1['step_ms']:.2f} ms, "
+                  f"device {_ms(r1['device_ms'])} (unpipelined "
+                  f"{ref['step_ms']:.2f} ms, {_ms(ref['device_ms'])})",
+                  flush=True)
+            if not same:
+                fail(f"phase 26b {schedule}: {{'pp': 2, 'cp': 2}} differs "
+                     f"from {{'pp': 2}}")
+            del got, g0, g1
+    finally:
+        A._FUSED_PARTIALS_BYTES = budget
+    out["pp"] = recs
+    del params
+    torch.cuda.empty_cache()
+    return _combo_sum(recs.values())
+
+
+def _combo_bert(out, card):
+    """26c: BERT-base bf16 under an emulated {cp: 2} (the non-causal
+    ring) and {pp: 2} against the unsharded step. BERT on a dict mesh
+    without cp runs the unsharded forward itself, so its {pp: 2} step is
+    the unsharded step's arithmetic by construction; the distributed
+    code of BERT under pp (its blocks gathered over pp) runs in the
+    CPU's gloo groups only. Returns the launches."""
+    import torch
+    from tony_tpu_torch import pretrain_bert
+    from tony_tpu_torch.models import bert as B
+    from tony_tpu_torch.models import train as TR
+    batch_n, seq = COMBO_BERT
+    cfg, params = pretrain_bert.build("base", COMBO_DEVICE)
+    L = cfg.n_layers
+    batch = {k: torch.from_numpy(v).to(COMBO_DEVICE) for k, v in next(
+        pretrain_bert.synthetic_mlm_batches(26, batch_n, seq, cfg)).items()}
+
+    def run(c, mesh):
+        return lambda p: TR.value_and_grad(
+            lambda q, bt: B.mlm_loss(q, bt, c, mesh), p, batch)
+
+    def want(mesh):
+        h = 4 if mesh and mesh.get("cp") else 1
+        return dict(k1=L * h, k2=L * h, k3a=0, k3b=0, k5=0, k6=2 * L + 2)
+    ref, cp_rec, recs = _combo_split("c BERT cp2", run, params, cfg,
+                                     {"cp": 2}, want, card)
+    recs["pp2"] = _combo_step("c BERT pp2", card, run(cfg, {"pp": 2}),
+                              params, want({"pp": 2}))[3]
+    pp_rec = recs["pp2"]
+    _combo_rel("c BERT pp2", pp_rec, ref, *_BF16_SPLIT_LIMITS)
+    for tag, r in (("cp", cp_rec), ("pp", pp_rec)):
+        checks = (_combo_limits(r, ref, recs["split_f32"]) if tag == "cp"
+                  else f"relative to unsharded: loss {r['loss_rel']:.2e}, "
+                  f"grad norm {r['norm_rel']:.2e} (the limits of cp; the "
+                  f"unsharded forward by construction on a dict mesh)")
+        print(f"[26c] BERT-base bf16 {batch_n}x{seq} on {{'{tag}': 2}} "
+              f"emulated on {card}: loss {r['loss']:.6f} vs unsharded "
+              f"{ref['loss']:.6f}, grad norm {r['grad_norm']:.6f} vs "
+              f"{ref['grad_norm']:.6f}; {checks}; a step: K1 "
+              f"{r['launches']['k1']}, K2 {r['launches']['k2']}, K6 "
+              f"{r['launches']['k6']} (unsharded {ref['launches']['k1']}, "
+              f"{ref['launches']['k2']}, {ref['launches']['k6']}), wall "
+              f"{r['step_ms']:.2f} ms, device {_ms(r['device_ms'])} "
+              f"(unsharded {ref['step_ms']:.2f} ms, "
+              f"{_ms(ref['device_ms'])})", flush=True)
+    out["bert"] = recs
+    del params
+    torch.cuda.empty_cache()
+    return _combo_sum(recs.values())
+
+
+def _combo_decode(out, card, cfg, params):
+    """26d: greedy decoding of the `small` 8-expert MoE ``params`` in f32
+    over emulated {tp: 2} and {ep: 2, tp: 2}: tokens equal to the
+    unsharded run's, launches by phase 24's formulas, the profiled
+    steps' launches, device and wall ms beside the unsharded run's.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from tony_tpu_torch import tree_map
+    n, new, lo, hi = COMBO_DECODE
+    cfg = cfg.scaled(dtype=torch.float32)
+    params = tree_map(lambda t: t.float(), params)
+    rs = np.random.RandomState(26)
+    prompts = [list(map(int, rs.randint(0, cfg.vocab_size,
+                                        size=rs.randint(lo, hi + 1))))
+               for _ in range(n)]
+    zero, read = _tp_counts()
+    launches = dict.fromkeys(("k1", "k2", "k3a", "k3b", "k5", "k6"), 0)
+    runs = {}
+    base = None
+    for tag, mesh in (("unsharded", None), ("tp2", {"tp": 2}),
+                      ("ep2_tp2", {"ep": 2, "tp": 2})):
+        tp = mesh["tp"] if mesh else 1
+        zero()
+        toks, _, st = _tp_stream(params, cfg, prompts, new, mesh,
+                                 profiled=TP_PROFILED)
+        c = read()
+        _tp_check_launches(f"26d MoE {tag}", c, cfg, tp, 1, new)
+        for key in launches:
+            launches[key] += c[key]
+        if base is None:
+            base = toks
+        equal = int((toks == base).all(dim=1).sum())
+        runs[tag] = dict(equal=equal, launches=c, step=st)
+        print(f"[26d] small MoE (8 experts) f32, {n} prompts of {lo}-{hi}, "
+              f"{new} tokens, {tag}{' (emulated)' if mesh else ''} on "
+              f"{card}: {equal}/{n} "
+              f"streams equal to the unsharded run; a decode step "
+              f"(last {TP_PROFILED} profiled): {st['launches']:.1f} "
+              f"launches, {st['device_ms']:.3f} ms device, "
+              f"{st['wall_ms']:.2f} ms wall; launches {c}", flush=True)
+        if equal != n:
+            fail(f"phase 26d: MoE {tag}: {equal}/{n} streams equal to the "
+                 f"unsharded run")
+    out["decode"] = runs
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_combos(report, card):
+    """[26] The last mesh combinations, every rank emulated on one card:
+    (a) the MoE cp routing arm and a MoE step under cp, (b) pp × cp under
+    GPipe and 1F1B, (c) BERT under cp and pp, (d) MoE decoding under tp
+    and ep × tp (module docstring). Returns the launches (K1, K2, K3a,
+    K3b, K5, K6)."""
+    import torch
+    from tony_tpu_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    out = {"walls": {}}
+    launches = dict.fromkeys(("k1", "k2", "k3a", "k3b", "k5", "k6"), 0)
+    # one `small` MoE for 26a and 26d (its draw takes seconds on the host)
+    moe_cfg = T.PRESETS["small"].scaled(num_experts=COMBO_MOE[2])
+    moe = T.init_params(torch.Generator().manual_seed(26), moe_cfg,
+                        COMBO_DEVICE)
+    for part, fn, args in (("a", _combo_moe, (moe_cfg, moe)),
+                           ("d", _combo_decode, (moe_cfg, moe)),
+                           ("b", _combo_pp, ()), ("c", _combo_bert, ())):
+        t = time.perf_counter()
+        _tp_add(launches, fn(out, card, *args))
+        out["walls"][part] = round(time.perf_counter() - t, 1)
+        if part == "d":
+            del moe
+            torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    print(f"[26] phase wall {out['wall_s']:.1f}s ({out['walls']}); "
+          f"launches {launches}", flush=True)
+    report["combos"] = out
+    return launches
+
+
 def main(bisect: bool = False) -> int:
     """The whole script; with ``bisect`` (``--trace-loss-bisect``) marker
     captures follow every phase, to find the one after which a capture
@@ -8207,6 +8716,7 @@ def main(bisect: bool = False) -> int:
     fleet_k1, fleet_k5 = timed("23 fleet", phase_fleet, report, card, serve)
     tp = timed("24 tp", phase_tp, report, card, serve)
     timed("25 resnet", phase_resnet, report, card)
+    combos = timed("26 combos", phase_combos, report, card)
     print("[phase walls] " + ", ".join(f"{k} {v}s" for k, v in walls.items()),
           flush=True)
     # launches on the main paths, each counted from 0 over its own run:
@@ -8233,22 +8743,28 @@ def main(bisect: bool = False) -> int:
     # rolling upgrade, the f32 drill); phase 24's decode streams over
     # emulated tp ranks and their unsharded twins (K1, K5) and the hybrid
     # and flat meshes' training runs (K1, K3a, K3b, K5) and train_lm's
-    # (K1, K2, K5)
+    # (K1, K2, K5); phase 26's steps over emulated ranks: MoE × cp (K1,
+    # K2, K5), pp × cp on the two-pass backward (K1, K3a, K3b, K5), BERT
+    # under cp and pp (K1, K2, K6), and its MoE decode streams (K1, K5)
     k1["launches"] = (serve["k1"] + counts["k1"] + bert["k1"] + mesh["k1"]
                       + host_k1 + var_k1 + pre_k1 + dis_k1 + files["k1"]
                       + moe["k1"] + cp["k1"] + pp["k1"] + obs["k1"]
-                      + fleet_k1 + tp["k1"])
+                      + fleet_k1 + tp["k1"] + combos["k1"])
     bwd["fused"]["launches"] = (counts["k2"] + bert["k2"] + mesh["k2"]
                                 + files["k2"] + moe["k2"] + cp["k2"]
-                                + pp["k2"] + obs["k2"] + tp["k2"])
-    bwd["dq"]["launches"] = counts["k3a"] + files["k3a"] + tp["k3a"]
-    bwd["dkv"]["launches"] = counts["k3b"] + files["k3b"] + tp["k3b"]
+                                + pp["k2"] + obs["k2"] + tp["k2"]
+                                + combos["k2"])
+    bwd["dq"]["launches"] = (counts["k3a"] + files["k3a"] + tp["k3a"]
+                             + combos["k3a"])
+    bwd["dkv"]["launches"] = (counts["k3b"] + files["k3b"] + tp["k3b"]
+                              + combos["k3b"])
     k4["launches"] = counts["k4"] + moe["k4"]
     norms["rms"]["launches"] = (serve["k5"] + counts["k5"] + mesh["k5"]
                                 + host_k5 + var_k5 + pre_k5 + dis_k5
                                 + files["k5"] + moe["k5"] + cp["k5"]
-                                + pp["k5"] + obs["k5"] + fleet_k5 + tp["k5"])
-    norms["ln"]["launches"] = bert["k6"]
+                                + pp["k5"] + obs["k5"] + fleet_k5 + tp["k5"]
+                                + combos["k5"])
+    norms["ln"]["launches"] = bert["k6"] + combos["k6"]
     report["wall_s"] = time.perf_counter() - t0
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -13,7 +13,10 @@ numpy, and the same seeded MLM batches through both packages:
 - the tree's keys, shapes and dtypes, its bit-exact round trip and
   ``tree_digest`` across packages, f32 and bf16;
 - ``synthetic_mlm_batches`` equal to the JAX example's, and the
-  ``pretrain_bert`` CLI on the CPU (and raising without a card).
+  ``pretrain_bert`` CLI on the CPU (and raising without a card);
+- cp and pp on dict meshes: the logits of the unsharded forward and the
+  JAX package's loss on the same mesh (``test_unported_sharding_
+  arguments_raise``, its name from when they raised).
 """
 
 import dataclasses
@@ -28,6 +31,8 @@ import torch
 
 from tony_tpu.models import bert as JB
 from tony_tpu.models import train as JTR
+from tony_tpu.parallel.mesh import make_mesh
+from tony_tpu.parallel.sharding import shard_pytree as jax_shard_pytree
 from tony_tpu.serving.weightstore import tree_digest
 from tony_tpu_torch import pretrain_bert, tree_leaves
 from tony_tpu_torch.models import bert as TB
@@ -210,15 +215,33 @@ def test_synthetic_mlm_batches_equal_the_examples():
 
 
 def test_unported_sharding_arguments_raise(jax_params):
+    """Every axis is ported now. cp and pp on a dict mesh (cp's ranks
+    emulated, the non-causal ring over the chunks; pp leaves the
+    function unsharded): the logits equal the unsharded forward's to
+    2e-5, and the loss the JAX package's on the same mesh to rtol 1e-5,
+    with a batch whose chunks hold different counts of masked
+    positions."""
     params = params_from_numpy(jax_params, device="cpu")
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    # dp, fsdp, tp and ep are ported; cp and pp still raise
+    batch = _batches(1, seed=3)[0]
+    half = S // 2
+    counts = [(batch["targets"][:, :half] >= 0).sum(),
+              (batch["targets"][:, half:] >= 0).sum()]
+    assert counts[0] != counts[1]
+    tb = _torch_batch(batch)
+    with torch.no_grad():
+        want = TB.forward(params, tb["tokens"], TCFG)
     for axis in ("cp", "pp"):
-        with pytest.raises(NotImplementedError):
-            TB.forward(params, toks, TCFG, mesh={"fsdp": 1, axis: 2})
-        with pytest.raises(NotImplementedError):
-            TB.mlm_loss(params, {"tokens": toks, "targets": toks}, TCFG,
-                        mesh={axis: 2})
+        with torch.no_grad():
+            got = TB.forward(params, tb["tokens"], TCFG,
+                             mesh={"fsdp": 1, axis: 2})
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+        mesh = make_mesh({"dp": 1, axis: 2}, devices=jax.devices()[:2])
+        sp = jax_shard_pytree(jax.tree.map(jnp.asarray, jax_params),
+                              JB.logical_axes(JCFG), mesh)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        jl = jax.jit(lambda p, b: JB.mlm_loss(p, b, JCFG, mesh))(sp, jb)
+        tl = TB.mlm_loss(params, tb, TCFG, mesh={axis: 2})
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     # BERT has no experts: on an ep axis every parameter replicates
     shardings = param_shardings(TB.logical_axes(TCFG), {"ep": 2})
     assert all(e is None for s in tree_leaves(shardings) for e in s.spec)

@@ -22,8 +22,11 @@
   running the attention forward once a layer where the others run it
   twice, and once a launched hop over a whole ring or Ulysses body
   under checkpoint; a bogus policy raises at config time;
-- a window or MoE with a live cp axis raises, as ``attention_spec``
-  resolves the JAX package's axes.
+- a window with a live cp axis raises, as ``attention_spec`` resolves
+  the JAX package's axes; MoE with one (the dict mesh ``{"dp": 1, "cp":
+  2}``, its cp ranks emulated, routing over the global sequence) has the
+  JAX package's loss on that mesh at rtol 1e-5, at the default capacity
+  factor and at one that drops tokens.
 """
 
 import importlib
@@ -420,9 +423,25 @@ def test_window_and_moe_with_cp_raise():
     with pytest.raises(NotImplementedError, match="attn_window"):
         TT.forward({}, toks, cfg.scaled(attn_window=4),
                    mesh={"dp": 1, "cp": 2})
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        TT.lm_loss({}, {"tokens": toks}, cfg.scaled(num_experts=4),
-                   mesh={"dp": 1, "cp": 2})
+    # MoE with cp is ported: the JAX package's loss on the same mesh
+    mesh = make_mesh({"dp": 1, "cp": 2}, devices=jax.devices()[:2])
+    for cf in (1.25, 0.5):
+        jcfg = JT.PRESETS["tiny"].scaled(dtype=jnp.float32, num_experts=4,
+                                         moe_capacity_factor=cf)
+        jp = jax.device_get(JT.init_params(jax.random.PRNGKey(0), jcfg))
+        batch = _lm_batch(cfg)
+        sp = JS.shard_pytree(jax.tree.map(jnp.asarray, jp),
+                             JT.logical_axes(jcfg), mesh)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        with jax.set_mesh(mesh):
+            jl = float(jax.jit(lambda p, b: JT.lm_loss(p, b, jcfg, mesh))(
+                sp, jb))
+        tl = TT.lm_loss(params_from_numpy(jp, device="cpu"),
+                        {k: torch.from_numpy(v).long()
+                         for k, v in batch.items()},
+                        cfg.scaled(num_experts=4, moe_capacity_factor=cf),
+                        mesh={"dp": 1, "cp": 2})
+        np.testing.assert_allclose(float(tl), jl, rtol=1e-5)
     with pytest.raises(ValueError, match="cp_strategy"):
         TT._attention(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 8),
                       torch.zeros(1, 4, 4, 8), "ulyses")

@@ -17,7 +17,20 @@ rows through ``global_batch``:
   dp, fsdp, tp (MHA, and GQA with kv_heads 2 and 1) and fsdp × tp at
   world 2 and 4, an MoE LM (4 experts) under ep, dp × ep and ep × tp,
   the LM under cp (ring and Ulysses; cp × tp, dp × cp, GQA with one kv
-  head), and BERT under fsdp and tp;
+  head), MoE under cp (cp, dp × cp, ep × cp: routing over the global
+  sequence), pp × cp under GPipe and 1F1B (cp replicated inside the
+  pipeline), and BERT under fsdp, tp, cp and pp;
+- for those last combinations, the dict mesh of the same sizes (every
+  cp rank emulated in one process, the form one card runs) against the
+  gloo group on the first batch: under pp × cp and BERT's pp the
+  logits, the loss and every gradient bit for bit (the same arithmetic:
+  cp replicates, BERT's pp gathers its blocks); under cp the logits bit
+  for bit (the ranks' chunks are the emulation's rows, attention and
+  the MoE cp arm the same bodies), the loss within rtol 1e-6 and the
+  gradients within atol 1e-6 (the emulation sums over the whole
+  sequence where each rank sums its chunk and the ranks add the parts);
+  under ep × cp, whose experts the emulation does not split, the logits
+  within the sharded forward's 2e-5 too;
 - the final params, gathered to full arrays, against the port's
   unsharded step (that test's bounds: all but 1% of each leaf within
   1e-5, each leaf within 1e-3 in relative L2), and the gathered initial
@@ -107,16 +120,17 @@ class Case:
     """One sharded run: a model on a mesh of ``world`` processes."""
 
     def __init__(self, name, world, axes, model="lm", kw=None,
-                 steps=STEPS, ckpt="", dcn=None):
+                 steps=STEPS, ckpt="", dcn=None, emu=False):
         self.name, self.world, self.axes = name, world, axes
         self.model, self.kw, self.steps, self.ckpt = model, kw or {}, \
             steps, ckpt
         self.dcn = dcn      # the slices' axes of a hybrid mesh, or None
+        self.emu = emu      # also run the dict mesh of the same sizes
 
     def plan(self) -> dict:
         return dict(name=self.name, axes=self.axes, model=self.model,
                     kw=self.kw, steps=self.steps, ckpt=self.ckpt,
-                    dcn=self.dcn)
+                    dcn=self.dcn, emu=self.emu)
 
 
 def _setup(case: Case):
@@ -304,11 +318,21 @@ LM_CASES = [
          kw={"cp_strategy": "ulysses", "remat_policy": "dots"}),
     Case("hybrid_dcn_dp2_tp2", 4, {"tp": -1}, dcn={"dp": 2}),
     Case("hybrid_dcn_pp2_dp2", 4, {"dp": -1}, dcn={"pp": 2}),
+    Case("cp2_moe", 2, {"cp": 2}, kw={"num_experts": 4}, emu=True),
+    Case("dp2_cp2_moe", 4, {"dp": 2, "cp": 2}, kw={"num_experts": 4},
+         emu=True),
+    Case("ep2_cp2_moe", 4, {"ep": 2, "cp": 2}, kw={"num_experts": 4},
+         emu=True),
+    Case("pp2_cp2", 4, {"pp": 2, "cp": 2}, emu=True),
+    Case("pp2_cp2_1f1b", 4, {"pp": 2, "cp": 2}, kw={"pp_schedule": "1f1b"},
+         emu=True),
 ]
 BERT_CASES = [
     Case("bert_fsdp2", 2, {"fsdp": 2}, model="bert"),
     Case("bert_tp2", 2, {"tp": 2}, model="bert"),
     Case("bert_dp2_tp2", 4, {"dp": 2, "tp": 2}, model="bert"),
+    Case("bert_cp2", 2, {"cp": 2}, model="bert", emu=True),
+    Case("bert_pp2", 2, {"pp": 2}, model="bert", emu=True),
 ]
 
 
@@ -354,6 +378,32 @@ def test_sharded_trajectory_matches_jax(case, group_results):
                            _axes(case), case.dcn)
     _check_case(outs, want, _port_unsharded(tloss, tcfg, jp, batches), jp,
                 first)
+
+
+EMU_CASES = [c for c in LM_CASES + BERT_CASES if c.emu]
+#: emulated with the group's own arithmetic: equal bit for bit
+_SAME_ARITHMETIC = {"pp2_cp2", "pp2_cp2_1f1b", "bert_pp2"}
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=[c.name for c in EMU_CASES])
+def test_dict_mesh_emulation_matches_the_gloo_group(case, group_results):
+    for o in group_results(case.world)[case.name]:
+        grads = [k[len("mesh/"):] for k in o if k.startswith("mesh/grad/")]
+        assert grads
+        if case.name in _SAME_ARITHMETIC:
+            for k in ["logits", "loss"] + grads:
+                np.testing.assert_array_equal(o[f"mesh/{k}"], o[f"emu/{k}"],
+                                              k)
+            continue
+        if "ep" in case.axes:
+            np.testing.assert_allclose(o["mesh/logits"], o["emu/logits"],
+                                       rtol=0, atol=2e-5)
+        else:
+            np.testing.assert_array_equal(o["mesh/logits"], o["emu/logits"])
+        np.testing.assert_allclose(o["mesh/loss"], o["emu/loss"], rtol=1e-6)
+        for k in grads:
+            np.testing.assert_allclose(o[f"mesh/{k}"], o[f"emu/{k}"],
+                                       rtol=0, atol=1e-6, err_msg=k)
 
 
 def test_pp_over_dcn_has_the_unpipelined_loss(group_results):

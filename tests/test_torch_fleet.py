@@ -7,7 +7,9 @@ replicas, no model stack):
 - planned drains under live load, one at a time and three at once, a
   drain racing its target's crash, a cancel mid-migration and a stop
   racing a drain: no token duplicated or dropped, exactly one terminal
-  frame per stream;
+  frame per stream; and the stop's sweep forced between a failover's
+  taking of its sessions and its failed placement (hooks on the router),
+  where the sweep's frame is the only one;
 - a rolling upgrade by ``weights_version`` and the warm path with its
   only seeder killed mid-ship (one storage load, then peer fan-out);
 - the controller's hysteresis, cooldown and scale-down by drain, and
@@ -287,6 +289,70 @@ class TestDrainUnderLoad:
                         assert extra == ("error",
                                          "connection closed by server"), \
                             (rid, terminals)
+        finally:
+            fleet.stop()
+
+    def test_stop_sweep_before_a_failed_failover_sends_one_terminal(self):
+        """The race above, forced: ``stop()`` closes the one replica
+        link, whose reader takes the link's sessions for a failover and
+        starts placing them; the sweep then sends "router stopping" to
+        every stream, and only then do the placements fail (no live
+        replica), before the connections close. The sweep took the
+        sessions, so the failover sends nothing more: one terminal frame
+        a stream."""
+        fleet = SimFleet(1, itl_s=0.01, slots=8,
+                         registry=MetricsRegistry())
+        out = {}
+        try:
+            port = fleet.start()
+            router = fleet.router
+            placing, swept, failed_over = (threading.Event(),
+                                           threading.Event(),
+                                           threading.Event())
+            placements = []
+
+            def place(sess, exclude):       # no survivor: after the sweep
+                placements.append(sess.crid)
+                placing.set()
+                assert swept.wait(30)
+                return False
+
+            link = router._links[0]
+            real_link_close = link.close
+
+            def link_close():               # stop()'s close waits for the
+                real_link_close()           # reader's failover to start
+                if threading.current_thread() is threading.main_thread():
+                    assert placing.wait(30)
+
+            real_down, real_close = router._replica_down, router._close_conns
+
+            def replica_down(link):
+                real_down(link)
+                failed_over.set()
+
+            def close_conns():
+                swept.set()
+                assert failed_over.wait(30)
+                real_close()
+
+            with StreamingClient("127.0.0.1", port) as client:
+                seeds, threads = _launch_streams(client, 4, 400, out)
+                _wait_spread(client)
+                router._place = place
+                link.close = link_close
+                router._replica_down = replica_down
+                router._close_conns = close_conns
+                router.stop()
+                for t in threads:
+                    t.join(timeout=30)
+            assert sorted(placements) == sorted(seeds)
+            for rid, (_, terminals) in out.items():
+                assert terminals[0] == ("error", "router stopping"), \
+                    (rid, terminals)
+                closed = ("error", "connection closed by server")
+                for extra in terminals[1:]:
+                    assert extra == closed, (rid, terminals)
         finally:
             fleet.stop()
 

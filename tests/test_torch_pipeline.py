@@ -19,7 +19,10 @@ distributed bodies.
   (loss rtol 1e-5, every gradient leaf atol 3e-5, ``tests/
   test_parallel.py``'s bounds), 1F1B against GPipe (loss rtol 1e-6,
   grads atol 3e-5), both against the unpipelined port; MoE with
-  replicated experts under 1F1B against GPipe.
+  replicated experts under 1F1B against GPipe; ``{"pp": 2, "cp": 2}``
+  (cp replicated inside the pipeline) with ``{"pp": 2}``'s loss bit for
+  bit and its gradients to 1e-7 under both schedules, and the JAX
+  package's loss on that mesh.
 - The remat policies ``"dots"`` and ``"attn"`` inside a stage against
   ``"full"``, under both schedules.
 - 5-step sharded trajectories against the JAX package's on the same
@@ -453,10 +456,35 @@ def test_lm_1f1b_refuses_live_ep():
 
 
 def test_lm_pp_with_cp_raises():
-    _, tcfg, jp, batch = _lm()
-    with pytest.raises(NotImplementedError, match="cp"):
-        TT.lm_loss(params_from_numpy(jp, device="cpu"), _tbatch(batch),
-                   tcfg, {"pp": 2, "cp": 2})
+    """pp × cp is ported: cp replicates inside the pipeline, as in the
+    reference (whose stage body runs unsharded in cp). GPipe and 1F1B on
+    the emulated ``{"pp": 2, "cp": 2}`` have ``{"pp": 2}``'s loss bit for
+    bit and its gradients to rounding (the embedding's backward adds
+    repeated rows in a thread-dependent order on the CPU), and the JAX
+    package's loss on that mesh at rtol 1e-5."""
+    jcfg, tcfg, jp, batch = _lm()
+    params = params_from_numpy(jp, device="cpu")
+    tb = _tbatch(batch)
+    mesh = jax_make_mesh({"pp": 2, "cp": 2}, devices=jax.devices()[:4])
+    sp = jax_shard_pytree(jp, JT.logical_axes(jcfg), mesh)
+    with jax.set_mesh(mesh):
+        jl = float(jax.jit(lambda p, b: JT.lm_loss(p, b, jcfg, mesh))(
+            sp, batch))
+    for cfg in (tcfg, tcfg.scaled(pp_schedule="1f1b")):
+        if cfg.pp_schedule == "1f1b":
+            got = TT.lm_value_and_grad(params, tb, cfg, {"pp": 2, "cp": 2})
+            want = TT.lm_value_and_grad(params, tb, cfg, {"pp": 2})
+            loss = float(got[0])
+            pairs = zip(tree_leaves(got[1]), tree_leaves(want[1]))
+        else:
+            got = _grads(cfg, params, tb, {"pp": 2, "cp": 2})
+            want = _grads(cfg, params, tb, {"pp": 2})
+            loss = got[0]
+            pairs = zip(got[1], want[1])
+        assert loss == float(want[0])
+        for a, b in pairs:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-7)
+        np.testing.assert_allclose(loss, jl, rtol=1e-5)
 
 
 def test_lm_stages_must_split_the_layers():

@@ -28,6 +28,10 @@ config):
 - one sampled ``generate`` (temperature 0.8, top-k 8) at tp 4, token-
   identical to JAX's: every rank draws the same threefry noise over the
   gathered vocab;
+- greedy ``generate`` of a 4-expert MoE ``tiny`` on ``{"tp": 2, "dp":
+  2}`` and ``{"ep": 2, "tp": 2}`` (each rank its tp slice of its
+  experts' hidden, the block's output summed over ep, then tp),
+  token-identical to JAX's sharded and unsharded runs;
 - the emulation (a dict mesh: every rank in one process, the form one
   card runs) equals the gloo group bit for bit, every case;
 - ``runtime.mesh()`` from a mesh spec with dcn axes, as a task of a
@@ -38,8 +42,10 @@ In one process: the emulation's attention and RMSNorm calls match the
 launch formulas the card checks (K1 ``n_layers × tp`` a prefill, K5
 ``(2·n_layers + 1) × tp`` a forward), the cache holds each rank's kv
 heads, speculative decoding takes sharded params, a dict mesh without
-tp is the unsharded decode bit for bit, and the unported axes (cp, pp,
-ep; MoE under tp) and a tp the heads do not divide are refused.
+tp is the unsharded decode bit for bit, MoE under tp and ep emulated
+gives the unsharded tokens (experts that do not split over ep are
+refused), and the unported axes (cp, pp) and a tp the heads do not
+divide are refused.
 """
 
 import jax
@@ -106,6 +112,12 @@ DECODE_CASES = [
                prompt=((2, 8), 10)),
     DecodeCase("sampled_tp4", {"tp": 4},
                {"kind": "sampled", "new": 6}, prompt=((2, 8), 11)),
+    DecodeCase("moe_tp2", {"tp": 2, "dp": 2},
+               {"kind": "greedy", "new": 6, "num_experts": 4},
+               prompt=((2, 8), 12)),
+    DecodeCase("moe_ep2_tp2", {"ep": 2, "tp": 2},
+               {"kind": "greedy", "new": 6, "num_experts": 4},
+               prompt=((2, 8), 12)),
 ]
 MESH_ENV = TDIST.Case("mesh_env", 4, {"tp": -1}, model="mesh_env",
                       kw={"dcn": {"dp": 2}})
@@ -189,7 +201,8 @@ def _unsharded_params(case):
 
 
 @pytest.mark.parametrize("name", ["greedy_tp2_dp2", "greedy_tp4", "gqa_tp4",
-                                  "int8_fsdp2_tp2", "sampled_tp4"])
+                                  "int8_fsdp2_tp2", "sampled_tp4",
+                                  "moe_tp2", "moe_ep2_tp2"])
 def test_generate_matches_jax_sharded_and_unsharded(name, decode_group):
     case = _case(name)
     outs = _outs(decode_group, name)
@@ -338,7 +351,7 @@ def test_a_tp_the_heads_do_not_divide_is_refused():
 
 @pytest.mark.parametrize("mesh,match", [
     ({"tp": 2, "cp": 2}, "cp"), ({"pp": 2, "tp": 2}, "pp"),
-    ({"ep": 2, "tp": 2}, "ep")])
+    ({"ep": 2, "cp": 2}, "cp")])
 def test_unported_axes_are_refused(mesh, match):
     _, tcfg, _, tp_params = _tiny()
     prompt = torch.zeros((1, 4), dtype=torch.long)
@@ -347,11 +360,24 @@ def test_unported_axes_are_refused(mesh, match):
 
 
 def test_moe_under_tp_is_refused():
-    tcfg = TT.PRESETS["tiny"].scaled(dtype=torch.float32, num_experts=4)
-    params = TT.init_params(torch.Generator().manual_seed(0), tcfg,
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="experts"):
-        TD.shard_params(params, tcfg, {"tp": 2})
+    """MoE decoding under tp and ep is ported (its name is from when it
+    was refused): emulated on ``{"tp": 2}``, ``{"ep": 2, "tp": 2}`` and
+    ``{"ep": 4}``, greedy ``generate`` gives the unsharded tokens, and
+    its logprobs within 1e-5; experts that do not split over ep are
+    refused."""
+    _, tcfg, _, params = _tiny(num_experts=4)
+    prompt = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 1024, size=(2, 8)))
+    want = TD.generate(params, prompt, tcfg, 6)
+    for mesh in ({"tp": 2}, {"ep": 2, "tp": 2}, {"ep": 4}):
+        sp = TD.shard_params(params, tcfg, mesh)
+        assert sp.experts.size == mesh.get("ep", 1)
+        got = TD.generate(sp, prompt, tcfg, 6)
+        assert torch.equal(got.tokens, want.tokens), mesh
+        torch.testing.assert_close(got.logprobs, want.logprobs, rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="ep=4"):
+        TD.shard_params(params, tcfg.scaled(num_experts=6), {"ep": 4})
 
 
 def test_speculative_decoding_takes_sharded_params():

@@ -75,6 +75,20 @@ over the ranks) and ``bn/stats/…``.
 A case with ``dcn`` axes builds its mesh with them
 (``runtime.mesh(axes, dcn_axes=dcn)``, a hybrid mesh).
 
+An ``lm`` or ``bert`` case with ``emu`` also runs its first batch, from
+the initial params, through the mesh and through the dict of its sizes
+(every cp rank emulated in this process, the form one card runs) and
+writes the logits, the loss and every gradient of both, gathered to
+full arrays, under ``mesh/`` and ``emu/`` (:func:`mesh_and_emulation`).
+
+A ``moe`` case holds a global MoE input ``x`` ``[B, S, D]``, its
+``router``, ``w_in`` and ``w_out`` and an output cotangent ``cot``
+(``kw``: ``top_k``, ``capacity_factor``): each rank runs ``moe_ffn`` on
+its chunk of the sequence over the mesh's cp group and writes its
+output, the aux loss and dropped fraction, and the gradients of
+``sum(out · cot) + aux`` for its chunk of ``x`` and (its partial sum)
+for the weights.
+
 ``ckpt`` is ``save`` (a sharded checkpoint every 2 steps under
 ``OUT_DIR/<name>``) or ``resume`` (``restore_or_init`` from that
 directory's latest step at attempt 1, then on to ``steps``); a resume
@@ -116,6 +130,7 @@ from tony_tpu_torch.ops import prng  # noqa: E402
 from tony_tpu_torch.parallel import constrain, mesh_shape  # noqa: E402
 from tony_tpu_torch.parallel.sharding import shard_pytree  # noqa: E402
 from tony_tpu_torch.parallel import pipeline as PL  # noqa: E402
+from tony_tpu_torch.parallel.moe import moe_ffn  # noqa: E402
 from tony_tpu_torch.parallel import ring_attention as R  # noqa: E402
 from tony_tpu_torch.parallel import spmd  # noqa: E402
 from tony_tpu_torch.parallel import ulysses as U  # noqa: E402
@@ -478,10 +493,68 @@ def run_resnet(case: dict, data) -> dict:
     return out
 
 
+def mesh_and_emulation(case: dict, cfg, params, weights, batches: dict,
+                       names: tuple, mesh) -> dict:
+    """The first batch's logits, loss and gradients through ``mesh``
+    (``params`` its DTensors) and through the dict of its sizes (the
+    global ``weights``), as full arrays under ``mesh/`` and ``emu/``."""
+    glob = {n: torch.from_numpy(batches[n][0]).long() for n in names}
+    sizes = mesh_shape(mesh)
+    bert = case["model"] == "bert"
+    one_f_one_b = (case["kw"].get("pp_schedule") == "1f1b"
+                   and sizes.get("pp", 1) > 1)
+    out = {}
+    for tag, p, m in (("mesh", params, mesh),
+                      ("emu", params_from_numpy(weights, device="cpu"),
+                       sizes)):
+        with torch.no_grad():
+            logits = (B.forward(p, glob["tokens"], cfg, mesh=m) if bert
+                      else T.forward(p, glob["inputs"], cfg, m)[0])
+        if one_f_one_b:
+            loss, grads = T.lm_value_and_grad(p, glob, cfg, m)
+        else:
+            fn = B.mlm_loss if bert else T.lm_loss
+            loss, grads = TR.value_and_grad(
+                lambda q, b: fn(q, b, cfg, m), p, glob)
+        full = (lambda t: t.full_tensor() if hasattr(t, "placements")
+                else t)
+        out[f"{tag}/logits"] = full(logits).numpy()
+        out[f"{tag}/loss"] = loss.numpy()
+        out.update({f"{tag}/grad/{k}": full(g).numpy()
+                    for k, g in _flat(grads, "").items()})
+    return out
+
+
+def run_moe(case: dict, data) -> dict:
+    name, kw = case["name"], case["kw"]
+    lay = spmd.Layout(rt.mesh(case["axes"], device="cpu"))
+    x, router, w_in, w_out, cot = (
+        torch.from_numpy(data[f"{name}/{n}"])
+        for n in ("x", "router", "w_in", "w_out", "cot"))
+    leaves = [lay.local(x).clone()] + [t.clone() for t in
+                                       (router, w_in, w_out)]
+    for t in leaves:
+        t.requires_grad_(True)
+    out, metrics = moe_ffn(leaves[0], leaves[1], leaves[2], leaves[3],
+                           top_k=kw["top_k"],
+                           capacity_factor=kw["capacity_factor"],
+                           activation=torch.nn.functional.silu, lay=lay)
+    grads = torch.autograd.grad((out * lay.local(cot)).sum()
+                                + metrics.aux_loss, leaves)
+    res = {"out": out.detach().numpy(),
+           "aux": metrics.aux_loss.detach().numpy(),
+           "dropped": metrics.dropped_fraction.numpy()}
+    res.update({f"d{n}": g.numpy() for n, g in
+                zip(("x", "router", "w_in", "w_out"), grads)})
+    return res
+
+
 def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     name = case["name"]
     if case["model"] == "attn":
         return run_attention(case, data)
+    if case["model"] == "moe":
+        return run_moe(case, data)
     if case["model"] == "pipe":
         return run_pipe(case, data)
     if case["model"] == "decode":
@@ -506,6 +579,9 @@ def run_case(case: dict, data, opt_kw: dict, out_dir: str) -> dict:
     state = TR.init_state(params_from_numpy(weights, device="cpu"), opt,
                           mesh, axes)
     out = _flat(params_to_numpy(state["params"]), "init/")
+    if case.get("emu"):
+        out.update(mesh_and_emulation(case, cfg, state["params"], weights,
+                                      batches, names, mesh))
     if case["kw"].get("pp_schedule") == "1f1b" and \
             mesh_shape(mesh).get("pp", 1) > 1:
         step = TR.make_train_step(

@@ -24,7 +24,25 @@ each rank runs its local shard, as the LM does
 heads and the MLP hidden over tp, the tied head and the MLM bias split
 by vocab, the loss combined across the vocab split without gathering
 the logits. BERT has no experts: on an ep axis every leaf and activation
-replicates. cp and pp raise ``NotImplementedError``.
+replicates.
+
+As in the reference, where the compiler splits the activations'
+``"seq"`` and the blocks carry ``"stage"`` but no pipeline schedule
+runs, cp and pp leave the function the unsharded forward:
+
+- under cp a rank holds its chunk of the sequence, its position
+  embeddings those of the chunk's global positions, and the blocks
+  attend non-causally across the chunks by the ring
+  (:func:`~tony_tpu_torch.parallel.ulysses.context_attention`); the MLM
+  loss is the global masked mean;
+- under pp the stacked blocks stay split over pp as parameters, and
+  every rank gathers them and runs every layer on its rows; their
+  gradients come back whole on every pp rank (replicated, not
+  partial), each keeping its stage's shard.
+
+A dict of sizes emulates its cp ranks in this process on the global
+tensors (:class:`~tony_tpu_torch.parallel.spmd.EmulatedCp`); its other
+axes, pp among them, leave the function unsharded.
 """
 
 from __future__ import annotations
@@ -40,8 +58,8 @@ from tony_tpu_torch.models.train import masked_cross_entropy
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.norms import layer_norm
 from tony_tpu_torch.parallel import spmd
-from tony_tpu_torch.parallel.mesh import mesh_shape
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
+from tony_tpu_torch.parallel.ulysses import context_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,12 +178,16 @@ def _gelu(x):
 def _block(x, p, lay=None):
     """One post-LN encoder block on ``[B, S, D]`` (this rank's heads and
     MLP slice under tp; the row-parallel outputs sum over the ranks
-    before their bias)."""
+    before their bias; under cp this rank's chunk, attending every
+    chunk by the ring)."""
     h = spmd.copy_to_model(x, lay)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-    o = flash_attention(q, k, v, causal=False)
+    if lay is not None and lay.cp_size > 1:
+        o = context_attention(q, k, v, lay, causal=False)
+    else:
+        o = flash_attention(q, k, v, causal=False)
     attn = spmd.reduce_from_model(torch.einsum("bshk,hkd->bsd", o, p["wo"]),
                                   lay)
     x = layer_norm(x + attn, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
@@ -181,8 +203,9 @@ def _forward_local(params: dict, tokens: torch.Tensor, cfg: BertConfig,
     """The forward on this rank's params and batch (the whole tree and
     batch without a mesh) → this rank's f32 logits."""
     s = tokens.shape[1]
+    off = lay.cp_rank * s if lay is not None else 0
     x = spmd.embed_lookup(params["tok_embed"], tokens, lay, cfg.vocab_size)
-    x = x + params["pos_embed"][None, :s]
+    x = x + params["pos_embed"][None, off:off + s]
     if type_ids is not None:
         x = x + params["type_embed"][type_ids.long()]
     x = layer_norm(x, params["embed_ln"]["scale"],
@@ -199,20 +222,18 @@ def _forward_local(params: dict, tokens: torch.Tensor, cfg: BertConfig,
 
 
 def _local_inputs(params, batch: dict, mesh, rules):
-    """(local params, local batch, layout) of a sharded step. A live cp
-    or pp axis raises ``NotImplementedError``: BERT's attention is not
-    context-parallel in the port, nor its encoder pipelined (its cp and
-    pp meshes are the LM's)."""
-    if spmd.seq_parallel_size(mesh, rules) > 1:
-        raise NotImplementedError("BERT has no context parallelism (cp > "
-                                  "1) in the port")
-    if mesh_shape(mesh).get("pp", 1) > 1:
-        raise NotImplementedError("BERT has no pipeline parallelism (pp > "
-                                  "1) in the port")
-    lay = spmd.Layout(mesh, rules)
+    """(local params, local batch, layout) of a sharded step: the blocks
+    gathered over pp (not a pipeline), the batch cut to this rank's rows
+    and, under cp, its chunk of the sequence."""
+    lay = spmd.Layout(mesh, rules, pipelined=False)
     local = {k: (lay.local(v) if v is not None else None)
              for k, v in batch.items()}
     return lay.local_params(params), local, lay
+
+
+def _emulated_layout(mesh: dict, rules):
+    cp = spmd.seq_parallel_size(mesh, rules)
+    return spmd.EmulatedCp(cp) if cp > 1 else None
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
@@ -222,9 +243,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
     Differentiable in the params; callers that only infer wrap it in
     ``torch.no_grad()``. With a ``mesh`` the params are DTensors laid
     out by :func:`logical_axes`, the inputs the global batch, and the
-    logits a DTensor split by ``("batch", "seq", "vocab")``."""
-    if mesh is None:
-        return _forward_local(params, tokens, cfg, type_ids)
+    logits a DTensor split by ``("batch", "seq", "vocab")``; a dict of
+    sizes emulates its cp ranks on global params and returns global
+    logits."""
+    if mesh is None or isinstance(mesh, dict):
+        lay = None if mesh is None else _emulated_layout(mesh, rules)
+        return _forward_local(params, tokens, cfg, type_ids, lay)
     params, b, lay = _local_inputs(
         params, {"tokens": tokens, "type_ids": type_ids}, mesh, rules)
     logits = _forward_local(params, b["tokens"], cfg, b["type_ids"], lay)
@@ -235,10 +259,12 @@ def mlm_loss(params: dict, batch: dict, cfg: BertConfig, mesh=None,
              rules=DEFAULT_RULES) -> torch.Tensor:
     """batch: ``{"tokens" [B, S], "targets" [B, S]}`` (-1 = unmasked,
     ignored), optional ``"type_ids"``. With a ``mesh``, the mean over the
-    global batch, the same plain 0-d tensor on every rank."""
-    if mesh is None:
+    global batch, the same plain 0-d tensor on every rank (a dict of
+    sizes: its cp ranks emulated, as :func:`forward`)."""
+    if mesh is None or isinstance(mesh, dict):
+        lay = None if mesh is None else _emulated_layout(mesh, rules)
         logits = _forward_local(params, batch["tokens"], cfg,
-                                batch.get("type_ids"))
+                                batch.get("type_ids"), lay)
         return masked_cross_entropy(logits, batch["targets"])
     params, b, lay = _local_inputs(params, batch, mesh, rules)
     logits = _forward_local(params, b["tokens"], cfg, b.get("type_ids"),

@@ -42,8 +42,9 @@ MoE configs decode through the same paths: the block's MLP is the
 training block's mixture of experts (:func:`_mlp`), whose capacity
 follows each call's own sequence length.
 
-Tensor parallelism: ``generate``, ``prefill``, ``prefill_rows``,
-``extend_step``, ``decode_step`` and ``beam_search`` take ``mesh=``, as
+Tensor and expert parallelism: ``generate``, ``prefill``,
+``prefill_rows``, ``extend_step``, ``decode_step`` and ``beam_search``
+take ``mesh=``, as
 ``transformer.forward`` does — a ``DeviceMesh`` with the DTensor params
 of ``shard_pytree`` (quantized after sharding for int8 weights), or a
 dict of sizes that emulates every tp rank in this process (the form one
@@ -53,9 +54,12 @@ them and its kv heads), keeps its kv heads' cache, sums the
 row-parallel products (``wo``, ``w_down``) over the ranks, looks the
 embedding up vocab-parallel and gathers the vocab-split logits before
 any argmax, filter or sample, so every rank commits the same tokens.
-Every other entry point built on those (speculative decoding) takes a
-:class:`ShardedParams` the same way; the serving batcher takes no mesh,
-as in the JAX package.
+An MoE model routes alike on every rank (the router replicates); a rank
+runs its tp slice of its experts' hidden (its ep shard of the experts,
+every expert without ep), and the block's output sums over ep, then tp,
+as the training block's does. Every other entry point built on those
+(speculative decoding) takes a :class:`ShardedParams` the same way; the
+serving batcher takes no mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from tony_tpu_torch.ops import prng
 from tony_tpu_torch.ops.attention import tp_kv_heads
 from tony_tpu_torch.ops.norms import rms_norm
 from tony_tpu_torch.parallel import spmd
+from tony_tpu_torch.parallel.moe import moe_ffn
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, logical_to_spec
 
 #: Token positions (the sequence axis) strictly above which a quantized
@@ -128,6 +133,8 @@ class ShardedParams(NamedTuple):
     of ``params``."""
     shards: list                 # one param tree per rank in ``ranks``
     ranks: spmd.ModelRanks
+    #: the expert axis's ranks each tree runs (an MoE block's experts)
+    experts: spmd.ModelRanks = spmd.SOLO
 
 
 def shard_params(params: dict, cfg: T.TransformerConfig, mesh,
@@ -147,18 +154,21 @@ def shard_params(params: dict, cfg: T.TransformerConfig, mesh,
     The data axes replicate: every rank decodes the whole batch. Under
     GQA the K/V projections replicate over tp (:func:`T.logical_axes`);
     each rank keeps the kv heads its query heads read
-    (:func:`~tony_tpu_torch.ops.attention.tp_kv_heads`). cp, pp and ep
-    axes, and MoE under tp, raise ``NotImplementedError``."""
-    for logical, what in ((("batch", "seq"), "cp"), (("stage",), "pp"),
-                          (("batch", "expert"), "ep")):
+    (:func:`~tony_tpu_torch.ops.attention.tp_kv_heads`). An MoE model's
+    experts split over ep (``"expert"``): a ``DeviceMesh`` rank keeps its
+    experts and sums the block's output over its ep group; a dict of
+    sizes keeps every expert in each tree and runs each ep rank's in
+    turn. cp and pp axes raise ``NotImplementedError``."""
+    for logical, what in ((("batch", "seq"), "cp"), (("stage",), "pp")):
         entry = logical_to_spec(logical, mesh, rules)[-1]
         if entry is not None:
             raise NotImplementedError(
                 f"decoding on a mesh with a live {what} axis ({entry}) is "
-                f"not ported: decode runs over tp and the data axes")
+                f"not ported: decode runs over tp, ep and the data axes")
     axes = quantized_axes(params, T.logical_axes(cfg))
     if isinstance(mesh, dict):
         ranks, shards = spmd.emulated_shards(params, axes, mesh, rules)
+        experts = spmd.emulated_expert_ranks(mesh, rules)
     else:
         from torch.distributed.tensor import DTensor
         if not isinstance(params["embed"], DTensor):
@@ -167,11 +177,13 @@ def shard_params(params: dict, cfg: T.TransformerConfig, mesh,
                              "of sizes emulates the mesh on global params")
         lay = spmd.Layout(mesh, rules)
         ranks, shards = lay.model_ranks(), [lay.local_params(params)]
-    if ranks.size > 1 and cfg.num_experts:
-        raise NotImplementedError("mixture-of-experts decoding under "
-                                  "tensor parallelism is not ported")
+        experts = lay.expert_ranks()
+    if cfg.num_experts and cfg.num_experts % experts.size:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible "
+                         f"over ep={experts.size}")
     return ShardedParams([_rank_kv(p, cfg, r, ranks.size)
-                          for r, p in zip(ranks.ranks, shards)], ranks)
+                          for r, p in zip(ranks.ranks, shards)], ranks,
+                         experts)
 
 
 def _rank_kv(p: dict, cfg: T.TransformerConfig, rank: int,
@@ -557,9 +569,12 @@ def _project_qkv(x, p, rope):
     return T.apply_rope(q, cos, sin), T.apply_rope(k, cos, sin), v
 
 
-def _mlp(h, p, cfg: T.TransformerConfig):
+def _mlp(h, p, cfg: T.TransformerConfig, experts=spmd.SOLO):
     """Dense SwiGLU (through :func:`_weinsum`) or MoE feed-forward on
-    ``[B, S, D]`` — the training block's params.
+    ``[B, S, D]`` — the training block's params. An MoE block runs the
+    experts of each rank of ``experts`` (``p`` holds those of the one
+    rank it runs, or every expert when it runs them all) and sums their
+    outputs over the expert axis.
 
     MoE caveat: routing capacity scales with the LOCAL sequence length,
     so single-position decode (S=1, capacity >= top_k) never drops
@@ -568,23 +583,37 @@ def _mlp(h, p, cfg: T.TransformerConfig):
     overflow tokens. This is the standard gshard trade; raise the
     capacity factor if you need exact equivalence."""
     if "router" in p:
-        return T._moe(h, p, cfg)[0]
+        if experts.size == 1:
+            return T._moe(h, p, cfg)[0]
+        e_loc = p["router"].shape[-1] // experts.size
+        parts = []
+        for r in experts.ranks:
+            w_in, w_out = p["w_gate"], p["w_down"]
+            if w_in.shape[0] != e_loc:       # every expert: rank r's
+                w_in, w_out = (w.narrow(0, r * e_loc, e_loc)
+                               for w in (w_in, w_out))
+            parts.append(moe_ffn(h, p["router"], w_in, w_out,
+                                 top_k=cfg.moe_top_k,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 activation=F.silu, expert_rank=r)[0])
+        return experts.sum(parts)
     gate = _weinsum("bsd,df->bsf", h, p["w_gate"])
     up = _weinsum("bsd,df->bsf", h, p["w_up"])
     return _weinsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"])
 
 
 def _finish_block(x, os, ps, cfg: T.TransformerConfig,
-                  ranks: spmd.ModelRanks):
+                  ranks: spmd.ModelRanks, experts=spmd.SOLO):
     """The output projection and residual, then RMSNorm, the MLP and its
     residual — the training block's, through :func:`_weinsum`. ``os`` and
     ``ps`` are each rank's attention output and layer params: the
     row-parallel products (``wo``, ``w_down``) give each rank a part of
-    the residual update, summed over the ranks."""
+    the residual update, summed over the ranks (an MoE block's over
+    ``experts`` first)."""
     x = x + ranks.sum([_weinsum("bshk,hkd->bsd", o, p["wo"])
                        for o, p in zip(os, ps)])
-    return x + ranks.sum([_mlp(rms_norm(x, p["mlp_norm"]), p, cfg)
-                          for p in ps])
+    return x + ranks.sum([_mlp(rms_norm(x, p["mlp_norm"]), p, cfg,
+                               experts) for p in ps])
 
 
 def _layer_params(params: dict, li: int) -> dict:
@@ -602,7 +631,7 @@ def _lm_head(x, w, cfg: T.TransformerConfig):
 
 
 def _decode_block(x, ps, bufs, li, pos, cfg, rope, q_range, window,
-                  ranks: spmd.ModelRanks):
+                  ranks: spmd.ModelRanks, experts=spmd.SOLO):
     """Chunked decoder block. x: ``[B, K, D]`` at positions pos..pos+K-1;
     on each rank (its layer params in ``ps``, its kv heads of ``bufs``)
     writes the chunk's K/V into the stacked cache in place (modulo the
@@ -627,7 +656,7 @@ def _decode_block(x, ps, bufs, li, pos, cfg, rope, q_range, window,
                 _write_kv_chunk(rb[n], c, li, pos, fits, window)
             os.append(_cached_attention(q, rb, li, pos,
                                         cfg.attn_window or None, q_range))
-    return _finish_block(x, os, ps, cfg, ranks)
+    return _finish_block(x, os, ps, cfg, ranks, experts)
 
 
 def _blocks_forward(params, tokens, cache: dict, pos,
@@ -656,7 +685,7 @@ def _blocks_forward(params, tokens, cache: dict, pos,
     for li in range(cfg.n_layers):
         x = _decode_block(x, [_layer_params(p, li) for p in sp.shards],
                           bufs, li, pos, cfg, rope, q_range, window,
-                          sp.ranks)
+                          sp.ranks, sp.experts)
     return x, dict(bufs, length=pos + n_q)
 
 
@@ -740,7 +769,7 @@ def _prompt_forward(sp: ShardedParams, tokens, cfg, bufs):
             else:
                 for name, c in _kv_writes(rb, k, v).items():
                     _write_kv_chunk(rb[name], c, li, 0)
-        x = _finish_block(x, os, ps, cfg, sp.ranks)
+        x = _finish_block(x, os, ps, cfg, sp.ranks, sp.experts)
     return x, bufs
 
 

@@ -37,10 +37,15 @@ With a live ``cp`` axis (``"seq"`` → cp) each rank holds its chunk of
 the sequence: RoPE takes the chunk's global positions, attention is the
 ring (:func:`~tony_tpu_torch.parallel.ring_attention.ring_attention_local`)
 or Ulysses (:func:`~tony_tpu_torch.parallel.ulysses.ulysses_attention_local`)
-by ``cfg.cp_strategy``, and the loss sums over data and cp ranks. As in
-the JAX package, a sliding window (``attn_window``) and cp raise
-``NotImplementedError``; so do MoE and cp here (the reference routes over
-the global sequence, and capacity follows its length).
+by ``cfg.cp_strategy``, MoE routes over the global sequence (capacity
+of its length, each rank's slots after the lower ranks'), and the loss
+sums over data and cp ranks. As in the JAX package, a sliding window
+(``attn_window``) and cp raise ``NotImplementedError``. A dict of sizes
+with a live cp axis (``{"cp": 4}``) emulates every cp rank in this
+process (:class:`~tony_tpu_torch.parallel.spmd.EmulatedCp`): the global
+tensors through the position-wise layers, the emulated ring or Ulysses
+over their chunks, MoE routing chunk by chunk; its other axes leave the
+function unsharded.
 
 With ``cfg.num_experts`` the MLP is a mixture of experts
 (:func:`~tony_tpu_torch.parallel.moe.moe_ffn`, silu experts with no
@@ -60,8 +65,10 @@ loss head vocab-sharded over tp when tp is live. Both take the
 microbatch count of :func:`_pp_layout`. A ``mesh`` given as a dict of
 axis sizes (``{"pp": 2}``) emulates every rank of it in this process,
 the form one card runs; a ``DeviceMesh`` runs this rank's stage in its
-pp group. pp with cp raises ``NotImplementedError``; so does 1F1B with
-a live ep axis, as in the reference.
+pp group. Under pp a cp axis replicates, as in the reference (whose
+stage body runs unsharded in cp): every cp rank runs whole sequences,
+and a dict mesh's cp is not emulated. 1F1B with a live ep axis raises
+``NotImplementedError``, as in the reference.
 """
 
 from __future__ import annotations
@@ -87,10 +94,9 @@ from tony_tpu_torch.parallel.pipeline import (pipeline_apply,
                                               pipeline_apply_local,
                                               pipeline_value_and_grad,
                                               pipeline_value_and_grad_local)
-from tony_tpu_torch.parallel.ring_attention import (expand_kv_unless,
-                                                    ring_attention_local)
+from tony_tpu_torch.parallel.ring_attention import expand_kv_unless
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES
-from tony_tpu_torch.parallel.ulysses import ulysses_attention_local
+from tony_tpu_torch.parallel.ulysses import context_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,23 +318,21 @@ def _attention(q, k, v, cp_strategy: str = "ring",
                stash: ForwardStash | None = None):
     """Causal GQA attention, differentiable: the CUDA flash kernels for
     CUDA tensors, their plain versions for CPU tensors. Under a layout
-    with a live cp axis, q/k/v are this rank's sequence chunk and the
-    ranks attend together by ``cp_strategy``: the ring rides GQA K/V
-    unexpanded (they are already this rank's kv heads), Ulysses expands
-    them when they do not split over cp (the JAX package's rule applied
-    to the local heads)."""
+    with a live cp axis, q/k/v are this rank's sequence chunk (every
+    rank's, the global tensors, under an emulation) and the ranks attend
+    together by ``cp_strategy``
+    (:func:`~tony_tpu_torch.parallel.ulysses.context_attention`): the
+    ring rides GQA K/V unexpanded (they are already this rank's kv
+    heads), Ulysses expands them when they do not split over cp (the JAX
+    package's rule applied to the local heads)."""
     if cp_strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown cp_strategy {cp_strategy!r}; "
                          f"expected 'ring' or 'ulysses'")
     if lay is not None and lay.cp_size > 1:
         if window is not None:
             raise NotImplementedError(_CP_WINDOW)
-        if cp_strategy == "ulysses":
-            k, v = expand_kv_unless(k, v, q.shape[2], lay.cp_size)
-            return ulysses_attention_local(q, k, v, lay.cp_group,
-                                           causal=True, stash=stash)
-        return ring_attention_local(q, k, v, lay.cp_group, causal=True,
-                                    stash=stash)
+        return context_attention(q, k, v, lay, strategy=cp_strategy,
+                                 causal=True, stash=stash)
     return flash_attention(q, k, v, causal=True, window=window, stash=stash)
 
 
@@ -551,10 +555,6 @@ def _pipelined(mesh) -> bool:
 
 
 def _check_pp(cfg: TransformerConfig, shape: dict) -> None:
-    if shape.get("cp", 1) > 1:
-        raise NotImplementedError(
-            "pipeline parallelism with context parallelism (pp > 1 and "
-            "cp > 1) is not ported")
     ep = shape.get("ep", 1)
     if cfg.num_experts and cfg.num_experts % ep:
         raise ValueError(f"num_experts={cfg.num_experts} not divisible "
@@ -607,27 +607,37 @@ def _local_step_inputs(params: dict, tokens, cfg: TransformerConfig,
     """(local params, local tokens, layout) of a sharded step: the
     params gathered over the data axes (GQA's replicated K/V projections
     marked partial over tp), the batch cut to this rank (its rows, and
-    its chunk of the sequence under cp). An MoE config whose experts do
-    not split evenly over ep raises ``ValueError``; a window or MoE with
-    a live cp axis ``NotImplementedError``."""
-    ep = mesh_shape(mesh).get("ep", 1)
-    if cfg.num_experts and cfg.num_experts % ep:
-        raise ValueError(f"num_experts={cfg.num_experts} not divisible "
-                         f"over ep={ep}")
-    if spmd.seq_parallel_size(mesh, rules) > 1:
-        if cfg.attn_window:
-            raise NotImplementedError(_CP_WINDOW)
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "mixture of experts with context parallelism (cp > 1) is "
-                "not ported: the reference routes over the global "
-                "sequence, and capacity follows its length")
-    if _pipelined(mesh):
-        _check_pp(cfg, mesh_shape(mesh))
+    its chunk of the sequence under cp without pp). An MoE config whose
+    experts do not split evenly over ep raises ``ValueError``; a window
+    with a live cp axis (and no pp) ``NotImplementedError``."""
+    _check_mesh(cfg, mesh, rules)
     lay = spmd.Layout(mesh, rules)
     partial = (frozenset({("blocks", "wk"), ("blocks", "wv")})
                if cfg.kv_heads != cfg.n_heads else frozenset())
     return lay.local_params(params, partial), lay.local(tokens), lay
+
+
+def _check_mesh(cfg: TransformerConfig, mesh, rules) -> None:
+    """The refusals of a mesh, the reference's: experts that do not
+    split evenly over ep (``ValueError``), a window with a live cp axis
+    outside a pipeline (``NotImplementedError``)."""
+    ep = mesh_shape(mesh).get("ep", 1)
+    if cfg.num_experts and cfg.num_experts % ep:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible "
+                         f"over ep={ep}")
+    if _pipelined(mesh):
+        _check_pp(cfg, mesh_shape(mesh))
+    elif cfg.attn_window and spmd.seq_parallel_size(mesh, rules) > 1:
+        raise NotImplementedError(_CP_WINDOW)
+
+
+def _emulated_layout(cfg: TransformerConfig, mesh: dict, rules):
+    """The layout a dict of sizes without pp runs under: its cp ranks
+    emulated (:class:`~tony_tpu_torch.parallel.spmd.EmulatedCp`), or
+    None (the unsharded function) without a live cp axis."""
+    _check_mesh(cfg, mesh, rules)
+    cp = spmd.seq_parallel_size(mesh, rules)
+    return spmd.EmulatedCp(cp) if cp > 1 else None
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -642,9 +652,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     a tensor every rank passes whole) and the logits come back as a
     DTensor split by ``("batch", "seq", "vocab")``. A live pp axis runs
     the blocks as GPipe stages (:func:`_forward_pp`); a dict mesh with
-    one emulates its ranks and returns plain global logits."""
+    one emulates its ranks and returns plain global logits, as does one
+    with a live cp axis (:func:`_emulated_layout`)."""
     if mesh is None:
         return _forward_local(params, tokens, cfg)
+    if isinstance(mesh, dict) and not _pipelined(mesh):
+        return _forward_local(params, tokens, cfg,
+                              _emulated_layout(cfg, mesh, rules))
     if _pipelined(mesh):
         logits, aux, lay = _forward_pp(params, tokens, cfg, mesh, rules)
         if lay is None:
@@ -692,8 +706,9 @@ def lm_loss(params: dict, batch: dict, cfg: TransformerConfig,
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    if mesh is None:
-        logits, aux = _forward_local(params, inputs, cfg)
+    if mesh is None or (isinstance(mesh, dict) and not _pipelined(mesh)):
+        lay = None if mesh is None else _emulated_layout(cfg, mesh, rules)
+        logits, aux = _forward_local(params, inputs, cfg, lay)
         return masked_cross_entropy(logits, targets) \
             + cfg.moe_aux_weight * aux
     if _pipelined(mesh):
@@ -763,7 +778,7 @@ def lm_value_and_grad(params: dict, batch: dict, cfg: TransformerConfig,
     if not _pipelined(mesh):
         with torch.enable_grad():
             loss = lm_loss(P, {"inputs": inputs, "targets": targets}, cfg,
-                           None if isinstance(mesh, dict) else mesh, rules)
+                           mesh, rules)
             grads = torch.autograd.grad(loss, fresh, allow_unused=True)
         return loss.detach(), _grads_like(params, fresh, grads)
     _check_pp(cfg, shape)

@@ -35,10 +35,13 @@ own, and a rank holds its data rows' chunk of the sequence
 (i+1)·S/cp)``). Every layer but attention is position-wise, so it runs on
 the chunk as it is; attention exchanges K/V around the cp ring
 (:mod:`~tony_tpu_torch.parallel.ring_attention`) or re-shards heads by
-all-to-all (:mod:`~tony_tpu_torch.parallel.ulysses`). Parameters
-replicate over cp, and each rank's gradient is the partial sum over its
-chunk, summed over cp as over the data axes; the loss sums over the data
-and cp ranks.
+all-to-all (:mod:`~tony_tpu_torch.parallel.ulysses`), and MoE routing
+takes its capacity slots after the lower ranks'
+(:func:`~tony_tpu_torch.parallel.moe.moe_ffn`). Parameters replicate
+over cp, and each rank's gradient is the partial sum over its chunk,
+summed over cp as over the data axes; the loss sums over the data and cp
+ranks. A dict of sizes with a live cp axis runs every cp rank in one
+process on the global tensors (:class:`EmulatedCp`).
 
 Pipeline parallelism (``pp``): ``"stage"`` resolves to a mesh axis of
 its own, and a rank keeps its pp shard of the stacked ``[L, ...]``
@@ -48,14 +51,22 @@ microbatches, as the reference's ``shard_map`` body does; experts stay
 split over ep). Embed, the final norm and the lm_head replicate over pp.
 The schedules are :mod:`~tony_tpu_torch.parallel.pipeline`'s;
 :meth:`Layout.stage_layout` is the layout a stage's blocks run under.
+Under pp the sequence is not cut: the reference's stage body runs
+unsharded in cp, so every cp rank runs whole sequences and cp
+replicates (its gradients whole, not partial; the loss not summed over
+it). A model that is not pipelined (BERT, ``Layout(...,
+pipelined=False)``) gathers its stacked blocks over pp instead, every pp
+rank running every layer, their gradients replicated over pp.
 :class:`_SumOver` is the reference's ``psum_rep`` (all-reduce forward,
 identity backward).
 
 Inference (tensor-parallel decoding, ``models/decode.py``) runs outside
 autograd on the same shards: the data axes replicate (every rank decodes
-the whole batch), a rank runs its query heads, kv heads, MLP hidden and
-vocab slice, and :class:`ModelRanks` gives the plain sum after a
-row-parallel product and the gather of vocab-split logits. One rank body
+the whole batch), a rank runs its query heads, kv heads, MLP hidden (an
+MoE model's: its experts' slice of it, its experts under ep) and vocab
+slice, and :class:`ModelRanks` gives the plain sum after a row-parallel
+product (over ep, then tp, for an MoE block) and the gather of
+vocab-split logits. One rank body
 serves a ``DeviceMesh`` (this rank, collectives in its tp group) and a
 dict of sizes (every rank in turn in this process,
 :func:`emulated_shards`), adding the ranks' parts in rank order in both,
@@ -143,9 +154,14 @@ class Layout:
       group is None without a live axis;
     - ``pp_axis`` / ``pp_rank`` / ``pp_size`` / ``pp_group``: the same
       for the parameters' ``"stage"`` (the stacked blocks over pp).
+
+    With a live pp axis the cp fields are those of no axis (a pipeline
+    stage runs whole sequences); with ``pipelined=False`` the pp fields
+    are (the blocks gathered over pp, as any replicated leaf).
     """
 
-    def __init__(self, mesh, rules: Rules = DEFAULT_RULES):
+    def __init__(self, mesh, rules: Rules = DEFAULT_RULES,
+                 pipelined: bool = True):
         shape = mesh_shape(mesh)
         self.mesh, self.rules = mesh, rules
         self.data_axes = spec_axes(logical_to_spec(("batch",), mesh,
@@ -201,6 +217,7 @@ class Layout:
                               if self.model_axis else [])
         self.expert_rank = (self._coord[self.expert_axis]
                             if self.expert_axis else 0)
+        self.expert_size = shape[self.expert_axis] if self.expert_axis else 1
         #: the groups an MoE block's partial outputs sum over: ep, then tp
         self.expert_model_groups = (
             ([mesh.get_group(self.expert_axis)] if self.expert_axis
@@ -221,6 +238,13 @@ class Layout:
         self.pp_rank = self._coord[self.pp_axis] if self.pp_axis else 0
         self.pp_group = (mesh.get_group(self.pp_axis) if self.pp_axis
                          else None)
+        if self.pp_axis is not None and not pipelined:
+            self.pp_axis, self.pp_size, self.pp_rank, self.pp_group = (
+                None, 1, 0, None)
+        elif self.pp_axis is not None and self.cp_axis is not None:
+            self.cp_axis, self.cp_size, self.cp_rank, self.cp_group = (
+                None, 1, 0, None)
+            self._loss_groups = list(self._data_groups)
 
     def stage_layout(self):
         """The layout a pipeline stage's blocks run under: no model axis
@@ -298,9 +322,8 @@ class Layout:
         from torch.distributed.tensor import DTensor
         logical = ("batch", "seq")[:x.dim()]
         if isinstance(x, DTensor):
-            spec = logical_to_spec(logical, self.mesh, self.rules)
             return x.redistribute(self.mesh, spec_placements(
-                spec, self.mesh)).to_local()
+                self._spec(logical), self.mesh)).to_local()
         if x.shape[0] % self.data_size:
             raise ValueError(f"a batch of {x.shape[0]} rows does not split "
                              f"over {self.data_size} data ranks")
@@ -317,10 +340,19 @@ class Layout:
     def wrap(self, x: torch.Tensor, logical_axes):
         """A local activation as the global DTensor of its layout."""
         from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            x, self.mesh, spec_placements(self._spec(logical_axes),
+                                          self.mesh), run_check=False)
+
+    def _spec(self, logical_axes) -> tuple:
+        """The spec of an activation's logical axes on this layout: the
+        rule table's, with ``"seq"`` unsplit where cp is not live here
+        (under pp)."""
         spec = logical_to_spec(logical_axes, self.mesh, self.rules)
-        return DTensor.from_local(x, self.mesh,
-                                  spec_placements(spec, self.mesh),
-                                  run_check=False)
+        if self.cp_axis is None:
+            spec = tuple(None if name == "seq" else e
+                         for name, e in zip(logical_axes, spec))
+        return spec
 
     # -- collectives --------------------------------------------------
     def copy_to_model(self, x):
@@ -359,6 +391,40 @@ class Layout:
         return ModelRanks(self.model_size, (self.model_rank,),
                           self._model_groups[0] if self.model_size > 1
                           else None)
+
+    def expert_ranks(self) -> "ModelRanks":
+        """This rank of the expert axis, with its group: the same
+        collectives as :meth:`model_ranks` for the sum over ep of an MoE
+        block's partial outputs."""
+        return ModelRanks(self.expert_size, (self.expert_rank,),
+                          self.mesh.get_group(self.expert_axis)
+                          if self.expert_size > 1 else None)
+
+
+class EmulatedCp:
+    """The layout of a dict of sizes with a live cp axis: every cp rank
+    run in this process on the global tensors. The position-wise layers
+    run on them whole; attention cuts them into the ranks' chunks and
+    runs the emulated ring or Ulysses
+    (:func:`~tony_tpu_torch.parallel.ring_attention.ring_attention_emulated`,
+    :func:`~tony_tpu_torch.parallel.ulysses.ulysses_attention_emulated`);
+    MoE routes each chunk after the lower ranks' as a cp rank does
+    (:func:`~tony_tpu_torch.parallel.moe.moe_ffn`). No other axis is
+    emulated (the data, model and expert axes leave the function as it
+    is unsharded), so nothing is summed across ranks here: the global
+    tensors already hold every rank's part."""
+
+    model_size, cp_rank, cp_group = 1, 0, None
+
+    def __init__(self, cp_size: int):
+        self.cp_size = cp_size
+        self.expert_model_groups = []
+
+    def sum_data(self, x):
+        return x
+
+    def count_data(self, x):
+        return x
 
 
 def _is_record(x) -> bool:
@@ -455,6 +521,14 @@ def emulated_ranks(mesh, rules: Rules = DEFAULT_RULES) -> ModelRanks:
     """Every rank of the model axis of ``mesh``, a dict of sizes, run in
     this process."""
     axis = model_axis(mesh, rules)
+    size = mesh_shape(mesh)[axis] if axis else 1
+    return ModelRanks(size, range(size))
+
+
+def emulated_expert_ranks(mesh, rules: Rules = DEFAULT_RULES) -> ModelRanks:
+    """Every rank of the expert axis of ``mesh``, a dict of sizes, run in
+    this process."""
+    axis = logical_to_spec(("batch", "expert"), mesh, rules)[1]
     size = mesh_shape(mesh)[axis] if axis else 1
     return ModelRanks(size, range(size))
 

@@ -29,7 +29,9 @@ import torch.distributed as dist
 from tony_tpu_torch.ops.attention import ForwardStash, _check_kv_heads
 from tony_tpu_torch.parallel.ring_attention import (_single_chunk,
                                                     emulate_mesh,
-                                                    expand_kv_unless)
+                                                    expand_kv_unless,
+                                                    ring_attention_emulated,
+                                                    ring_attention_local)
 
 
 def _to_heads_send(x, cp: int):
@@ -166,3 +168,29 @@ def ulysses_attention(q, k, v, mesh, *, causal: bool = True,
             qs, ks, vs, causal=causal, scale=scale),
         q, k, v, mesh, batch_axes=batch_axes, seq_axis=seq_axis,
         head_axis=head_axis)
+
+
+def context_attention(q, k, v, lay, *, strategy: str = "ring",
+                      causal: bool = True,
+                      stash: ForwardStash | None = None):
+    """Attention under a layout ``lay`` with a live cp axis, by
+    ``strategy``: the ring rides GQA K/V unexpanded, Ulysses expands them
+    when their heads do not split over cp. ``lay`` a distributed
+    :class:`~tony_tpu_torch.parallel.spmd.Layout`: q/k/v are this rank's
+    sequence chunk, and the ranks attend together in its cp group. ``lay``
+    an :class:`~tony_tpu_torch.parallel.spmd.EmulatedCp`: q/k/v are the
+    global tensors, cut into every rank's chunk and run by the emulated
+    bodies in this process."""
+    cp = lay.cp_size
+    if strategy == "ulysses":
+        k, v = expand_kv_unless(k, v, q.shape[2], cp)
+    if lay.cp_group is not None:
+        if strategy == "ulysses":
+            return ulysses_attention_local(q, k, v, lay.cp_group,
+                                           causal=causal, stash=stash)
+        return ring_attention_local(q, k, v, lay.cp_group, causal=causal,
+                                    stash=stash)
+    qs, ks, vs = (list(t.chunk(cp, dim=1)) for t in (q, k, v))
+    fn = (ulysses_attention_emulated if strategy == "ulysses"
+          else ring_attention_emulated)
+    return torch.cat(fn(qs, ks, vs, causal=causal, stash=stash), dim=1)

@@ -732,6 +732,18 @@ class ServingRouter(FrameServerBase):
                     live = idle
             return min(live, key=self._load_key)
 
+    def _release_locked(self, sess: _RouterSession) -> bool:
+        """Take ``sess`` out of the live sessions (the lock held). True
+        when this call removed it: the caller then owns the stream's one
+        terminal frame. False when another path (stop's sweep, a client
+        disconnect, a racing failover) removed it first and owns it."""
+        return self._sessions.pop((sess.conn.id, sess.crid), None) is sess
+
+    def _release(self, sess: _RouterSession) -> bool:
+        """:meth:`_release_locked` under the lock."""
+        with self._lock:
+            return self._release_locked(sess)
+
     def _unassign_locked(self, sess: _RouterSession) -> None:
         """Release a session's assignment counts (BOTH halves of a
         disaggregated pair). Call exactly once per removal from
@@ -921,9 +933,7 @@ class ServingRouter(FrameServerBase):
         t0 = time.perf_counter()
         placed = self._place(sess, exclude=None)
         self._place_h.observe(time.perf_counter() - t0)
-        if not placed:
-            with self._lock:
-                self._sessions.pop(key, None)
+        if not placed and self._release(sess):
             conn.send(P.ERROR, rid, P.pack_json(
                 {"message": "no live replicas"}))
 
@@ -973,8 +983,9 @@ class ServingRouter(FrameServerBase):
             if self._sessions.get((sess.conn.id, sess.crid)) is not sess:
                 return True
             if sess.cancelled:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
-                doomed = True
+                doomed = self._release_locked(sess)
+                if not doomed:
+                    return True
             else:
                 doomed = False
                 sess.link = token_link
@@ -1424,7 +1435,7 @@ class ServingRouter(FrameServerBase):
                 self._by_rrid[rrid] = sess
                 return
             else:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
+                owned = self._release_locked(sess)
                 self._unassign_locked(sess)
                 if mig is not None and not mig.acked:
                     # the OLD side finished the stream (eos/budget/
@@ -1444,13 +1455,13 @@ class ServingRouter(FrameServerBase):
             self._preempt_requeued_c.inc()
             if self._place(sess, exclude=None):
                 return
-            with self._lock:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
-            sess.conn.send(P.ERROR, sess.crid, P.pack_json(
-                {"message": "no live replicas"}))
+            if self._release(sess):
+                sess.conn.send(P.ERROR, sess.crid, P.pack_json(
+                    {"message": "no live replicas"}))
             return
-        sess.conn.send(P.RETIRED, sess.crid, P.pack_json(
-            {"reason": reason, "tokens": len(sess.streamed)}))
+        if owned:
+            sess.conn.send(P.RETIRED, sess.crid, P.pack_json(
+                {"reason": reason, "tokens": len(sess.streamed)}))
 
     def _replica_handoff(self, link: _ReplicaLink, rrid: int,
                          obj: dict) -> None:
@@ -1517,8 +1528,7 @@ class ServingRouter(FrameServerBase):
             sess.migrating = None
             old_link = sess.link
             retry = retryable and not sess.cancelled
-            if not retry:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
+            owned = not retry and self._release_locked(sess)
         for l, r in tombstones:
             l.send(P.CANCEL, r)
         if retry:
@@ -1534,10 +1544,11 @@ class ServingRouter(FrameServerBase):
             self._failovers_c.inc()
             if self._place(sess, exclude=old_link):
                 return
-            with self._lock:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
+            owned = self._release(sess)
             msg = "no live replicas"
-        sess.conn.send(P.ERROR, sess.crid, P.pack_json({"message": msg}))
+        if owned:
+            sess.conn.send(P.ERROR, sess.crid,
+                           P.pack_json({"message": msg}))
 
     def _replica_busy(self, link: _ReplicaLink, rrid: int,
                       retry_after_ms: int) -> None:
@@ -1567,16 +1578,15 @@ class ServingRouter(FrameServerBase):
             sess.busy_retries += 1
             retry = (sess.cls == "batch" and not sess.cancelled
                      and sess.busy_retries <= BUSY_REQUEUE_CAP)
-            if not retry:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
+            owned = not retry and self._release_locked(sess)
         if retry:
             self._busy_requeued_c.inc()
             if self._place(sess, exclude=link):
                 return
-            with self._lock:
-                self._sessions.pop((sess.conn.id, sess.crid), None)
-        sess.conn.send(P.BUSY, sess.crid, P.pack_json(
-            {"retry_after_ms": retry_after_ms}))
+            owned = self._release(sess)
+        if owned:
+            sess.conn.send(P.BUSY, sess.crid, P.pack_json(
+                {"retry_after_ms": retry_after_ms}))
 
     def _replica_down(self, link: _ReplicaLink) -> None:
         """Replica loss: drain its sessions onto survivors, streamed
@@ -1698,23 +1708,20 @@ class ServingRouter(FrameServerBase):
                 # the client already asked for this session's death —
                 # finishing it as cancelled beats resurrecting it on a
                 # survivor with full remaining budget
-                with self._lock:
-                    self._sessions.pop((sess.conn.id, sess.crid), None)
-                sess.conn.send(P.RETIRED, sess.crid, P.pack_json(
-                    {"reason": "cancelled",
-                     "tokens": len(sess.streamed)}))
+                if self._release(sess):
+                    sess.conn.send(P.RETIRED, sess.crid, P.pack_json(
+                        {"reason": "cancelled",
+                         "tokens": len(sess.streamed)}))
                 continue
             if len(sess.streamed) >= sess.budget:
                 # fully streamed; only the RETIRED frame was lost
-                with self._lock:
-                    self._sessions.pop((sess.conn.id, sess.crid), None)
-                sess.conn.send(P.RETIRED, sess.crid, P.pack_json(
-                    {"reason": "budget", "tokens": len(sess.streamed)}))
+                if self._release(sess):
+                    sess.conn.send(P.RETIRED, sess.crid, P.pack_json(
+                        {"reason": "budget",
+                         "tokens": len(sess.streamed)}))
                 continue
             self._failovers_c.inc()
-            if not self._place(sess, exclude=link):
-                with self._lock:
-                    self._sessions.pop((sess.conn.id, sess.crid), None)
+            if not self._place(sess, exclude=link) and self._release(sess):
                 sess.conn.send(P.ERROR, sess.crid, P.pack_json(
                     {"message": "no live replicas"}))
 
